@@ -1,0 +1,27 @@
+"""Device resolution: explicit, checked, never a silent fallback."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The ``torch.device`` for ``device``, checked to exist.
+
+    Raises instead of falling back: a run that asked for the card and got
+    the CPU would report CPU numbers under the card's name.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(device)!r} requested but torch.cuda.is_available() "
+                "is False; pass device='cpu' to run the plain versions on the CPU"
+            )
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"device {str(device)!r} requested but only "
+                f"{torch.cuda.device_count()} CUDA device(s) exist"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {str(device)!r}; use 'cuda' or 'cpu'")
+    return dev
