@@ -8,7 +8,8 @@ Phases, each of which raises (non-zero exit) on failure:
 1. print the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
 3. hold every kernel to its plain PyTorch version on the card, at the main
-   path's shapes (adult, letter, forestcover; C = 8, depth 4, 16 bins) and
+   paths' shapes (training: adult, letter, forestcover; C = 8, depth 4, 16
+   bins; serving: ``vote_argmax`` at pendigits' and letter's batches) and
    at ragged cases; time the kernel, its plain version and (where one
    exists) the one PyTorch call that computes the same function, each on
    the device alone (replayed from a CUDA graph), and the kernel wrapper's
@@ -20,7 +21,17 @@ Phases, each of which raises (non-zero exit) on failure:
    on a CUDA tensor;
 5. run the adult configuration on the CPU and compare it with the card's;
 6. print ms/round on the card for each dataset, the adult round's ms per
-   stage, and where the adult run's device time goes (``torch.profiler``).
+   stage, and where the adult run's device time goes (``torch.profiler``);
+7. serve through ``repro_torch.launch.serve_fl`` on the card — pendigits
+   with the defaults, saving an artifact, under ``--policy sync`` (the
+   serving main path, with every launch count set to 0 just before), that
+   artifact again with ``--load`` under ``--policy deadline`` (both serving
+   the test split repeatedly for ``WINDOW_S`` seconds), a
+   ``--publish-every 2`` run and letter at 100 rounds — checking that
+   ``vote_argmax`` launched once per batch (and once per warm-up), that no
+   plain version ran on the card and that the vote cache answered what
+   the engine answered; then serve the card's artifacts on the CPU and
+   compare.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Without a card, or beside no copy of
@@ -29,6 +40,7 @@ the repo, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -56,7 +68,17 @@ SOURCES = {
     "tree_hist": ("src/repro_torch/csrc/tree_hist.cu", "src/repro/kernels/tree_hist.py:88"),
     "weighted_errors": ("src/repro_torch/csrc/boost_update.cu", "src/repro/kernels/boost_update.py:51"),
     "weight_update": ("src/repro_torch/csrc/boost_update.cu", "src/repro/kernels/boost_update.py:86"),
+    "vote_argmax": ("src/repro_torch/csrc/vote_argmax.cu", "src/repro/kernels/vote_argmax.py:63"),
 }
+# vote_argmax [T, n, K]: serve_fl's defaults on pendigits (10 rounds, batch
+# 256) and letter at 100 rounds, at the batch and at a whole 4096-row shard
+VOTE_SHAPES = {
+    "pendigits": (10, 256, 10),
+    "letter": (100, 256, 26),
+    "letter_4096": (100, 4096, 26),
+}
+SERVE = OUT / "serve"  # serving artifacts and the rolling checkpoint stream
+WINDOW_S = 1.0  # seconds each policy serves pendigits' test split for
 
 
 class SmokeFailure(RuntimeError):
@@ -285,6 +307,64 @@ def check_weight_update(torch, ops, ref, g):
     return results, worst
 
 
+def vote_gap_agree(votes, a, b, alpha) -> tuple:
+    """(rows where ``a`` and ``b`` differ outside the near-tie gap, rows
+    inside it, rows inside it where they differ): a row whose top two vote
+    sums lie within 1e-5·Σ|α| may go either way when the members are
+    summed in another order."""
+    top2 = votes.topk(2, dim=-1).values
+    near = top2[:, 0] - top2[:, 1] <= 1e-5 * float(alpha.abs().sum())
+    differ = a != b
+    return int((differ & ~near).sum()), int(near.sum()), int((differ & near).sum())
+
+
+def check_vote_argmax(torch, ops, ref, g):
+    """Exact agreement with the plain version at the serving shapes, with
+    out-of-range predictions and constructed ties (half-integer alphas
+    from a few values: every vote sum is exact in f32, so the summation
+    order cannot matter), and on arbitrary alphas outside the near-tie gap.
+    The error returned is the largest |kernel - plain| class index over the
+    exact cases; rows that differ inside the near-tie gap are counted
+    apart."""
+    results, worst = {}, 0
+    cases = [(name, T, n, K) for name, (T, n, K) in VOTE_SHAPES.items()]
+    cases += [("ragged", 13, 1001, 5), ("ragged", 1, 1, 2), ("ragged", 0, 7, 3),
+              ("ragged", 300, 333, 7), ("ragged", 4, 300, 400)]  # K = 400 opts in to > 48 KB
+    for name, T, n, K in cases:
+        preds = torch.randint(-1, K + 1, (T, n), generator=g, dtype=torch.int32).to(DEV)
+        alpha = (torch.randint(0, 4, (T,), generator=g).float() * 0.5).to(DEV)
+        got = ops.vote_argmax(preds, alpha, n_classes=K)
+        want = ref.vote_argmax_ref(preds, alpha, K)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and got.shape == (n,), f"vote_argmax {name}: {got.dtype} {tuple(got.shape)}")
+        err = int((got.long() - want.long()).abs().max()) if n else 0
+        worst = max(worst, err)
+        check(err == 0, f"vote_argmax {name} [{T}, {n}, {K}]: "
+              f"{int((got != want).sum())} rows differ from the plain version")
+        if name in VOTE_SHAPES:
+            alpha_r = torch.rand(T, generator=g).to(DEV) * 3.0  # arbitrary weights
+            votes = torch.einsum("t,tnk->nk", alpha_r,
+                                 (preds.unsqueeze(-1) == torch.arange(K, device=DEV)).float())
+            differ, near, near_differ = vote_gap_agree(
+                votes, ops.vote_argmax(preds, alpha_r, n_classes=K),
+                ref.vote_argmax_ref(preds, alpha_r, K), alpha_r)
+            check(differ == 0, f"vote_argmax {name}: {differ} rows differ outside the near-tie gap")
+            clean = torch.randint(0, K, (T, n), generator=g, dtype=torch.int32).to(DEV)
+            bms, by = bound_ms(4 * (T * n + T + n), 2 * T * n)  # a compare and an add per vote
+            # no single PyTorch call computes a weighted vote and its argmax: no library time
+            results[name] = {
+                "shape": f"preds [{T}, {n}], K={K}", "max_abs_err": err, "bound_ms": bms,
+                "bound_by": by, "near_tie_rows": near, "near_tie_rows_differ": near_differ,
+                **timings(torch, lambda: ops.vote_argmax(clean, alpha_r, n_classes=K),
+                          lambda: ref.vote_argmax_ref(clean, alpha_r, K)),
+            }
+    log(f"vote_argmax: {len(cases)} cases equal to the plain version; arbitrary alphas agree "
+        f"outside the near-tie gap (rows inside, of them differing: "
+        + ", ".join(f"{k} {v['near_tie_rows']}, {v['near_tie_rows_differ']}"
+                    for k, v in results.items()) + ")")
+    return results, float(worst)
+
+
 # -- phases 4-6: the federation ---------------------------------------------------
 
 
@@ -361,6 +441,123 @@ def profile_round(torch, fl_run, card: str) -> None:
         log(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:110]}")
 
 
+# -- phase 7: serving ---------------------------------------------------------------
+
+
+def run_serve(torch, ops, ref, serve_fl, argv: list, what: str) -> tuple:
+    """One ``serve_fl`` invocation as a user would make it, with every
+    launch count set to 0 just before; checks one ``vote_argmax`` launch
+    per batch and per warm-up, and no plain version on the card (the
+    cache-equals-engine check is serve_fl's own: it raises)."""
+    log(f"$ python -m repro_torch.launch.serve_fl {' '.join(argv)}")
+    calls = dict(ref.device_calls)
+    ops.reset_launches()
+    out = serve_fl.main(argv)
+    launches = ops.launch_counts()
+    st = out["stats"]
+    check(launches["vote_argmax"] == st.batches + st.warmup_batches,
+          f"{what}: {launches['vote_argmax']} vote_argmax launches for {st.batches} batches "
+          f"and {st.warmup_batches} warm-ups")
+    check(ref.device_calls == calls, f"{what}: a plain version ran on CUDA tensors: {ref.device_calls}")
+    check(0.0 < out["f1"] <= 1.0, f"{what}: F1 {out['f1']} outside (0, 1]")
+    return out, launches
+
+
+def card_vs_cpu(torch, path: Path, dataset: str, card_pred, what: str) -> str:
+    """Serve the card's artifact on the CPU (plain versions) over the same
+    rows; the two must agree on every row outside the near-tie gap."""
+    from repro_torch.core import boosting
+    from repro_torch.data import get_dataset
+    from repro_torch.serve import ServeEngine, load_artifact
+
+    art = load_artifact(path, "cpu")
+    _, (_, _, Xte, _) = get_dataset(dataset, torch.Generator().manual_seed(0))
+    cpu_pred = ServeEngine.from_artifact(art).predict(Xte.numpy())
+    votes = boosting.ensemble_votes(art.learner, art.spec, art.ensemble, Xte)
+    used = art.ensemble.alpha[: art.ensemble.count]
+    differ, near, _ = vote_gap_agree(votes, torch.from_numpy(cpu_pred), torch.from_numpy(card_pred),
+                                     used)
+    check(differ == 0, f"{what}: card and CPU differ on {differ} rows outside the near-tie gap")
+    agree = int((torch.from_numpy(cpu_pred) == torch.from_numpy(card_pred)).sum())
+    return (f"{what}: card and CPU agree on {agree}/{len(cpu_pred)} rows; "
+            f"{near} rows inside the near-tie gap")
+
+
+def serve_phase(torch, ops, ref, card: str) -> dict:
+    from repro_torch.launch import serve_fl
+
+    SERVE.mkdir(parents=True, exist_ok=True)
+    art = SERVE / "pendigits.mafl"
+    # both policies serve the split again and again for WINDOW_S, so their
+    # p99 rests on some 10^5 requests rather than one pass's 3498
+    window = ["--serve-seconds", str(WINDOW_S)]
+    sync, launches = run_serve(torch, ops, ref, serve_fl,
+                               ["--dataset", "pendigits", "--artifact", str(art), "--policy", "sync",
+                                *window], "pendigits sync")
+    deadline, _ = run_serve(torch, ops, ref, serve_fl,
+                            ["--dataset", "pendigits", "--artifact", str(art), "--load",
+                             "--policy", "deadline", *window], "pendigits deadline (--load)")
+    check(bool((sync["pred"] == deadline["pred"]).all()), "the loaded artifact served other votes")
+    pub_dir = SERVE / "pendigits_pub"
+    shutil.rmtree(pub_dir, ignore_errors=True)
+    pub, _ = run_serve(torch, ops, ref, serve_fl,
+                       ["--dataset", "pendigits", "--publish-every", "2", "--publish-dir", str(pub_dir)],
+                       "pendigits --publish-every 2")
+    check(len(pub["published"]) == 5, f"{len(pub['published'])} checkpoints published, not 5")
+    letter_art = SERVE / "letter.mafl"
+    letter, _ = run_serve(torch, ops, ref, serve_fl,
+                          ["--dataset", "letter", "--rounds", "100", "--artifact", str(letter_art)],
+                          "letter 100 rounds")
+    log(card_vs_cpu(torch, art, "pendigits", sync["pred"], "pendigits"))
+    log(card_vs_cpu(torch, letter_art, "letter", letter["pred"], "letter"))
+    rows = {"sync": sync, "deadline": deadline, "letter sync": letter}
+    log(f"serving on {card}: " + "; ".join(
+        f"{k} {v['requests']} requests in {v['seconds']:.3f} s = {v['requests'] / v['seconds']:.0f} "
+        f"req/s p50 {v['p50_ms']:.3f} ms p99 {v['p99_ms']:.3f} ms "
+        f"({v['stats'].batches} batches, batch p50 {1e3 * v['stats'].batch_seconds.percentile(50):.3f} "
+        f"ms p99 {1e3 * v['stats'].batch_seconds.percentile(99):.3f} ms"
+        + (f", queue wait p50 {v['wait_p50_ms']:.3f} ms p99 {v['wait_p99_ms']:.3f} ms"
+           if "wait_p50_ms" in v else "") + ")"
+        for k, v in rows.items()))
+    profile_serving(torch, art, card)
+    st = sync["stats"]
+    return launches, st.batches + st.warmup_batches
+
+
+def profile_serving(torch, path: Path, card: str) -> None:
+    """Where a served batch's time goes: the device's busy share and its
+    kernels over ``engine.predict`` of pendigits' test split (14 batches,
+    warm engine), from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import get_dataset
+    from repro_torch.serve import ServeEngine, load_artifact
+
+    engine = ServeEngine.from_artifact(load_artifact(path))
+    engine.warmup()
+    _, (_, _, Xte, _) = get_dataset("pendigits", torch.Generator().manual_seed(0))
+    X = Xte.numpy()
+    engine.predict(X)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.predict(X)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    rows = [(e.key, e.count, getattr(e, "device_time_total", None) or e.cuda_time_total)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(r[2] for r in rows)
+    if not busy_us:
+        log(f"serving profile: torch.profiler recorded no device time on {card}; busy share not measured")
+        return
+    rows.sort(key=lambda r: -r[2])
+    log(f"serving profile (pendigits engine.predict, 3498 rows, 14 batches, profiler on, {card}): "
+        f"wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+        f"({100 * busy_us / wall_us:.1f}%), {sum(r[1] for r in rows)} device activities")
+    for key, count, us in rows[:8]:
+        log(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:110]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -410,6 +607,7 @@ def main() -> int:
         "tree_hist": check_tree_hist(torch, ops, ref, g),
         "weighted_errors": check_weighted_errors(torch, ops, ref, g),
         "weight_update": check_weight_update(torch, ops, ref, g),
+        "vote_argmax": check_vote_argmax(torch, ops, ref, g),
     }
     detail = {k: v[0] for k, v in per_kernel.items()}
     log("kernel_detail " + json.dumps({"card": card, "kernels": detail}))
@@ -423,6 +621,7 @@ def main() -> int:
     launches = ops.launch_counts()
     want = {"tree_hist": MAIN["rounds"] * DEPTH, "weighted_errors": MAIN["rounds"],
             "weight_update": MAIN["rounds"]}
+    want["vote_argmax"] = 0
     check(launches == want, f"main path launches {launches} != {want}")
     check(ref.device_calls == device_calls,
           f"a plain version ran on CUDA tensors in the main path: {ref.device_calls}")
@@ -433,8 +632,8 @@ def main() -> int:
         ops.reset_launches()
         run = run_fl(fl_run, ds, 5, "cuda", f"{ds}_cuda")
         got = ops.launch_counts()
-        check(got == {"tree_hist": 5 * DEPTH, "weighted_errors": 5, "weight_update": 5},
-              f"{ds} launches {got}")
+        check(got == {"tree_hist": 5 * DEPTH, "weighted_errors": 5, "weight_update": 5,
+                      "vote_argmax": 0}, f"{ds} launches {got}")
         check(ref.device_calls == device_calls, f"{ds}: a plain version ran on CUDA tensors")
         check_run(run, 5, f"{ds} on the card")
         log(f"{ds}: final F1 {run['history'][-1]['f1']:.4f}, launches {got}")
@@ -465,15 +664,22 @@ def main() -> int:
         + f"; first adult run, set-up and warm-up included: {1e3 * main_s / MAIN['rounds']:.3f}")
     stage_breakdown(torch, fl_run, card)
     profile_round(torch, fl_run, card)
+
+    # 7. serving; the pendigits sync run is the serving main path
+    serve_launches, serve_dispatches = serve_phase(torch, ops, ref, card)
+    launches["vote_argmax"] = serve_launches["vote_argmax"]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
 
     kernels = []
     for name, (res, worst) in per_kernel.items():
         src, replaces = SOURCES[name]
-        main_shape = res["adult"]
+        serving = name == "vote_argmax"
+        main_shape = res["pendigits" if serving else "adult"]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "launches_per_round": launches[name] / MAIN["rounds"],
+            "launches": launches[name],
+            "launches_per_round": None if serving else launches[name] / MAIN["rounds"],
+            "launches_per_batch": launches[name] / serve_dispatches if serving else None,
             "max_abs_err": worst, "max_err": worst,
             "ms": main_shape["ms"], "kernel_ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],

@@ -3,11 +3,11 @@
 The JAX state arrives as plain numpy arrays (the caller converts with
 ``np.asarray``), so this module needs neither JAX nor the JAX package.
 With it, a test starts both sides of a comparison from the same weights,
-bins and ensemble.
+bins and ensemble, and carries an ensemble back (``ensemble_to_numpy``).
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -31,6 +31,27 @@ def tree_params_from_numpy(d: Mapping[str, np.ndarray], device="cpu") -> TreePar
     )
 
 
+def ensemble_from_numpy(d: Mapping[str, np.ndarray], device="cpu") -> Ensemble:
+    """A tree ensemble as numpy arrays -> the port's ``Ensemble``.
+
+    Keys: the tree slots ``feature [T, depth]``, ``threshold [T, depth]``,
+    ``leaf_logits [T, 2**depth, K]``; ``alpha [T]`` and ``count``."""
+    return Ensemble(
+        params=tree_params_from_numpy(d, device),
+        alpha=_t(d["alpha"], torch.float32, device),
+        count=int(np.asarray(d["count"])),
+    )
+
+
+def ensemble_to_numpy(ens: Ensemble) -> Dict[str, np.ndarray]:
+    """The reverse of :func:`ensemble_from_numpy`; ``count`` comes back as
+    a 0-dim int32, as the JAX ensemble holds it."""
+    out = {k: v.detach().cpu().numpy() for k, v in ens.params._asdict().items()}
+    out["alpha"] = ens.alpha.detach().cpu().numpy()
+    out["count"] = np.asarray(ens.count, np.int32)
+    return out
+
+
 def boost_state_from_numpy(d: Mapping[str, np.ndarray], device="cpu") -> BoostState:
     """A JAX AdaBoost.F state as numpy arrays -> the port's ``BoostState``.
 
@@ -38,11 +59,7 @@ def boost_state_from_numpy(d: Mapping[str, np.ndarray], device="cpu") -> BoostSt
     [T, depth]``, ``leaf_logits [T, 2**depth, K]``; ``alpha [T]`` and
     ``count``; ``weights [C, n]``; the fit cache ``edges [C, d, B]`` and
     ``bin_idx [C, n, d]``."""
-    ens = Ensemble(
-        params=tree_params_from_numpy(d, device),
-        alpha=_t(d["alpha"], torch.float32, device),
-        count=int(np.asarray(d["count"])),
-    )
+    ens = ensemble_from_numpy(d, device)
     cache = BinnedDataset(
         edges=_t(d["edges"], torch.float32, device),
         bin_idx=_t(d["bin_idx"], torch.int32, device),

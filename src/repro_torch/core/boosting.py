@@ -43,6 +43,13 @@ def init_ensemble(learner: WeakLearner, spec: LearnerSpec, T: int, device) -> En
     return Ensemble(params=params, alpha=torch.zeros(T, dtype=torch.float32, device=device), count=0)
 
 
+def ensemble_to(ens: Ensemble, device) -> Ensemble:
+    """The same ensemble with every tensor on ``device`` (a copy unless it
+    is there already)."""
+    params = type(ens.params)(*(x.to(device) for x in ens.params))
+    return Ensemble(params, ens.alpha.to(device), ens.count)
+
+
 def ensemble_votes(learner: WeakLearner, spec: LearnerSpec, ens: Ensemble, X: torch.Tensor) -> torch.Tensor:
     """alpha-weighted vote tally [n, K] over the used slots."""
     T = ens.alpha.shape[0]

@@ -11,6 +11,8 @@ update are all reductions over it:
   * ``chosen_mis``    — a row slice of ``preds``, never a second predict;
   * ``update_weights`` — the ``weight_update`` kernel over the flattened
     ``[C*n]`` weights, then a plain global renormalisation;
+  * ``member_prediction`` — the one member-vote rule, shared by the
+    incremental tally and the serving engine;
   * ``VoteTally`` — incremental evaluation: a running ``[n, K]`` tally
     that adds only the members appended since the last eval.
 
@@ -107,13 +109,23 @@ def init_tally(n: int, n_classes: int, device) -> VoteTally:
     return VoteTally(torch.zeros(n, n_classes, dtype=torch.float32, device=device), 0)
 
 
+def member_prediction(learner: WeakLearner, spec: LearnerSpec, params_t: Any,
+                      X: torch.Tensor) -> torch.Tensor:
+    """A member's [n] class prediction (or [T, n] for a slot stack) — the
+    single definition of the member vote rule, shared by incremental
+    evaluation (:func:`tally_new_votes`) and the serving engine.
+    DistBoost.F committees, which vote within the member first, are not
+    ported (ROADMAP Queue 1 item 7)."""
+    return learner.predict(spec, params_t, X)
+
+
 def tally_new_votes(
     learner: WeakLearner, spec: LearnerSpec, ensemble, tally: VoteTally, X: torch.Tensor
 ) -> VoteTally:
     """Fold members ``[tally.counted, ensemble.count)`` into the tally."""
     votes = tally.votes
     for t in range(tally.counted, ensemble.count):
-        pred = learner.predict(spec, take_slot(ensemble.params, t), X)
+        pred = member_prediction(learner, spec, take_slot(ensemble.params, t), X)
         votes = votes + ensemble.alpha[t] * F.one_hot(pred.long(), spec.n_classes).to(votes.dtype)
     return VoteTally(votes, ensemble.count)
 

@@ -5,13 +5,16 @@ A round is the composed fit / score / aggregate stages of
 ``core/boosting.py`` run eagerly on the federation's device; its three hot
 spots launch the hand-written kernels on the card.  Nothing in the round
 loop copies to the host: the round's metrics stay device tensors until an
-evaluation row reads them, all in one transfer.  Communication
-accounting, the interpreted (OpenFL-style) path, heterogeneous and
-elastic federations are not ported yet.
+evaluation row reads them, all in one transfer, and a serving checkpoint
+(``publish_every``) copies the ensemble to the host once.  Communication
+is modelled from shapes, as the JAX package's fused path does.  The
+interpreted (OpenFL-style) path, heterogeneous and elastic federations
+are not ported yet.
 """
 from __future__ import annotations
 
 import time
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -19,10 +22,27 @@ import torch
 from repro_torch.core import boosting, scoring
 from repro_torch.core.metrics import f1_macro
 from repro_torch.core.plan import Plan
+from repro_torch.core.serialization import wire_size
 from repro_torch.device import resolve_device
 from repro_torch.learners.base import LearnerSpec, get_learner
+from repro_torch.obs import metrics as obs_metrics, trace
 
 _METRIC_KEYS = ("epsilon", "alpha", "chosen")
+
+# Process-wide federation metric families (docs/ARCHITECTURE.md,
+# "Observability").
+_M_ROUNDS = obs_metrics.counter(
+    "mafl_federation_rounds_total", "Federated rounds completed (all paths)."
+)
+_M_COMM = obs_metrics.counter(
+    "mafl_federation_comm_bytes_total",
+    "Wire bytes between collaborators and the aggregator: measured on the "
+    "interpreted path, modelled from artifact shapes on the fused path.",
+)
+_M_ROUND_SECONDS = obs_metrics.histogram(
+    "mafl_federation_round_seconds",
+    "Wall-clock seconds per federated round (history-row averages).",
+)
 
 
 class Federation:
@@ -42,16 +62,41 @@ class Federation:
         self.X_test = torch.as_tensor(X_test, dtype=torch.float32).to(dev).contiguous()
         self.y_test = torch.as_tensor(y_test, dtype=torch.int32).to(dev).contiguous()
         self.n_collaborators = self.Xs.shape[0]
-        self._row_marker = (time.perf_counter(), 0)  # (wall time, round) at the last row
+        self.comm_bytes = 0
+        # (wall time, comm_bytes, round) at the previous history row
+        self._row_marker = (time.perf_counter(), 0, 0)
         self.history: List[Dict[str, float]] = []
+        self.published: List[Path] = []  # checkpoint artifacts, oldest first
         self.state: Optional[boosting.BoostState] = None
         self._round_metrics: List[Dict[str, torch.Tensor]] = []
 
     # -- main loop ---------------------------------------------------------
-    def run(self, rounds: Optional[int] = None, eval_every: int = 1) -> List[Dict[str, float]]:
+    def run(
+        self,
+        rounds: Optional[int] = None,
+        eval_every: int = 1,
+        *,
+        publish_every: Optional[int] = None,
+        publish_dir: Optional[str] = None,
+        on_checkpoint: Optional[Callable[[Path, int], None]] = None,
+    ) -> List[Dict[str, float]]:
         """Run the federation; a history row every ``eval_every`` rounds
-        and after the last."""
-        return self._run_fused(rounds or self.plan.rounds, eval_every)
+        and after the last.
+
+        ``publish_every=k`` emits a versioned serving artifact
+        (``serve/artifact.publish_artifact``) into ``publish_dir`` every k
+        rounds and after the final round.  Capacity is fixed at
+        ``rounds``, so successive checkpoints grow append-only and a
+        ``ServeEngine`` / ``ShardVoteCache`` consumer folds only the
+        appended members.  ``on_checkpoint(path, round)`` fires after each
+        publish (e.g. to hot-swap a live engine)."""
+        if publish_every is not None:
+            if publish_every <= 0:
+                raise ValueError(f"publish_every must be positive, got {publish_every}")
+            if publish_dir is None:
+                raise ValueError("publish_every requires a publish_dir")
+        return self._run_fused(rounds or self.plan.rounds, eval_every,
+                               publish_every, publish_dir, on_checkpoint)
 
     def per_round(self) -> List[Dict[str, float]]:
         """epsilon / alpha / chosen of every round run so far, fetched from
@@ -68,34 +113,75 @@ class Federation:
         ]
 
     def _history_extras(self, r: int) -> Dict[str, float]:
-        """round_seconds since the previous history row (a per-round
-        average when rows are sparser than rounds)."""
+        """round_seconds / comm_bytes deltas since the previous history
+        row (per-round averages when rows are sparser than rounds)."""
         now = time.perf_counter()
-        t0, r0 = self._row_marker
-        self._row_marker = (now, r + 1)
-        return {"round_seconds": (now - t0) / max(r + 1 - r0, 1)}
+        t0, c0, r0 = self._row_marker
+        self._row_marker = (now, self.comm_bytes, r + 1)
+        dt = (now - t0) / max(r + 1 - r0, 1)
+        _M_ROUND_SECONDS.observe(dt)
+        return {"round_seconds": dt, "comm_bytes": float(self.comm_bytes - c0)}
+
+    def _fused_comm_model(self, state: boosting.BoostState) -> int:
+        """Per-round wire bytes of the fused AdaBoost.F round, modelled
+        from shapes (``wire_size`` reads no tensor): every collaborator
+        uploads its hypothesis, the aggregator broadcasts the hypothesis
+        space for validation (C-1 extra copies each), then the (chosen
+        hypothesis, alpha) pair."""
+        C = self.n_collaborators
+        ens = state.ensemble
+        h = wire_size(ens.params) // max(ens.alpha.shape[0], 1)  # one slot
+        return C * h + C * h * (C - 1) + (h + 8) * C
+
+    def _publish_checkpoint(self, state: boosting.BoostState, round_idx: int,
+                            publish_dir: str, on_checkpoint) -> None:
+        """One rolling-artifact checkpoint (version = 1-based round): the
+        ensemble goes to the host once, then to disk."""
+        from repro_torch.serve.artifact import publish_artifact  # serving is optional at train time
+
+        host = boosting.ensemble_to(state.ensemble, "cpu")
+        path = publish_artifact(
+            publish_dir, self.spec, host, version=round_idx + 1,
+            extra={"round": round_idx + 1, "algorithm": self.plan.algorithm},
+        )
+        self.published.append(path)
+        if on_checkpoint is not None:
+            on_checkpoint(path, round_idx + 1)
 
     def _fused_loop(self, rounds: int, eval_every: int, state, round_fn: Callable,
-                    evaluate: Callable) -> List[Dict[str, float]]:
+                    evaluate: Callable, per_round_comm: int, publish_every: Optional[int],
+                    publish_dir: Optional[str], on_checkpoint) -> List[Dict[str, float]]:
         """The round loop.  Metrics reach the host only at an eval row:
         ``f1`` and the round's metrics go over in one ``tolist``."""
-        self._row_marker = (time.perf_counter(), 0)
+        self._row_marker = (time.perf_counter(), self.comm_bytes, 0)
+        algorithm = self.plan.algorithm
         for r in range(rounds):
-            state, metrics = round_fn(state, self.Xs, self.ys, self.masks)
-            self._round_metrics.append(metrics)
-            if (r + 1) % eval_every == 0 or r == rounds - 1:
-                f1 = evaluate(state)
-                f1_, eps, alpha, chosen = torch.stack([f1.to(torch.float32)] + [
-                    metrics[k].to(torch.float32) for k in _METRIC_KEYS
-                ]).tolist()  # the one host sync of this eval
-                self.history.append({
-                    "round": r, "f1": f1_, "epsilon": eps, "alpha": alpha,
-                    "chosen": round(chosen), **self._history_extras(r),
-                })
+            with trace.span("round", round=r, algorithm=algorithm):
+                state, metrics = round_fn(state, self.Xs, self.ys, self.masks)
+                self._round_metrics.append(metrics)
+                self.comm_bytes += per_round_comm
+                _M_COMM.inc(per_round_comm)
+                _M_ROUNDS.inc()
+                if (r + 1) % eval_every == 0 or r == rounds - 1:
+                    with trace.span("round.eval", round=r):
+                        f1 = evaluate(state)
+                        f1_, eps, alpha, chosen = torch.stack([f1.to(torch.float32)] + [
+                            metrics[k].to(torch.float32) for k in _METRIC_KEYS
+                        ]).tolist()  # the one host sync of this eval
+                    self.history.append({
+                        "round": r, "f1": f1_, "epsilon": eps, "alpha": alpha,
+                        "chosen": round(chosen), **self._history_extras(r),
+                    })
+                if publish_every and ((r + 1) % publish_every == 0 or r == rounds - 1):
+                    # the slot buffers keep their capacity and gain one member
+                    # a round, so the stream is append-only by construction
+                    with trace.span("round.publish", round=r):
+                        self._publish_checkpoint(state, r, publish_dir, on_checkpoint)
         self.state = state
         return self.history
 
-    def _run_fused(self, rounds: int, eval_every: int) -> List[Dict[str, float]]:
+    def _run_fused(self, rounds: int, eval_every: int, publish_every: Optional[int] = None,
+                   publish_dir: Optional[str] = None, on_checkpoint=None) -> List[Dict[str, float]]:
         learner, spec = self.learner, self.spec
         state = boosting.init_boost_state(learner, spec, rounds, self.masks, X=self.Xs)
         stages = boosting.adaboost_f_stages(learner, spec)
@@ -112,9 +198,13 @@ class Federation:
             tally = scoring.tally_new_votes(learner, spec, s.ensemble, tally, self.X_test)
             return f1_macro(self.y_test, scoring.tally_predict(tally), spec.n_classes)
 
-        return self._fused_loop(rounds, eval_every, state, round_fn, evaluate)
+        return self._fused_loop(rounds, eval_every, state, round_fn, evaluate,
+                                self._fused_comm_model(state), publish_every, publish_dir,
+                                on_checkpoint)
 
 
 def history_summary(fed: Federation) -> Dict[str, Any]:
-    """JSON-ready record of a run: history rows and every round's metrics."""
-    return {"history": fed.history, "rounds": fed.per_round(), "device": str(fed.device)}
+    """JSON-ready record of a run: history rows, every round's metrics and
+    the modelled wire bytes."""
+    return {"history": fed.history, "rounds": fed.per_round(), "comm_bytes": fed.comm_bytes,
+            "device": str(fed.device)}

@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("tree_hist.cu", "boost_update.cu")
+SOURCES = ("tree_hist.cu", "boost_update.cu", "vote_argmax.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -39,6 +39,8 @@ _SIGNATURES = {
     "repro_weighted_errors": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # w, mis, mask, alpha, out, N, blocks, threads, stream
     "repro_weight_update": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    # preds, alpha, out, T, n, K, threads, stream
+    "repro_vote_argmax": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -11,11 +11,13 @@ from typing import Dict
 
 from repro_torch.kernels.boost_update import weight_update, weighted_errors
 from repro_torch.kernels.tree_hist import tree_hist
+from repro_torch.kernels.vote_argmax import vote_argmax
 
 KERNELS = {
     "tree_hist": tree_hist,
     "weighted_errors": weighted_errors,
     "weight_update": weight_update,
+    "vote_argmax": vote_argmax,
 }
 
 
@@ -29,4 +31,7 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["tree_hist", "weighted_errors", "weight_update", "reset_launches", "launch_counts"]
+__all__ = [
+    "tree_hist", "weighted_errors", "weight_update", "vote_argmax",
+    "reset_launches", "launch_counts",
+]

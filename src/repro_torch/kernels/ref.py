@@ -8,7 +8,9 @@ tensors on the CPU.  They answer to ``repro/kernels/ref.py``:
   (``index_add_``) over combined (collaborator, leaf, feature, bin) ids;
 * ``weighted_errors_ref`` — a last-axis ``sum(mis * w, -1)``, not a
   matvec, with an optional leading ``[C]`` batch;
-* ``boost_weight_update_ref`` — ``w * exp(alpha * mis) * mask``.
+* ``boost_weight_update_ref`` — ``w * exp(alpha * mis) * mask``;
+* ``vote_argmax_ref`` — a comparison one-hot, an ``einsum`` over members
+  and an ``argmax`` (first maximum).
 
 ``device_calls`` counts calls made on CUDA tensors, so a run on the card
 can show that its main path never took a plain version.
@@ -19,7 +21,9 @@ from typing import Dict
 
 import torch
 
-device_calls: Dict[str, int] = {"tree_hist": 0, "weighted_errors": 0, "weight_update": 0}
+device_calls: Dict[str, int] = {
+    "tree_hist": 0, "weighted_errors": 0, "weight_update": 0, "vote_argmax": 0,
+}
 
 
 def _note(name: str, t: torch.Tensor) -> None:
@@ -85,3 +89,21 @@ def boost_weight_update_ref(
     """w * exp(alpha * mis) * mask (renormalisation happens globally)."""
     _note("weight_update", w)
     return w * torch.exp(alpha * mis) * mask
+
+
+def vote_argmax_ref(
+    preds: torch.Tensor,  # [T, n] int — per-member class predictions
+    alpha: torch.Tensor,  # [T] f32 — member weights (unused slots = 0)
+    n_classes: int,
+) -> torch.Tensor:
+    """pred[n] = argmax_k sum_t alpha_t * 1[preds[t, n] == k]; [n] int32.
+
+    The one-hot is a comparison with ``arange(K)``, not ``F.one_hot``
+    (which raises on out-of-range values), so a prediction outside
+    ``[0, K)`` votes for nothing, as ``jax.nn.one_hot`` makes it.  The
+    ``einsum`` may sum the members in any order."""
+    _note("vote_argmax", alpha)
+    k = torch.arange(n_classes, dtype=preds.dtype, device=preds.device)
+    onehot = (preds.unsqueeze(-1) == k).to(alpha.dtype)  # [T, n, K]
+    votes = torch.einsum("t,tnk->nk", alpha, onehot)
+    return torch.argmax(votes, dim=-1).to(torch.int32)

@@ -7,7 +7,10 @@
 Runs AdaBoost.F over oblivious ``decision_tree`` learners on an IID split,
 on the card by default (``--device cpu`` runs the kernels' plain versions
 on the CPU).  Prints one ``round ... f1 ... alpha ...`` line per
-evaluation and a ``total ...s  final F1 ...`` summary.
+evaluation and a ``total ...s  comm ... MB  final F1 ...`` summary.
+``--publish-every K --publish-dir DIR`` writes a rolling serving
+artifact every K rounds (``serve/artifact.py``); ``--trace`` and
+``--metrics-out`` write the run's spans and metrics.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fl.federation import Federation, history_summary
 from repro_torch.fl.partition import iid_partition
 from repro_torch.learners import LearnerSpec
+from repro_torch.obs import metrics as obs_metrics, trace
 
 
 def default_hparams(depth: int = 4) -> dict:
@@ -54,23 +58,51 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
     ap.add_argument("--history-out", default=None, metavar="PATH",
-                    help="write the run history and every round's metrics as JSON")
+                    help="write the run history, every round's metrics and the "
+                         "modelled comm bytes as JSON")
+    ap.add_argument("--publish-every", type=int, default=None, metavar="K",
+                    help="publish a versioned serving artifact every K rounds")
+    ap.add_argument("--publish-dir", default=None,
+                    help="directory for the rolling artifact stream")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record per-round spans (round/eval/publish) and write a "
+                         "Chrome-trace JSON; also prints a phase-time summary table")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="dump the process metrics registry in Prometheus text format")
     args = ap.parse_args(argv)
+    if args.publish_every is not None and not args.publish_dir:
+        ap.error("--publish-every requires --publish-dir")
     device = resolve_device(args.device)
+    if args.trace:
+        trace.enable()
 
     fed = build_federation(args.dataset, args.collaborators, args.rounds, args.depth,
                            args.seed, device)
     t0 = time.perf_counter()
-    history = fed.run(eval_every=args.eval_every)
+    history = fed.run(eval_every=args.eval_every, publish_every=args.publish_every,
+                      publish_dir=args.publish_dir)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     _print_history(history)
-    print(f"total {dt:.1f}s  final F1 {history[-1]['f1']:.4f}")
+    print(f"total {dt:.1f}s  comm {fed.comm_bytes/1e6:.2f} MB  final F1 {history[-1]['f1']:.4f}")
     if args.history_out:
         with open(args.history_out, "w") as f:
             json.dump(history_summary(fed), f, indent=2)
+    finish_obs(args)
     return history
+
+
+def finish_obs(args) -> None:
+    """Export the trace / metrics dump the run accumulated (shared by
+    fl_run and serve_fl: both expose --trace/--metrics-out)."""
+    if getattr(args, "trace", None):
+        trace.export(args.trace)
+        print(trace.format_summary("phase-time summary"))
+        print(f"trace written to {args.trace} (open in Perfetto or chrome://tracing)")
+    if getattr(args, "metrics_out", None):
+        obs_metrics.dump(args.metrics_out)
+        print(f"metrics written to {args.metrics_out} (Prometheus text format)")
 
 
 def _print_history(history):

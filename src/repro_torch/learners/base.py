@@ -70,6 +70,10 @@ def register(learner: WeakLearner) -> WeakLearner:
     return learner
 
 
+def available_learners() -> list:
+    return sorted(_REGISTRY)
+
+
 def get_learner(name: str) -> WeakLearner:
     if name not in _REGISTRY:
         raise KeyError(f"unknown learner {name!r}; have {sorted(_REGISTRY)}")

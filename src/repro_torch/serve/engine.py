@@ -1,0 +1,261 @@
+"""Fixed-shape micro-batching inference engine (answers to
+``repro/serve/engine.py``, homogeneous local engine).
+
+Serving traffic arrives as ragged row groups.  The engine packs incoming
+rows into static ``[B, d]`` batches (padding the ragged tail) and runs
+one ensemble predict per batch on the ensemble's device:
+
+  * one ``member_prediction`` over the stacked ``[T, ...]`` slot params
+    gives every member's vote, ``[T, B]``;
+  * ``used = (arange(T) < count) * alpha`` weighs them (computed once per
+    published ensemble, not per batch);
+  * one ``ops.vote_argmax`` reduces them: the hand-written kernel on the
+    card, its plain version on the CPU.
+
+The copy of the answers to the host is the batch's one sync: the
+response is then ready.
+
+Three entry points:
+
+  * ``predict(X)``        — synchronous: chunk, pad, run, unpad;
+  * ``submit(X)/flush()`` — the inline micro-batching scheduler: rows
+    queue until a full batch packs (or ``flush`` pads the remainder),
+    results land in ``results`` keyed by the returned request ids;
+  * ``scheduler(...)``    — the async deadline dispatch loop
+    (``serve/scheduler.py``).
+
+``update_ensemble`` swaps in a grown ensemble.  The swap is validated
+against the live ensemble's full structural signature (nesting + every
+leaf's shape/dtype): an ensemble of another learner or spec that merely
+matches ``alpha``'s capacity must not be served.
+
+Not ported: the process-wide compile cache (its counterpart here would be
+a CUDA graph per batch size), the mesh backend, heterogeneous engines and
+committees.  There is no kernel switch: ``ops`` dispatches on the
+tensors' device.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Deque, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.core import scoring
+from repro_torch.core.boosting import Ensemble
+from repro_torch.kernels import ops
+from repro_torch.learners.base import LearnerSpec, WeakLearner
+from repro_torch.obs import metrics as obs_metrics, trace
+from repro_torch.serve.artifact import ensemble_signature
+
+# Process-wide engine metric families: every engine reports into these in
+# addition to its per-instance ``EngineStats``.
+_M_REQUESTS = obs_metrics.counter(
+    "mafl_engine_requests_total", "Rows admitted across all engines."
+)
+_M_BATCHES = obs_metrics.counter(
+    "mafl_engine_batches_total", "Static batches dispatched across all engines."
+)
+_M_PADDED = obs_metrics.counter(
+    "mafl_engine_padded_rows_total", "Padding rows dispatched across all engines."
+)
+_M_BATCH_SECONDS = obs_metrics.histogram(
+    "mafl_engine_batch_seconds", "Per-batch dispatch wall seconds (all engines)."
+)
+_M_REQ_LATENCY = obs_metrics.histogram(
+    "mafl_engine_request_latency_seconds",
+    "Per-request submit-to-result seconds (all engines).",
+)
+
+
+@dataclasses.dataclass
+class EngineStats:
+    requests: int = 0
+    batches: int = 0
+    padded_rows: int = 0
+    # zero batches run by ``warmup``: each launches the kernels once, so a
+    # run's vote_argmax launches are batches + warmup_batches
+    warmup_batches: int = 0
+    # fixed-memory log-spaced histograms: ``.count`` is the sample count,
+    # ``.percentile(p)`` estimates quantiles within ~5% (obs/metrics.py)
+    batch_seconds: obs_metrics.Histogram = dataclasses.field(
+        default_factory=obs_metrics.Histogram
+    )
+    # per-request seconds from submit() to result availability
+    request_latencies: obs_metrics.Histogram = dataclasses.field(
+        default_factory=obs_metrics.Histogram
+    )
+
+
+def _used_weights(ensemble: Ensemble) -> torch.Tensor:
+    """alpha over the used slots, 0 beyond ``count``: [T] f32 on the device."""
+    T = ensemble.alpha.shape[0]
+    live = torch.arange(T, device=ensemble.alpha.device) < ensemble.count
+    return (live.to(torch.float32) * ensemble.alpha).contiguous()
+
+
+class ServeEngine:
+    def __init__(
+        self,
+        learner: WeakLearner,
+        spec: LearnerSpec,
+        ensemble: Ensemble,
+        *,
+        batch_size: int = 256,
+    ):
+        """Serve ``ensemble`` on the device its tensors lie on."""
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be positive, got {batch_size}")
+        self.learner = learner
+        self.spec = spec
+        self.batch_size = int(batch_size)
+        self.device = ensemble.alpha.device
+        # ONE publication point for everything a hot swap changes: readers
+        # snapshot the (ensemble, used weights) pair with a single attribute
+        # load, so a concurrent update_ensemble is never seen half-applied
+        self._live = (ensemble, _used_weights(ensemble))
+        self.stats = EngineStats()
+        # (id, row, t_submit); deque so batch draining is O(B), not a slice-copy
+        self._queue: Deque[tuple[int, np.ndarray, float]] = collections.deque()
+        self._next_id = 0
+        # id -> predicted class; consume with ``take``
+        self.results: Dict[int, int] = {}
+
+    @classmethod
+    def from_artifact(
+        cls,
+        art,  # artifact.LoadedArtifact
+        *,
+        batch_size: int = 256,
+    ) -> "ServeEngine":
+        """An engine for a loaded artifact, on the device it was loaded to."""
+        return cls(art.learner, art.spec, art.ensemble, batch_size=batch_size)
+
+    @property
+    def ensemble(self) -> Ensemble:
+        return self._live[0]
+
+    def _predict(self, ensemble: Ensemble, used: torch.Tensor, Xb: torch.Tensor) -> torch.Tensor:
+        """[B, d] rows -> [B] int32 classes, on the device."""
+        preds = scoring.member_prediction(self.learner, self.spec, ensemble.params, Xb)  # [T, B]
+        return ops.vote_argmax(preds, used, n_classes=self.spec.n_classes)
+
+    def warmup(self) -> None:
+        """Run one batch of zeros at the steady-state shape, so the kernel
+        library's load (and build, at first use) and the device's first
+        launches are paid before traffic arrives."""
+        X = torch.zeros(self.batch_size, self.spec.n_features, device=self.device)
+        ensemble, used = self._live
+        self._predict(ensemble, used, X).cpu()
+        self.stats.warmup_batches += 1
+
+    def _run_batch(self, Xb: torch.Tensor, n_valid: int) -> np.ndarray:
+        """One static [B, d] batch; returns the n_valid un-padded answers."""
+        B = Xb.shape[0]
+        t0 = time.perf_counter()
+        # one snapshot: the weights and their used mask always come from
+        # the same hot-swap publication
+        ensemble, used = self._live
+        with trace.span("serve.batch", batch_size=B, n_valid=n_valid):
+            out = self._predict(ensemble, used, Xb).cpu().numpy()  # device sync = response ready
+        dt = time.perf_counter() - t0
+        self.stats.batch_seconds.observe(dt)
+        _M_BATCH_SECONDS.observe(dt)
+        self.stats.batches += 1
+        _M_BATCHES.inc()
+        self.stats.padded_rows += B - n_valid
+        _M_PADDED.inc(B - n_valid)
+        return out[:n_valid]
+
+    def _pack(self, rows: np.ndarray) -> torch.Tensor:
+        n = rows.shape[0]
+        if n < self.batch_size:  # pad the ragged tail to the static shape
+            pad = np.zeros((self.batch_size - n, rows.shape[1]), rows.dtype)
+            rows = np.concatenate([rows, pad], axis=0)
+        return torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(self.device)
+
+    # -- synchronous path ---------------------------------------------------
+    def predict(self, X) -> np.ndarray:
+        """Serve a whole [m, d] matrix through static batches."""
+        X = np.asarray(X, np.float32)
+        self.stats.requests += X.shape[0]
+        _M_REQUESTS.inc(X.shape[0])
+        out = [
+            self._run_batch(
+                self._pack(X[i : i + self.batch_size]),
+                min(self.batch_size, X.shape[0] - i),
+            )
+            for i in range(0, X.shape[0], self.batch_size)
+        ]
+        return np.concatenate(out) if out else np.zeros((0,), np.int32)
+
+    # -- micro-batching scheduler ------------------------------------------
+    def submit(self, X) -> List[int]:
+        """Queue rows; full batches run immediately.  Returns request ids
+        (answers appear in ``self.results``; ``flush`` forces the tail)."""
+        X = np.atleast_2d(np.asarray(X, np.float32))
+        now = time.perf_counter()
+        ids = []
+        for row in X:
+            self._queue.append((self._next_id, row, now))
+            ids.append(self._next_id)
+            self._next_id += 1
+        self.stats.requests += len(ids)
+        _M_REQUESTS.inc(len(ids))
+        while len(self._queue) >= self.batch_size:
+            self._dispatch([self._queue.popleft() for _ in range(self.batch_size)])
+        return ids
+
+    def flush(self) -> None:
+        """Run the pending partial batch, padded to the static shape."""
+        if self._queue:
+            self._dispatch(list(self._queue))
+            self._queue.clear()
+
+    def take(self, rid: int) -> int:
+        """Pop one answered request — the memory-bounded way to read results."""
+        return self.results.pop(rid)
+
+    def _dispatch(self, entries) -> None:
+        rows = np.stack([r for _, r, _ in entries])
+        preds = self._run_batch(self._pack(rows), len(entries))
+        done = time.perf_counter()
+        answers = preds.tolist()  # one bulk int conversion, outside the loop
+        for (rid, _, t_submit), p in zip(entries, answers):
+            self.results[rid] = p
+            self.stats.request_latencies.observe(done - t_submit)
+            _M_REQ_LATENCY.observe(done - t_submit)
+
+    # -- async deadline dispatch --------------------------------------------
+    def scheduler(self, *, t_max_s: float):
+        """Start a ``serve/scheduler.DeadlineScheduler`` over this engine:
+        full batches dispatch immediately, a partial batch dispatches on
+        its own once its oldest request has waited ``t_max_s`` — no
+        ``flush`` call needed."""
+        from repro_torch.serve.scheduler import DeadlineScheduler
+
+        return DeadlineScheduler(self, t_max_s=t_max_s)
+
+    # -- live ensemble swap -------------------------------------------------
+    def update_ensemble(self, ensemble: Ensemble) -> None:
+        """Swap in a grown ensemble of the same structure, on the engine's
+        device.  Capacity alone is NOT identity: the full structural
+        signature (the same check ``save_artifact`` applies against its
+        manifest template) must match the live ensemble."""
+        with trace.span("serve.hot_swap"):
+            got, want = ensemble_signature(ensemble), ensemble_signature(self.ensemble)
+            if got != want:
+                raise ValueError(
+                    "ensemble does not match the serving ensemble's structure "
+                    f"(nesting + leaf shapes/dtypes): {got} != {want}; "
+                    "build a new engine for a different learner/spec/capacity"
+                )
+            if ensemble.alpha.device != self.device:
+                raise ValueError(
+                    f"ensemble is on {ensemble.alpha.device}, the engine serves on {self.device}"
+                )
+            # single attribute store = atomic publication under the GIL
+            self._live = (ensemble, _used_weights(ensemble))

@@ -7,7 +7,8 @@ kernels.  Imports no JAX, so it runs on a machine with a card:
 Where ``torch.cuda.is_available()`` is False every test here skips.
 Tolerances are the card's: atomics reorder the histogram sum (atol 1e-4,
 on cells of mass up to about 1, as on the main path), errors rtol 1e-4,
-weights rtol 1e-5.
+weights rtol 1e-5.  ``vote_argmax`` is exact: on half-integer alphas the
+vote sums are exact in f32, so any summation order gives the same argmax.
 """
 import pytest
 import torch
@@ -94,6 +95,66 @@ def test_federation_on_the_card_goes_through_the_kernels(dev):
     calls = dict(ref.device_calls)
     hist = fl_run.main(["--dataset", "vehicle", "--collaborators", "4", "--rounds", "3",
                         "--eval-every", "3"])
-    assert ops.launch_counts() == {"tree_hist": 12, "weighted_errors": 3, "weight_update": 3}
+    assert ops.launch_counts() == {"tree_hist": 12, "weighted_errors": 3, "weight_update": 3,
+                                   "vote_argmax": 0}
     assert ref.device_calls == calls
     assert 0.0 < hist[-1]["f1"] <= 1.0
+
+
+@pytest.mark.parametrize("T,n,K", [(10, 256, 10), (100, 256, 26), (100, 4096, 26),
+                                   (0, 7, 3), (13, 1001, 5), (4, 300, 400)])
+def test_vote_argmax_kernel_matches_plain(dev, T, n, K):
+    g = torch.Generator().manual_seed(T + n + K)
+    # out-of-range predictions vote for nothing; half-integer alphas with
+    # many equal values put exact ties in the sums
+    preds = torch.randint(-1, K + 1, (T, n), generator=g, dtype=torch.int32).to(dev)
+    alpha = (torch.randint(0, 4, (T,), generator=g).float() * 0.5).to(dev)
+    before = ops.launch_counts()["vote_argmax"]
+    got = ops.vote_argmax(preds, alpha, n_classes=K)
+    want = ref.vote_argmax_ref(preds, alpha, K)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ops.launch_counts()["vote_argmax"] == before + 1
+
+
+def test_engine_on_the_card_launches_the_kernel_once_per_batch(dev):
+    from repro_torch.core import boosting
+    from repro_torch.learners import LearnerSpec, get_learner
+    from repro_torch.serve import ServeEngine
+
+    g = torch.Generator().manual_seed(0)
+    spec = LearnerSpec("decision_tree", 6, 5, {"depth": 3, "n_bins": 16})
+    learner = get_learner("decision_tree")
+    ens = boosting.init_ensemble(learner, spec, 8, dev)
+    ens.params.feature.copy_(torch.randint(0, 6, (8, 3), generator=g, dtype=torch.int32))
+    ens.params.threshold.copy_(torch.randn(8, 3, generator=g))
+    ens.params.leaf_logits.copy_(torch.randn(8, 8, 5, generator=g))
+    ens.alpha.copy_(torch.randint(1, 9, (8,), generator=g) * 0.5)  # exact vote sums
+    ens = boosting.Ensemble(ens.params, ens.alpha, 6)
+    X = torch.randn(300, 6, generator=g).numpy()
+    engine = ServeEngine(learner, spec, ens, batch_size=64)
+    calls = dict(ref.device_calls)
+    before = ops.launch_counts()["vote_argmax"]
+    got = engine.predict(X)
+    assert engine.stats.batches == 5
+    assert ops.launch_counts()["vote_argmax"] == before + engine.stats.batches
+    assert ref.device_calls == calls
+    cpu = ServeEngine(learner, spec, boosting.ensemble_to(ens, "cpu"), batch_size=64)
+    assert (got == cpu.predict(X)).all()
+
+
+def test_serving_on_the_card_goes_through_the_kernel(dev, tmp_path):
+    """One vote_argmax launch per served batch (and one for the warmup),
+    no plain version on the card, and the cache answers what the engine
+    answers: both sum the members in ascending order."""
+    from repro_torch.launch import serve_fl
+
+    ops.reset_launches()
+    calls = dict(ref.device_calls)
+    out = serve_fl.main(["--dataset", "vehicle", "--rounds", "3", "--batch", "64",
+                         "--artifact", str(tmp_path / "v.mafl"), "--policy", "deadline"])
+    stats = out["stats"]
+    assert stats.batches == 3 and stats.warmup_batches == 1
+    assert ops.launch_counts()["vote_argmax"] == stats.batches + stats.warmup_batches
+    assert ref.device_calls == calls
+    assert 0.0 < out["f1"] <= 1.0

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+``ml_dtypes``, which the machine with the card lacks), and its entry
+points run on the card unless the caller asks for the CPU."""
 import ast
 import os
 import shutil
@@ -26,10 +27,10 @@ def _imported_modules(path: Path):
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+def test_port_imports_neither_jax_nor_the_jax_package_nor_ml_dtypes():
     assert len(PORT_FILES) > 10
     bad = [
         f"{p.relative_to(REPO)}:{line}: import {mod}"
@@ -42,7 +43,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_forbidden_import_detector():
     assert _forbidden("jax") and _forbidden("jax.numpy") and _forbidden("repro.core.plan")
+    assert _forbidden("ml_dtypes") and _forbidden("repro.core.serialization")
     assert not _forbidden("repro_torch.core.plan") and not _forbidden("torch")
+    assert not _forbidden("repro_torch.core.serialization") and not _forbidden("numpy")
 
 
 def _no_card():
@@ -69,6 +72,28 @@ def test_federation_defaults_to_cuda_and_raises_without_a_card():
         Federation(adaboost_plan(rounds=1), X, torch.zeros(2, 4, dtype=torch.int32),
                    torch.ones(2, 4), X[0], torch.zeros(4, dtype=torch.int32),
                    LearnerSpec("decision_tree", 3, 2))
+
+
+def test_serve_fl_defaults_to_cuda_and_raises_without_a_card():
+    _no_card()
+    from repro_torch.launch import serve_fl
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_fl.main(["--dataset", "vehicle", "--rounds", "1"])
+
+
+def test_load_artifact_defaults_to_cuda_and_raises_without_a_card(tmp_path):
+    _no_card()
+    from repro_torch.core import boosting
+    from repro_torch.learners import LearnerSpec, get_learner
+    from repro_torch.serve import load_artifact, save_artifact
+
+    spec = LearnerSpec("decision_tree", 3, 2, {"depth": 2, "n_bins": 16})
+    path = save_artifact(tmp_path / "a.mafl", spec,
+                         boosting.init_ensemble(get_learner("decision_tree"), spec, 2, "cpu"))
+    assert load_artifact(path, "cpu").ensemble.alpha.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_artifact(path)
 
 
 def test_fl_run_cpu_rehearsal_runs():
