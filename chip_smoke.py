@@ -31,7 +31,16 @@ Phases, each of which raises (non-zero exit) on failure:
    ``vote_argmax`` launched once per batch (and once per warm-up), that no
    plain version ran on the card and that the vote cache answered what
    the engine answered; then serve the card's artifacts on the CPU and
-   compare.
+   compare;
+8. serve gemma-2b at full width (18 layers, bf16, random weights from a
+   seed) through ``repro_torch.launch.serve --full`` on the card — batch 4,
+   prompt 64, 32 decode tokens (the LLM serving path, with every launch
+   count set to 0 just before) — checking one ``flash_attention`` launch
+   per layer of the prefill, no plain version on the card, tokens inside
+   the vocabulary and finite logits; then that prefill(S) and one decode
+   step give prefill(S + 1)'s logits, that the same weights cut to 2 layers
+   in float32 give the CPU's prefill logits, and where a prefill's and a
+   decode step's device time goes (``torch.profiler``).
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Without a card, or beside no copy of
@@ -51,6 +60,7 @@ OUT = ROOT / "build" / "chip_smoke"  # run histories (--history-out)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 MAIN = {"dataset": "adult", "rounds": 10, "collaborators": 8, "depth": 4, "eval_every": 5}
 SHAPES = {  # dataset: (n per collaborator, d, K) with C = 8
     "adult": (4070, 14, 2),
@@ -63,13 +73,24 @@ TOL = {  # kernel: tolerance against its plain version on the card
     "tree_hist": {"atol": 1e-4, "rtol": 0.0},  # atomics reorder the sum
     "weighted_errors": {"atol": 0.0, "rtol": 1e-4},
     "weight_update": {"atol": 0.0, "rtol": 1e-5},
+    # float32 sums in another order (tests/test_kernels.py's atol); in bf16
+    # both sides round the same float32 value, so they may land one ulp
+    # apart: at most 2^-7 of the value, within rtol 1e-2, plus atol 4e-3
+    # near 0.  Rows that see n keys give |o| ~ sqrt(e / n), about 0.04 at
+    # 2048 keys, so a fixed atol of 2e-2 would be half an output there.
+    "flash_attention": {"atol": 2e-5, "rtol": 0.0},
+    "flash_attention_bf16": {"atol": 4e-3, "rtol": 1e-2},
 }
 SOURCES = {
     "tree_hist": ("src/repro_torch/csrc/tree_hist.cu", "src/repro/kernels/tree_hist.py:88"),
     "weighted_errors": ("src/repro_torch/csrc/boost_update.cu", "src/repro/kernels/boost_update.py:51"),
     "weight_update": ("src/repro_torch/csrc/boost_update.cu", "src/repro/kernels/boost_update.py:86"),
     "vote_argmax": ("src/repro_torch/csrc/vote_argmax.cu", "src/repro/kernels/vote_argmax.py:63"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:121"),
 }
+MAIN_SHAPE = {"tree_hist": "adult", "weighted_errors": "adult", "weight_update": "adult",
+              "vote_argmax": "pendigits", "flash_attention": "gemma_serve"}
 # vote_argmax [T, n, K]: serve_fl's defaults on pendigits (10 rounds, batch
 # 256) and letter at 100 rounds, at the batch and at a whole 4096-row shard
 VOTE_SHAPES = {
@@ -79,6 +100,32 @@ VOTE_SHAPES = {
 }
 SERVE = OUT / "serve"  # serving artifacts and the rolling checkpoint stream
 WINDOW_S = 1.0  # seconds each policy serves pendigits' test split for
+# flash_attention [B, H, Hkv, S, T, D, causal, window, softcap, bf16]:
+# tests/test_kernels.py's sweep and fully-masked-tiles case, then gemma-2b's
+# heads at the serving defaults' prefill (batch 4, prompt 64) and at a
+# 2048-token prompt, where the timings are taken
+FLASH_CASES = {
+    "gqa": (2, 4, 2, 128, 128, 64, True, None, None, False),
+    "mqa_window": (1, 4, 1, 128, 128, 64, True, 64, None, False),
+    "s_lt_t_softcap": (1, 2, 2, 96, 160, 32, True, None, 30.0, False),
+    "noncausal": (1, 2, 2, 128, 128, 64, False, None, None, False),
+    "bf16": (1, 8, 2, 128, 128, 128, True, None, None, True),
+    "ragged": (1, 2, 2, 100, 100, 64, True, None, None, False),
+    "masked_tiles": (1, 2, 2, 256, 256, 32, True, 16, None, False),
+    "gemma_serve": (4, 8, 1, 64, 64, 256, True, None, None, True),
+    "gemma_2048": (1, 8, 1, 2048, 2048, 256, True, None, None, True),
+}
+FLASH_TIMED = ("gemma_serve", "gemma_2048")
+LLM = {"arch": "gemma-2b", "batch": 4, "prompt_len": 64, "tokens": 32, "layers": 18}
+# bf16 keeps 8 bits, and prefill(S + 1) and prefill(S) + one decode step
+# round at different places through 18 layers.  Measured at full width: at
+# most 0.047 apart on the CPU with 8 layers, 0.094 on an H100 with 18 (the
+# same in every run: the weights come from a seed); the limit is about 2x
+# that at every logit magnitude.
+DECODE_TOL = {"atol": 0.2, "rtol": 0.0}
+# float32 on the card and on the CPU: the same sums in other orders, about
+# 1e-5 on logits of up to about 35 (float32 against float64 on the CPU)
+CPU_TOL = {"atol": 1e-3, "rtol": 0.0}
 
 
 class SmokeFailure(RuntimeError):
@@ -156,8 +203,8 @@ def timings(torch, kernel, plain, library=None) -> dict:
     }
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -365,6 +412,70 @@ def check_vote_argmax(torch, ops, ref, g):
     return results, float(worst)
 
 
+def visible_pairs(S: int, T: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through for one (b, h): the work
+    a flash kernel must do on these shapes."""
+    total = 0
+    for i in range(S):
+        pos = i + T - S
+        hi = min(T - 1, pos) if causal else T - 1
+        lo = max(0, pos - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def check_flash_attention(torch, ops, ref, g):
+    """Each case against the plain version on the card, at ``TOL`` (every
+    case logged, then any that disagree named); at gemma-2b's shapes the kernel's, the plain
+    version's and SDPA's device times (SDPA's causal mask aligns top-left,
+    so it computes the same function only at S == T, as here) and the
+    bound: 4·D flops per visible pair over the bf16 peak, against q, k, v
+    and o moved once."""
+    import torch.nn.functional as F
+
+    results, worst, failed = {}, 0.0, []
+    for name, (B, H, Hkv, S, T, D, causal, window, softcap, bf16) in FLASH_CASES.items():
+        dt = torch.bfloat16 if bf16 else torch.float32
+        q, k, v = (torch.randn(shape, generator=g).to(dt).to(DEV)
+                   for shape in ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+        kw = {"causal": causal, "window": window, "softcap": softcap}
+        got = ops.flash_attention(q, k, v, **kw).float()
+        want = ref.attention_ref(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"flash_attention {name}: shape {tuple(got.shape)} or non-finite output")
+        # every case is compared and logged before any failure is raised, so
+        # that a wrong kernel shows how far off it is at each shape
+        tol = TOL["flash_attention_bf16" if bf16 else "flash_attention"]
+        err = max_err(got, want)
+        use = float(((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())).max())
+        log(f"flash_attention {name}: max |kernel - plain| {err:.4g}, {use:.3f} of the limit {tol}, "
+            f"mean |plain| {float(want.abs().mean()):.4g}")
+        if use > 1.0:
+            failed.append(f"{name} ({err:.4g})")
+        worst = max(worst, err)
+        if name in FLASH_TIMED:
+            elt = q.element_size()
+            nbytes = elt * (2 * q.numel() + k.numel() + v.numel())
+            flops = 4 * D * B * H * visible_pairs(S, T, causal, window)
+            bms, by = bound_ms(nbytes, flops, BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
+            results[name] = {
+                "shape": f"q [{B}, {H}, {S}, {D}], k/v [{B}, {Hkv}, {T}, {D}], "
+                         f"{'bf16' if bf16 else 'f32'}, causal", "max_abs_err": err,
+                "bound_ms": bms, "bound_by": by,
+                **timings(torch, lambda: ops.flash_attention(q, k, v, **kw),
+                          lambda: ref.attention_ref(q, k, v, **kw),
+                          lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                 enable_gqa=True)),
+            }
+    check(not failed, f"flash_attention disagrees with its plain version in: {', '.join(failed)}")
+    log(f"flash_attention: {len(FLASH_CASES)} cases agree, worst max_abs_err {worst:.3g}; "
+        + "; ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.5f}, plain {v['plain_ms']:.4f}, "
+                    f"SDPA {v['library_ms']:.4f}, eager {v['eager_ms']:.4f})"
+                    for k, v in results.items()))
+    return results, worst
+
+
 # -- phases 4-6: the federation ---------------------------------------------------
 
 
@@ -558,6 +669,119 @@ def profile_serving(torch, path: Path, card: str) -> None:
         log(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:110]}")
 
 
+# -- phase 8: LLM serving -----------------------------------------------------------
+
+
+def llm_phase(torch, ops, ref, card: str) -> dict:
+    """gemma-2b at full width through ``repro_torch.launch.serve --full``
+    (a first call warms cuBLAS and the allocator; the second, with every
+    count set to 0 just before, is the one checked and reported), then the
+    decode-against-prefill and card-against-CPU checks and a profile."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    B, S, N, layers = LLM["batch"], LLM["prompt_len"], LLM["tokens"], LLM["layers"]
+    argv = ["--arch", LLM["arch"], "--full", "--batch", str(B), "--prompt-len", str(S),
+            "--tokens", str(N), "--seed", "0"]
+    log(f"$ python -m repro_torch.launch.serve {' '.join(argv)}   (twice: cold, then warm)")
+    cold = serve.main(argv)
+    calls = dict(ref.device_calls)
+    ops.reset_launches()
+    warm = serve.main(argv)
+    launches = ops.launch_counts()
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = layers
+    check(launches == want, f"gemma-2b serve launches {launches} != {want}")
+    check(ref.device_calls == calls, f"gemma-2b serve: a plain version ran on CUDA tensors: {ref.device_calls}")
+    cfg = get_arch(LLM["arch"])
+    for run in (cold, warm):
+        toks = run["tokens"]
+        check(run["logits_finite"], "gemma-2b serve: non-finite logits")
+        check(toks.shape == (B, N + 1), f"gemma-2b serve: tokens {tuple(toks.shape)}")
+        check(bool(((toks >= 0) & (toks < cfg.padded_vocab())).all()), "gemma-2b serve: token out of range")
+    check(torch.equal(cold["tokens"], warm["tokens"]), "gemma-2b serve: two runs from one seed differ")
+    timing = {k: {"prefill_ms": 1e3 * r["prefill_seconds"], "decode_ms_per_step": 1e3 * r["decode_seconds"] / N,
+                  "decode_tok_per_s": r["tok_per_s"]} for k, r in (("cold", cold), ("warm", warm))}
+    log(f"gemma-2b serve on {card}: prefill {B}x{S} {timing['warm']['prefill_ms']:.3f} ms, decode "
+        f"{timing['warm']['decode_ms_per_step']:.3f} ms/step = {timing['warm']['decode_tok_per_s']:.1f} tok/s "
+        f"(first call: prefill {timing['cold']['prefill_ms']:.3f} ms, "
+        f"{timing['cold']['decode_tok_per_s']:.1f} tok/s); launches {launches}")
+
+    # prefill(S) + one decode step against prefill(S + 1), bf16 at full width
+    model = serve.build(cfg, 0, torch.device(DEV))
+    tok = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=torch.Generator().manual_seed(1)).to(DEV)
+    whole, _ = M.prefill(model, {"tokens": tok})
+    _, st = M.prefill(model, {"tokens": tok[:, :S]}, cache_len=S + 1)
+    stepped, _ = M.serve_step(model, st, tok[:, S:S + 1])
+    d = (stepped - whole).abs()
+    check(bool(torch.isclose(stepped, whole, **DECODE_TOL).all()),
+          f"gemma-2b: decode step vs prefill(S + 1): max |diff| {float(d.max()):.4g} exceeds {DECODE_TOL}")
+    same = int((stepped.argmax(-1) == whole.argmax(-1)).sum())
+    log(f"gemma-2b bf16: prefill({S}) + 1 decode step vs prefill({S + 1}): max |diff| {float(d.max()):.4g}, "
+        f"mean {float(d.mean()):.4g} (tol {DECODE_TOL}); greedy token agrees in {same}/{B} rows")
+    profile_llm(torch, model, tok[:, :S], card)
+    del model, whole, st, stepped
+
+    # the same weights at full width cut to 2 layers, float32: card vs CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    model2 = serve.build(cfg2, 0, torch.device(DEV))
+    on_card, _ = M.prefill(model2, {"tokens": tok[:, :S]})
+    model2.to("cpu")
+    on_cpu, _ = M.prefill(model2, {"tokens": tok[:, :S].cpu()})
+    on_card = on_card.cpu()
+    d = (on_card - on_cpu).abs()
+    check(bool(torch.isclose(on_card, on_cpu, **CPU_TOL).all()),
+          f"gemma-2b 2-layer f32: card vs CPU max |diff| {float(d.max()):.4g} exceeds {CPU_TOL}")
+    top2 = on_cpu.topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) <= 2 * CPU_TOL["atol"]
+    differ = on_card.argmax(-1) != on_cpu.argmax(-1)
+    check(not bool((differ & ~near).any()), "gemma-2b 2-layer f32: first greedy token differs outside a near-tie")
+    log(f"gemma-2b 2-layer f32 prefill, card vs CPU: max |diff| {float(d.max()):.4g} (tol {CPU_TOL}); "
+        f"first greedy token agrees in {int((~differ).sum())}/{B} rows, {int(near.sum())} near-ties")
+    return {"launches": launches, "timing": timing}
+
+
+def profile_llm(torch, model, tokens, card: str) -> None:
+    """Device busy share and the top kernels of one gemma-2b prefill and of
+    four decode steps after it, from torch.profiler (model warm)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    B, S = tokens.shape
+    M.prefill(model, {"tokens": tokens}, cache_len=S + 4)
+    torch.cuda.synchronize()
+    for what in ("prefill", "decode"):
+        _, st = M.prefill(model, {"tokens": tokens}, cache_len=S + 4)
+        token = tokens[:, -1:]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if what == "prefill":
+                M.prefill(model, {"tokens": tokens}, cache_len=S + 4)
+            else:
+                for _ in range(4):
+                    _, st = M.serve_step(model, st, token)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        rows = [(e.key, e.count, getattr(e, "device_time_total", None) or e.cuda_time_total)
+                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(r[2] for r in rows)
+        if not busy_us:
+            log(f"gemma-2b {what} profile: no device time recorded on {card}; busy share not measured")
+            continue
+        rows.sort(key=lambda r: -r[2])
+        log(f"gemma-2b {what} profile ({'one prefill' if what == 'prefill' else '4 decode steps'}, "
+            f"{B}x{S}, profiler on, {card}): wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+            f"({100 * busy_us / wall_us:.1f}%), {sum(r[1] for r in rows)} device activities")
+        for key, count, us in rows[:8]:
+            log(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:110]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -608,6 +832,7 @@ def main() -> int:
         "weighted_errors": check_weighted_errors(torch, ops, ref, g),
         "weight_update": check_weight_update(torch, ops, ref, g),
         "vote_argmax": check_vote_argmax(torch, ops, ref, g),
+        "flash_attention": check_flash_attention(torch, ops, ref, g),
     }
     detail = {k: v[0] for k, v in per_kernel.items()}
     log("kernel_detail " + json.dumps({"card": card, "kernels": detail}))
@@ -621,7 +846,7 @@ def main() -> int:
     launches = ops.launch_counts()
     want = {"tree_hist": MAIN["rounds"] * DEPTH, "weighted_errors": MAIN["rounds"],
             "weight_update": MAIN["rounds"]}
-    want["vote_argmax"] = 0
+    want["vote_argmax"] = want["flash_attention"] = 0
     check(launches == want, f"main path launches {launches} != {want}")
     check(ref.device_calls == device_calls,
           f"a plain version ran on CUDA tensors in the main path: {ref.device_calls}")
@@ -633,7 +858,7 @@ def main() -> int:
         run = run_fl(fl_run, ds, 5, "cuda", f"{ds}_cuda")
         got = ops.launch_counts()
         check(got == {"tree_hist": 5 * DEPTH, "weighted_errors": 5, "weight_update": 5,
-                      "vote_argmax": 0}, f"{ds} launches {got}")
+                      "vote_argmax": 0, "flash_attention": 0}, f"{ds} launches {got}")
         check(ref.device_calls == device_calls, f"{ds}: a plain version ran on CUDA tensors")
         check_run(run, 5, f"{ds} on the card")
         log(f"{ds}: final F1 {run['history'][-1]['f1']:.4f}, launches {got}")
@@ -668,18 +893,23 @@ def main() -> int:
     # 7. serving; the pendigits sync run is the serving main path
     serve_launches, serve_dispatches = serve_phase(torch, ops, ref, card)
     launches["vote_argmax"] = serve_launches["vote_argmax"]
+
+    # 8. LLM serving: gemma-2b at full width, the flash_attention path
+    llm = llm_phase(torch, ops, ref, card)
+    launches["flash_attention"] = llm["launches"]["flash_attention"]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
 
     kernels = []
     for name, (res, worst) in per_kernel.items():
         src, replaces = SOURCES[name]
-        serving = name == "vote_argmax"
-        main_shape = res["pendigits" if serving else "adult"]
+        training = name in ("tree_hist", "weighted_errors", "weight_update")
+        main_shape = res[MAIN_SHAPE[name]]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name],
-            "launches_per_round": None if serving else launches[name] / MAIN["rounds"],
-            "launches_per_batch": launches[name] / serve_dispatches if serving else None,
+            "launches_per_round": launches[name] / MAIN["rounds"] if training else None,
+            "launches_per_batch": launches[name] / serve_dispatches if name == "vote_argmax" else None,
+            "launches_per_prefill": launches[name] if name == "flash_attention" else None,
             "max_abs_err": worst, "max_err": worst,
             "ms": main_shape["ms"], "kernel_ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],

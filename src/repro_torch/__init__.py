@@ -1,11 +1,17 @@
 """PyTorch/CUDA port of the MAFL reproduction.
 
 Mirrors ``src/repro/`` module for module (``repro_torch/core/boosting.py``
-answers to ``repro/core/boosting.py`` and so on).  The slice ported so far
-is the default federation: AdaBoost.F over oblivious ``decision_tree``
-learners on the fused round, whose three hot spots (``tree_hist``,
-``weighted_errors``, ``weight_update``) run as hand-written CUDA kernels
-for Hopper (``csrc/``).
+answers to ``repro/core/boosting.py`` and so on).  Three slices are ported,
+each through hand-written CUDA kernels for Hopper (``csrc/``):
+
+* the default federation: AdaBoost.F over oblivious ``decision_tree``
+  learners on the fused round (``launch/fl_run.py``), with ``tree_hist``,
+  ``weighted_errors`` and ``weight_update``;
+* serving the trained ensemble (``launch/serve_fl.py``, ``serve/``), with
+  ``vote_argmax``;
+* LLM serving for dense full-attention architectures, gemma-2b
+  (``launch/serve.py``, ``models/``, ``configs/``): prefill and greedy
+  decode against KV caches, with ``flash_attention`` in every prefill.
 
 Every entry point takes an explicit ``device`` and defaults to ``"cuda"``;
 without a card it raises unless the caller asked for ``"cpu"``, where the

@@ -12,6 +12,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.boosting import BoostState, Ensemble
 from repro_torch.learners.binning import BinnedDataset
 from repro_torch.learners.tree import TreeParams
@@ -66,3 +67,43 @@ def boost_state_from_numpy(d: Mapping[str, np.ndarray], device="cpu") -> BoostSt
     )
     return BoostState(ensemble=ens, weights=_t(d["weights"], torch.float32, device),
                       fit_cache=cache)
+
+
+def model_params_from_numpy(cfg: ArchConfig, tree: Mapping, device="cpu"):
+    """A JAX model's params pytree as numpy -> the port's ``Transformer``.
+
+    ``tree`` is ``repro.models.transformer.init_params``'s layout:
+    ``embed`` (``embedding``, and ``unembed`` unless tied), ``final_norm``,
+    and ``unit``, whose ``L0`` leaves are stacked ``[n_layers, ...]`` (the
+    port's architectures repeat a one-layer unit): layer ``r`` of the port
+    takes slice ``r``.  A norm's array becomes its module's ``gamma``.
+    Every port parameter must be assigned, each with the shape it has."""
+    from repro_torch.models.layers import RMSNorm
+    from repro_torch.models.transformer import Transformer
+
+    model = Transformer(cfg, torch.Generator(device=device).manual_seed(0))
+    assigned = set()
+
+    def put(module: torch.nn.Module, prefix: str, sub: Mapping, index=None) -> None:
+        for name, leaf in sub.items():
+            target = getattr(module, name)
+            if isinstance(leaf, Mapping):
+                put(target, f"{prefix}{name}.", leaf, index)
+                continue
+            full = f"{prefix}{name}"
+            if isinstance(target, RMSNorm):
+                target, full = target.gamma, full + ".gamma"
+            a = np.asarray(leaf if index is None else leaf[index], np.float32)
+            if tuple(a.shape) != tuple(target.shape):
+                raise ValueError(f"{full}: shape {a.shape} != the port's {tuple(target.shape)}")
+            with torch.no_grad():
+                target.copy_(torch.tensor(a))
+            assigned.add(full)
+
+    put(model, "", {"embed": tree["embed"], "final_norm": tree["final_norm"]})
+    for r, layer in enumerate(model.layers):
+        put(layer, f"layers.{r}.", tree["unit"]["L0"], r)
+    missing = {name for name, _ in model.named_parameters()} - assigned
+    if missing:
+        raise ValueError(f"parameters with no counterpart in the tree: {sorted(missing)}")
+    return model

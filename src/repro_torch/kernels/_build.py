@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("tree_hist.cu", "boost_update.cu", "vote_argmax.cu")
+SOURCES = ("tree_hist.cu", "boost_update.cu", "vote_argmax.cu", "flash_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # bin_idx, leaf, wy, out, H, n, d, L, B1, K, dblk, n_chunks, threads, stream
     "repro_tree_hist": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -41,6 +42,9 @@ _SIGNATURES = {
     "repro_weight_update": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
     # preds, alpha, out, T, n, K, threads, stream
     "repro_vote_argmax": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, o, strides[12], B, H, Hkv, S, T, D, causal, window, scale, softcap, bf16, stream
+    "repro_flash_attention": [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
+                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

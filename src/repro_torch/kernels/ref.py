@@ -10,19 +10,23 @@ tensors on the CPU.  They answer to ``repro/kernels/ref.py``:
   matvec, with an optional leading ``[C]`` batch;
 * ``boost_weight_update_ref`` — ``w * exp(alpha * mis) * mask``;
 * ``vote_argmax_ref`` — a comparison one-hot, an ``einsum`` over members
-  and an ``argmax`` (first maximum).
+  and an ``argmax`` (first maximum);
+* ``attention_ref`` — grouped-query attention with the whole ``[S, T]``
+  logit matrix, masked with ``-1e30`` and a softmax, in float32.
 
 ``device_calls`` counts calls made on CUDA tensors, so a run on the card
 can show that its main path never took a plain version.
 """
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Optional
 
 import torch
 
 device_calls: Dict[str, int] = {
     "tree_hist": 0, "weighted_errors": 0, "weight_update": 0, "vote_argmax": 0,
+    "flash_attention": 0,
 }
 
 
@@ -107,3 +111,42 @@ def vote_argmax_ref(
     onehot = (preds.unsqueeze(-1) == k).to(alpha.dtype)  # [T, n, K]
     votes = torch.einsum("t,tnk->nk", alpha, onehot)
     return torch.argmax(votes, dim=-1).to(torch.int32)
+
+
+def attention_ref(
+    q: torch.Tensor,  # [B, H, S, D]
+    k: torch.Tensor,  # [B, Hkv, T, D]
+    v: torch.Tensor,  # [B, Hkv, T, D]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,  # sliding-window size (None = full)
+    softcap: Optional[float] = None,  # gemma2-style logit soft-capping
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Grouped-query attention, float32 throughout, cast to ``q.dtype``.
+
+    Query row ``i`` sits at absolute position ``i + T - S`` (chunked
+    prefill against a longer cache).  A row that sees no key at all
+    (causal with S > T) gets the mean of ``v``: its softmax runs over
+    ``-1e30`` everywhere."""
+    _note("flash_attention", q)
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhsd,bhtd->bhst", qf, kf)
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    i = torch.arange(S, device=q.device)[:, None] + (T - S)  # query absolute position
+    j = torch.arange(T, device=q.device)[None, :]
+    m = torch.ones(S, T, dtype=torch.bool, device=q.device)
+    if causal:
+        m &= j <= i
+    if window is not None:
+        m &= (i - j) < window
+    logits = logits.masked_fill(~m, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p, vf).to(q.dtype)

@@ -1,0 +1,99 @@
+"""Batched LLM serving: prefill a batch of prompts, decode N tokens
+greedily against the KV caches, report tokens/s.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu        # reduced gemma-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --full              # gemma-2b on the card
+
+The port of ``repro/launch/serve.py``, with its flags and its printed line.
+``--full`` serves the published configuration instead of ``reduced()``;
+the weights are random, drawn from ``--seed``, as the JAX launcher's are.
+Runs on the card unless ``--device cpu``; without a card it raises.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from repro_torch.configs import ArchConfig, get_arch
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.models.transformer import Transformer
+
+
+def build(cfg: ArchConfig, seed: int, device: torch.device) -> Transformer:
+    """The model of ``cfg`` with random weights from ``seed`` on ``device``."""
+    return Transformer(cfg, torch.Generator(device=device).manual_seed(seed))
+
+
+def generate(model: Transformer, tokens: torch.Tensor, n_tokens: int) -> Dict:
+    """Prefill ``tokens [B, S]``, then ``n_tokens`` greedy decode steps.
+    Returns the tokens ``[B, n_tokens + 1]`` (the prefill's and each
+    step's argmax), the host seconds of the prefill and of the decode loop
+    (each ended by a device sync), and whether every logit was finite."""
+    dev = tokens.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, state = M.prefill(model, {"tokens": tokens}, cache_len=tokens.shape[1] + n_tokens)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+    token = torch.argmax(logits, dim=-1)[:, None]
+    generated = [token]
+    t0 = time.perf_counter()
+    for _ in range(n_tokens):
+        logits, state = M.serve_step(model, state, token)
+        finite &= torch.isfinite(logits).all()
+        token = torch.argmax(logits, dim=-1)[:, None]
+        generated.append(token)
+    sync()
+    t_decode = time.perf_counter() - t0
+    return {
+        "tokens": torch.cat(generated, dim=1),
+        "prefill_seconds": t_prefill,
+        "decode_seconds": t_decode,
+        "logits_finite": bool(finite),
+    }
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--full", action="store_true",
+                    help="serve the published configuration, not its reduced() variant")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if not args.full:
+        cfg = cfg.reduced()
+    model = build(cfg, args.seed, dev)
+    B, S = args.batch, args.prompt_len
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    out = generate(model, prompts, args.tokens)
+
+    toks = args.tokens * B
+    t_prefill, t_decode = out["prefill_seconds"], out["decode_seconds"]
+    print(
+        f"arch={cfg.name} prefill {B}x{S} in {t_prefill:.2f}s; "
+        f"decode {toks} tokens in {t_decode:.2f}s ({toks/t_decode:.1f} tok/s)"
+    )
+    tokens = out["tokens"]
+    if tokens.shape != (B, args.tokens + 1):
+        raise RuntimeError(f"generated {tuple(tokens.shape)}, not {(B, args.tokens + 1)}")
+    if not bool(((tokens >= 0) & (tokens < cfg.padded_vocab())).all()):
+        raise RuntimeError("a generated token lies outside the padded vocabulary")
+    return {**out, "arch": cfg.name, "tok_per_s": toks / t_decode}
+
+
+if __name__ == "__main__":
+    main()

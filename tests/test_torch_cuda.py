@@ -96,7 +96,7 @@ def test_federation_on_the_card_goes_through_the_kernels(dev):
     hist = fl_run.main(["--dataset", "vehicle", "--collaborators", "4", "--rounds", "3",
                         "--eval-every", "3"])
     assert ops.launch_counts() == {"tree_hist": 12, "weighted_errors": 3, "weight_update": 3,
-                                   "vote_argmax": 0}
+                                   "vote_argmax": 0, "flash_attention": 0}
     assert ref.device_calls == calls
     assert 0.0 < hist[-1]["f1"] <= 1.0
 
@@ -158,3 +158,71 @@ def test_serving_on_the_card_goes_through_the_kernel(dev, tmp_path):
     assert ops.launch_counts()["vote_argmax"] == stats.batches + stats.warmup_batches
     assert ref.device_calls == calls
     assert 0.0 < out["f1"] <= 1.0
+
+
+# flash_attention: tests/test_kernels.py's sweep, the fully-masked-tiles case
+# and gemma-2b's head shapes; atol 2e-5 in float32; in bfloat16 one ulp of
+# rounding apart (rtol 1e-2) plus atol 4e-3, as chip_smoke.py holds it
+FLASH = [  # B, H, Hkv, S, T, D, causal, window, softcap, dtype
+    (2, 4, 2, 128, 128, 64, True, None, None, torch.float32),
+    (1, 4, 1, 128, 128, 64, True, 64, None, torch.float32),
+    (1, 2, 2, 96, 160, 32, True, None, 30.0, torch.float32),
+    (1, 2, 2, 128, 128, 64, False, None, None, torch.float32),
+    (1, 8, 2, 128, 128, 128, True, None, None, torch.bfloat16),
+    (1, 2, 2, 100, 100, 64, True, None, None, torch.float32),
+    (1, 2, 2, 256, 256, 32, True, 16, None, torch.float32),
+    (4, 8, 1, 64, 64, 256, True, None, None, torch.bfloat16),
+    (2, 8, 1, 65, 65, 256, True, None, None, torch.float32),
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,window,softcap,dtype", FLASH)
+def test_flash_attention_kernel_matches_plain(dev, B, H, Hkv, S, T, D, causal, window, softcap,
+                                              dtype):
+    g = torch.Generator().manual_seed(S + T + D)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(dev)
+               for shape in ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2 if bf16 else 0.0,
+                               atol=4e-3 if bf16 else 2e-5)
+
+
+def test_flash_attention_kernel_takes_transposed_views(dev):
+    """The model hands the kernel [B, S, H, D] tensors transposed to
+    [B, H, S, D]: strided views, no copy; the output keeps that layout."""
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn(2, 70, 8, 256, generator=g).to(dev).transpose(1, 2)
+    k, v = (torch.randn(2, 70, 1, 256, generator=g).to(dev).transpose(1, 2) for _ in range(2))
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.stride() == q.stride()
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v), rtol=0, atol=2e-5)
+
+
+def test_llm_serving_on_the_card_goes_through_the_kernel(dev):
+    """Reduced gemma-2b: one flash_attention launch per layer of the
+    prefill, none per decode step, no plain version on the card; and from
+    the same weights and prompts, the card's greedy tokens equal the CPU's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+
+    ops.reset_launches()
+    calls = dict(ref.device_calls)
+    out = serve.main(["--batch", "2", "--prompt-len", "40", "--tokens", "6"])
+    assert ops.launch_counts()["flash_attention"] == 2  # reduced: 2 layers
+    assert ref.device_calls == calls
+    assert out["logits_finite"] and out["tokens"].shape == (2, 7)
+
+    cfg = get_arch("gemma-2b").reduced()
+    card = serve.build(cfg, 0, dev)
+    cpu = serve.build(cfg, 0, torch.device("cpu"))
+    cpu.load_state_dict(card.state_dict())
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    got = serve.generate(card, prompts.to(dev), 6)["tokens"]
+    assert torch.equal(got.cpu(), serve.generate(cpu, prompts, 6)["tokens"])

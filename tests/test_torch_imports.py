@@ -123,3 +123,36 @@ def test_chip_smoke_fails_alone(tmp_path):
     proc = _run_chip_smoke(tmp_path)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_llm_serve_defaults_to_cuda_and_raises_without_a_card():
+    _no_card()
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--tokens", "1"])
+
+
+def test_llm_serve_cpu_runs_the_reduced_config_end_to_end(capsys):
+    from repro_torch.launch import serve
+
+    out = serve.main(["--device", "cpu", "--batch", "2", "--prompt-len", "24", "--tokens", "5"])
+    assert out["arch"] == "gemma-2b" and out["logits_finite"]
+    assert out["tokens"].shape == (2, 6) and out["tokens"].device.type == "cpu"
+    assert int(out["tokens"].min()) >= 0 and int(out["tokens"].max()) < 2048  # reduced padded vocab
+    assert "arch=gemma-2b prefill 2x24 in" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", ["grok-1-314b", "llama4-scout-17b-a16e", "xlstm-1.3b"])
+def test_get_arch_of_an_unported_architecture_raises(name):
+    from repro_torch.configs import get_arch
+
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+        get_arch(name)
+
+
+def test_get_arch_of_an_unknown_architecture_raises():
+    from repro_torch.configs import get_arch
+
+    with pytest.raises(KeyError, match="gemma-2b"):
+        get_arch("no-such-arch")

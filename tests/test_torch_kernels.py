@@ -194,8 +194,10 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
                             np.ones((2, 4), np.float32)))
     ops.weight_update(*_t(*_update_inputs(10)), torch.tensor(0.3))
     ops.vote_argmax(*_t(np.zeros((3, 4), np.int32), np.ones(3, np.float32)), n_classes=2)
+    q = np.ones((1, 2, 4, 32), np.float32)
+    ops.flash_attention(*_t(q, q[:, :1], q[:, :1]))
     assert ops.launch_counts() == {"tree_hist": 0, "weighted_errors": 0, "weight_update": 0,
-                                   "vote_argmax": 0}
+                                   "vote_argmax": 0, "flash_attention": 0}
     assert ref.device_calls == before  # device_calls counts CUDA tensors only
 
 
