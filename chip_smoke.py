@@ -49,6 +49,7 @@ the repo, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -86,7 +87,9 @@ SOURCES = {
     "weighted_errors": ("src/repro_torch/csrc/boost_update.cu", "src/repro/kernels/boost_update.py:51"),
     "weight_update": ("src/repro_torch/csrc/boost_update.cu", "src/repro/kernels/boost_update.py:86"),
     "vote_argmax": ("src/repro_torch/csrc/vote_argmax.cu", "src/repro/kernels/vote_argmax.py:63"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    # the record reports the bf16 route (gemma-2b's); float32 calls take
+    # csrc/flash_attention.cu, timed at "ragged"
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention.py:121"),
 }
 MAIN_SHAPE = {"tree_hist": "adult", "weighted_errors": "adult", "weight_update": "adult",
@@ -101,21 +104,31 @@ VOTE_SHAPES = {
 SERVE = OUT / "serve"  # serving artifacts and the rolling checkpoint stream
 WINDOW_S = 1.0  # seconds each policy serves pendigits' test split for
 # flash_attention [B, H, Hkv, S, T, D, causal, window, softcap, bf16]:
-# tests/test_kernels.py's sweep and fully-masked-tiles case, then gemma-2b's
-# heads at the serving defaults' prefill (batch 4, prompt 64) and at a
-# 2048-token prompt, where the timings are taken
+# tests/test_kernels.py's sweep and fully-masked-tiles case in float32 (the
+# CUDA-core route) and each again in bf16 (the TMA/wgmma route: D = 32, 64,
+# 128, 256), a 130-row case (its last block's second warpgroup holds no row
+# inside S) and a 40-query chunk against 200 keys (one warpgroup, several
+# tiles), then gemma-2b's heads at the serving defaults' prefill (batch 4,
+# prompt 64) and at a 2048-token prompt
+_FLASH_F32 = {
+    "gqa": (2, 4, 2, 128, 128, 64, True, None, None),
+    "mqa_window": (1, 4, 1, 128, 128, 64, True, 64, None),
+    "s_lt_t_softcap": (1, 2, 2, 96, 160, 32, True, None, 30.0),
+    "noncausal": (1, 2, 2, 128, 128, 64, False, None, None),
+    "ragged": (1, 2, 2, 100, 100, 64, True, None, None),
+    "masked_tiles": (1, 2, 2, 256, 256, 32, True, 16, None),
+}
 FLASH_CASES = {
-    "gqa": (2, 4, 2, 128, 128, 64, True, None, None, False),
-    "mqa_window": (1, 4, 1, 128, 128, 64, True, 64, None, False),
-    "s_lt_t_softcap": (1, 2, 2, 96, 160, 32, True, None, 30.0, False),
-    "noncausal": (1, 2, 2, 128, 128, 64, False, None, None, False),
+    **{name: (*case, False) for name, case in _FLASH_F32.items()},
+    **{f"{name}_bf16": (*case, True) for name, case in _FLASH_F32.items()},
     "bf16": (1, 8, 2, 128, 128, 128, True, None, None, True),
-    "ragged": (1, 2, 2, 100, 100, 64, True, None, None, False),
-    "masked_tiles": (1, 2, 2, 256, 256, 32, True, 16, None, False),
+    "ragged_130_bf16": (2, 2, 1, 130, 130, 128, True, None, None, True),
+    "chunk_40x200_bf16": (1, 4, 1, 40, 200, 128, True, None, None, True),
     "gemma_serve": (4, 8, 1, 64, 64, 256, True, None, None, True),
     "gemma_2048": (1, 8, 1, 2048, 2048, 256, True, None, None, True),
 }
-FLASH_TIMED = ("gemma_serve", "gemma_2048")
+# timed: both routes, bf16 at gemma-2b's shapes and float32 at "ragged"
+FLASH_TIMED = ("gemma_serve", "gemma_2048", "ragged")
 LLM = {"arch": "gemma-2b", "batch": 4, "prompt_len": 64, "tokens": 32, "layers": 18}
 # bf16 keeps 8 bits, and prefill(S + 1) and prefill(S) + one decode step
 # round at different places through 18 layers.  Measured at full width: at
@@ -221,6 +234,32 @@ def assert_close(torch, name: str, got, want, what: str) -> float:
     err = max_err(got, want)
     check(ok, f"{name} {what}: max |kernel - plain| = {err:.3g} exceeds {tol}")
     return err
+
+
+# -- phase 2: the build's register report ------------------------------------------
+
+
+def ptxas_report(build_log: str) -> dict:
+    """{kernel entry: {"registers", "spill_bytes", "stack_bytes"}} from
+    nvcc's ``-Xptxas -v`` output; names are mangled (a flash instance reads
+    ``..._kernelILi256E...`` for D = 256)."""
+    report, entry = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            report[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            report[entry]["stack_bytes"] = int(m.group(1))
+            report[entry]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[entry]["registers"] = int(m.group(1))
+    return report
 
 
 # -- phase 3: kernels against their plain versions --------------------------------
@@ -821,9 +860,25 @@ def main() -> int:
     log(f"kernels: {_build.library_path().relative_to(ROOT)} "
         f"({'built in %.1fs' % built if built is not None else 'reused'}, "
         f"load {time.perf_counter() - t0:.1f}s)")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log("  ptxas " + line.split("ptxas info    :")[-1].strip())
+    report = ptxas_report(_build.build_log)
+    for entry, info in report.items():
+        log(f"  ptxas {entry}: {info}")
+    flash = {e: i for e, i in report.items() if "flash_attention" in e}
+    if built is not None:  # a reused library brings no report
+        sm90 = [e for e in flash if "sm90" in e]
+
+        def row(e):  # "D: registers, spill bytes" of one instance
+            d = re.search(r"ILi(\d+)E", e).group(1)
+            return f"{d}: {flash[e].get('registers')}, {flash[e].get('spill_bytes')}"
+
+        log("flash_attention ptxas (D: registers, spill bytes): bf16 " + "; ".join(map(row, sm90))
+            + " | float32 " + "; ".join(row(e) for e in flash if e not in sm90)
+            + " | shared memory is dynamic (bf16, D = 256: 197 672 bytes a 2-warpgroup block)")
+        check(len(sm90) == 4 and len(flash) == 8,
+              f"ptxas reported {len(sm90)} bf16 and {len(flash) - len(sm90)} float32 flash "
+              "instances, not 4 and 4")
+        spilled = [row(e) for e in sm90 if flash[e].get("spill_bytes", 1) != 0]
+        check(not spilled, f"bf16 flash_attention instances spill: {spilled}")
 
     # 3. kernels against their plain versions
     g = torch.Generator().manual_seed(0)

@@ -14,15 +14,16 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.boosting import BoostState, Ensemble
+from repro_torch.device import resolve_device
 from repro_torch.learners.binning import BinnedDataset
 from repro_torch.learners.tree import TreeParams
 
 
 def _t(a, dtype, device) -> torch.Tensor:
-    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    return torch.tensor(np.asarray(a), dtype=dtype, device=resolve_device(device))
 
 
-def tree_params_from_numpy(d: Mapping[str, np.ndarray], device="cpu") -> TreeParams:
+def tree_params_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> TreeParams:
     """``feature`` i32, ``threshold`` f32 ``[..., depth]`` and
     ``leaf_logits`` f32 ``[..., 2**depth, K]`` -> ``TreeParams``."""
     return TreeParams(
@@ -32,7 +33,7 @@ def tree_params_from_numpy(d: Mapping[str, np.ndarray], device="cpu") -> TreePar
     )
 
 
-def ensemble_from_numpy(d: Mapping[str, np.ndarray], device="cpu") -> Ensemble:
+def ensemble_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> Ensemble:
     """A tree ensemble as numpy arrays -> the port's ``Ensemble``.
 
     Keys: the tree slots ``feature [T, depth]``, ``threshold [T, depth]``,
@@ -53,7 +54,7 @@ def ensemble_to_numpy(ens: Ensemble) -> Dict[str, np.ndarray]:
     return out
 
 
-def boost_state_from_numpy(d: Mapping[str, np.ndarray], device="cpu") -> BoostState:
+def boost_state_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> BoostState:
     """A JAX AdaBoost.F state as numpy arrays -> the port's ``BoostState``.
 
     Keys: the ensemble's tree slots ``feature [T, depth]``, ``threshold
@@ -69,7 +70,7 @@ def boost_state_from_numpy(d: Mapping[str, np.ndarray], device="cpu") -> BoostSt
                       fit_cache=cache)
 
 
-def model_params_from_numpy(cfg: ArchConfig, tree: Mapping, device="cpu"):
+def model_params_from_numpy(cfg: ArchConfig, tree: Mapping, device="cuda"):
     """A JAX model's params pytree as numpy -> the port's ``Transformer``.
 
     ``tree`` is ``repro.models.transformer.init_params``'s layout:
@@ -81,7 +82,7 @@ def model_params_from_numpy(cfg: ArchConfig, tree: Mapping, device="cpu"):
     from repro_torch.models.layers import RMSNorm
     from repro_torch.models.transformer import Transformer
 
-    model = Transformer(cfg, torch.Generator(device=device).manual_seed(0))
+    model = Transformer(cfg, torch.Generator(device=resolve_device(device)).manual_seed(0))
     assigned = set()
 
     def put(module: torch.nn.Module, prefix: str, sub: Mapping, index=None) -> None:

@@ -1,5 +1,7 @@
-// flash_attention: blockwise online-softmax attention with grouped KV heads,
-// causal masking, a sliding window and logit soft-capping.
+// flash_attention, float32 route: blockwise online-softmax attention with
+// grouped KV heads, causal masking, a sliding window and logit soft-capping.
+// bfloat16 inputs take flash_attention_sm90.cu (TMA and wgmma); float32 stays
+// on the CUDA cores, since TF32 tensor cores keep about three decimal digits.
 //
 //   o[b, h, i] = softmax_j(mask(cap(scale * q[b, h, i] . k[b, h / g, j]))) v[b, h / g, j]
 //
@@ -8,34 +10,30 @@
 // j <= i + T - S if causal, and when (i + T - S) - j < window if windowed.
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention (Pallas body
-// _kernel).  There the grid is (B, H, q block, kv block) with the kv axis the
-// innermost *sequential* dimension, and VMEM scratch carries the running
-// (m, l, acc) from one kv step to the next.  Hopper runs blocks in no order,
-// so here one block owns BQ = 64 query rows of one (b, h) and walks the kv
-// tiles in a loop inside the block, with (m, l, acc) in registers.
+// _kernel) for float32 inputs.  There the grid is (B, H, q block, kv
+// block) with the kv axis the innermost *sequential* dimension, and VMEM
+// scratch carries the running (m, l, acc) from one kv step to the next.
+// Hopper runs blocks in no order, so here one block owns BQ = 64 query rows
+// of one (b, h) and walks the kv tiles in a loop inside the block, with
+// (m, l, acc) in registers.
 //
 // What bounds it on an H100: the larger of 4·B·H·S·T·D flops (2·D for q·k
 // and 2·D for p·v per (query, key) pair; about half of that when causal,
-// since only the visible pairs count) over 989 TFLOP/s of bf16 tensor-core
-// work, and 2·(|q| + |k| + |v| + |o|) bytes (bf16, each read or written
-// once) over 3.35 TB/s.  At gemma-2b's serving prefill (q [4, 8, 64, 256],
-// k and v [4, 1, 64, 256]) that is bytes, 0.0007 ms; at a 2048-token prompt
-// (q [1, 8, 2048, 256]) operations, 0.017 ms.  This first kernel does its
-// arithmetic in float32 on the CUDA cores (67 TFLOP/s at best, and less:
-// every multiply-add waits on a shared-memory load), so it sits far above
-// that bound; wgmma on bf16 tiles fed by TMA is the way down to it, in a
-// later change.  What the design does about the bound: it reads q once and
-// each K/V tile once per block (grouped heads share no load yet), keeps
-// logits, probabilities and the running softmax out of device memory, and
-// writes o once.
+// since only the visible pairs count) over 67 TFLOP/s of float32 work on
+// the CUDA cores, and 4·(|q| + |k| + |v| + |o|) bytes (each read or
+// written once) over 3.35 TB/s.  Every multiply-add here waits on a
+// shared-memory load, so the kernel sits well above that bound.  What the
+// design does about the bound: it reads q once and each K/V tile once per
+// block (grouped heads share no load yet), keeps logits, probabilities and
+// the running softmax out of device memory, and writes o once.
 //
 // Design:
 //  * 256 threads: 16 row groups of 16 lanes.  Group ty owns query rows
 //    4·ty .. 4·ty+3 of the block in both products, so the running max, sum and
 //    the output rows never leave the group: a group lives inside one warp and
 //    reduces a row with four xor-shuffles;
-//  * q is cast to float32 and *then* scaled, as the Pallas kernel does, and
-//    staged once; k and v tiles (BK = 64 keys) are cast and staged per tile.
+//  * q is scaled as the Pallas kernel scales it and staged once; k and v
+//    tiles (BK = 64 keys) are staged per tile.
 //    Rows are padded by one float so that lanes reading different rows hit
 //    different banks.  At D = 256 that is 209 KB of shared memory: the launch
 //    opts in above 48 KB;
@@ -56,12 +54,10 @@
 //    without a repeated copy;
 //  * inputs and output are addressed through element strides (the last axis
 //    contiguous), so the model's transposed [B, S, H, D] views need no copy;
-//  * o = acc / max(l, 1e-30), cast to q's type.  A row that sees no key at
-//    all gives 0 here (the Pallas kernel's result) and the mean of v in
-//    attention_ref; the wrapper refuses the one case that makes such rows,
-//    causal with S > T.
+//  * o = acc / max(l, 1e-30).  A row that sees no key at all gives 0 here
+//    (the Pallas kernel's result) and the mean of v in attention_ref; the
+//    wrapper refuses the one case that makes such rows, causal with S > T.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -82,18 +78,13 @@ struct Params {
   float scale, softcap;  // softcap <= 0: none
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 template <int D>
 constexpr size_t smem_floats() {
   // q [BQ][D+1], k [BK][D+1], v [BK][D], p [BQ][BK+1]
   return (size_t)BQ * (D + 1) + (size_t)BK * (D + 1) + (size_t)BK * D + (size_t)BQ * (BK + 1);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(Params p) {
   constexpr int QS = D + 1, KS = D + 1, PS = BK + 1, NC = D / 16;
   extern __shared__ float smem[];
@@ -111,14 +102,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(Params p) {
   const int q0 = blockIdx.x * BQ;
   const int off = p.T - p.S;
 
-  const T* q = (const T*)p.q + b * p.qs[0] + h * p.qs[1];
-  const T* k = (const T*)p.k + b * p.ks[0] + hk * p.ks[1];
-  const T* v = (const T*)p.v + b * p.vs[0] + hk * p.vs[1];
-  T* o = (T*)p.o + b * p.os[0] + h * p.os[1];
+  const float* q = (const float*)p.q + b * p.qs[0] + h * p.qs[1];
+  const float* k = (const float*)p.k + b * p.ks[0] + hk * p.ks[1];
+  const float* v = (const float*)p.v + b * p.vs[0] + hk * p.vs[1];
+  float* o = (float*)p.o + b * p.os[0] + h * p.os[1];
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    q_s[r * QS + d] = q0 + r < p.S ? to_f32(q[(long long)(q0 + r) * p.qs[2] + d]) * p.scale : 0.f;
+    q_s[r * QS + d] = q0 + r < p.S ? q[(long long)(q0 + r) * p.qs[2] + d] * p.scale : 0.f;
   }
 
   float m[4], l[4], acc[4][NC];
@@ -141,8 +132,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(Params p) {
     for (int i = tid; i < BK * D; i += THREADS) {
       const int r = i / D, d = i % D;
       const bool in = k0 + r < p.T;
-      k_s[r * KS + d] = in ? to_f32(k[(long long)(k0 + r) * p.ks[2] + d]) : 0.f;
-      v_s[r * D + d] = in ? to_f32(v[(long long)(k0 + r) * p.vs[2] + d]) : 0.f;
+      k_s[r * KS + d] = in ? k[(long long)(k0 + r) * p.ks[2] + d] : 0.f;
+      v_s[r * D + d] = in ? v[(long long)(k0 + r) * p.vs[2] + d] : 0.f;
     }
     __syncthreads();
 
@@ -217,13 +208,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(Params p) {
     const int r = q0 + ty * 4 + i;
     if (r >= p.S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + (long long)r * p.os[2];
+    float* orow = o + (long long)r * p.os[2];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) store(orow + tx + 16 * c, acc[i][c] / den);
+    for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = acc[i][c] / den;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   if (smem > 48 * 1024) {
@@ -234,39 +225,28 @@ int launch(const Params& p, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     if (dev >= 32) return (int)cudaErrorInvalidDevice;
     if (!((opted >> dev) & 1u)) {
-      e = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
+      e = cudaFuncSetAttribute(flash_attention_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
       opted |= 1u << dev;
     }
   }
   const dim3 grid((p.S + BQ - 1) / BQ, p.B * p.H);
-  flash_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  flash_attention_kernel<D><<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_head_dim(const Params& p, int D, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    case 256: return launch<T, 256>(p, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// q [B, H, S, D], k and v [B, Hkv, T, D], o like q; float32 (bf16 == 0) or
-// bfloat16 (bf16 == 1) throughout.  strides: 12 element strides, axes b, h, s
+// q [B, H, S, D], k and v [B, Hkv, T, D], o like q; float32 throughout.
+// strides: 12 element strides, axes b, h, s
 // of q, k, v and o in that order; the d axis is contiguous.  D in {32, 64,
 // 128, 256}; H a multiple of Hkv; S, T >= 1; B·H <= 65535.  window <= 0 means
 // none, softcap <= 0 none.  Returns cudaGetLastError() after the launch.
-extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     const long long* strides, int B, int H, int Hkv, int S,
-                                     int T, int D, int causal, int window, float scale,
-                                     float softcap, int bf16, void* stream) {
+extern "C" int repro_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
+                                         const long long* strides, int B, int H, int Hkv, int S,
+                                         int T, int D, int causal, int window, float scale,
+                                         float softcap, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -288,5 +268,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   p.scale = scale;
   p.softcap = softcap;
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? dispatch_head_dim<__nv_bfloat16>(p, D, st) : dispatch_head_dim<float>(p, D, st);
+  switch (D) {
+    case 32: return launch<32>(p, st);
+    case 64: return launch<64>(p, st);
+    case 128: return launch<128>(p, st);
+    case 256: return launch<256>(p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -23,7 +23,8 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("tree_hist.cu", "boost_update.cu", "vote_argmax.cu", "flash_attention.cu")
+SOURCES = ("tree_hist.cu", "boost_update.cu", "vote_argmax.cu", "flash_attention.cu",
+           "flash_attention_sm90.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -33,18 +34,20 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURES = {
+_FLASH = [  # q, k, v, o, strides[12], B, H, Hkv, S, T, D, causal, window, scale, softcap, stream
+    _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+_SIGNATURES = {  # every extern "C" function of the sources: (restype, argtypes)
     # bin_idx, leaf, wy, out, H, n, d, L, B1, K, dblk, n_chunks, threads, stream
-    "repro_tree_hist": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "repro_tree_hist": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # preds, y, w, out, C, H, n, threads, stream
-    "repro_weighted_errors": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_weighted_errors": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # w, mis, mask, alpha, out, N, blocks, threads, stream
-    "repro_weight_update": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    "repro_weight_update": (_I, [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P]),
     # preds, alpha, out, T, n, K, threads, stream
-    "repro_vote_argmax": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, o, strides[12], B, H, Hkv, S, T, D, causal, window, scale, softcap, bf16, stream
-    "repro_flash_attention": [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
-                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    "repro_vote_argmax": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "repro_flash_attention_f32": (_I, _FLASH),
+    "repro_flash_attention_bf16": (_I, _FLASH),
+    "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -113,12 +116,10 @@ def library() -> ctypes.CDLL:
         if not target.exists():
             _build(target)
         lib = ctypes.CDLL(str(target))
-        for fn, argtypes in _SIGNATURES.items():
+        for fn, (restype, argtypes) in _SIGNATURES.items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
-            f.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [_I]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            f.restype = restype
         _lib = lib
     return _lib
 

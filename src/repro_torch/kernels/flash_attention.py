@@ -4,11 +4,18 @@ attention of every full-sequence pass of the LLM path
 (``models/attention.py:attend_full``), once per layer of a prefill.
 
 Answers to ``repro/kernels/flash_attention.py``.  On CUDA tensors the
-wrapper launches the hand-written kernel in ``csrc/flash_attention.cu``
-(one block per 64 query rows of one ``(b, h)``, the KV loop inside the
-block; the source note gives its bound and design) or raises; on CPU
-tensors it runs the plain version, ``ref.attention_ref``.  Block sizes are
-the kernel's own: the JAX ``block_q``/``block_k`` arguments have no
+wrapper launches a hand-written kernel or raises; the dtype picks it:
+
+* bfloat16: ``csrc/flash_attention_sm90.cu``, TMA loads into swizzled
+  shared memory and ``wgmma`` on bf16 tiles with float32 accumulators.
+  TMA needs 16-byte aligned base addresses and strides, so a view it
+  cannot describe raises (:func:`check_tma_views`); nothing is copied;
+* float32: ``csrc/flash_attention.cu``, float32 on the CUDA cores (TF32
+  tensor cores would keep about three decimal digits).
+
+The source notes give each kernel's bound and design.  On CPU tensors the
+wrapper runs the plain version, ``ref.attention_ref``.  Block sizes are
+the kernels' own: the JAX ``block_q``/``block_k`` arguments have no
 counterpart.
 
 Query row ``i`` sits at absolute position ``i + T - S``, so a chunk of
@@ -26,8 +33,9 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (32, 64, 128, 256)  # the kernel's compiled head dimensions
-MAX_GRID_Y = 65535  # B·H blocks along the grid's y axis
+HEAD_DIMS = (32, 64, 128, 256)  # the kernels' compiled head dimensions
+MAX_GRID_Y = 65535  # B·H blocks along the float32 kernel's grid y axis
+TMA_ALIGN = 16  # bytes: TMA's alignment of base addresses and strides
 
 
 def _check_inputs(q, k, v, causal: bool, window: Optional[int], softcap: Optional[float]) -> None:
@@ -79,6 +87,26 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
         raise RuntimeError("flash_attention kernel has no backward; call it under torch.no_grad()")
 
 
+def check_tma_views(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise unless TMA can describe each bf16 input as it lies in memory:
+    a base address and the strides of axes b, h and s (where they hold
+    more than one element) that are multiples of 16 bytes."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(
+                f"flash_attention bf16 kernel: {name}'s address is not {TMA_ALIGN}-byte aligned "
+                "(TMA cannot load it); pass a tensor that starts on a 16-byte boundary"
+            )
+        bad = [a for a in range(3)
+               if t.shape[a] > 1 and (t.stride(a) < 1 or t.stride(a) * t.element_size() % TMA_ALIGN)]
+        if bad:
+            raise ValueError(
+                f"flash_attention bf16 kernel: {name}'s strides {tuple(t.stride())} (elements) "
+                f"on axes {bad} are not positive multiples of {TMA_ALIGN} bytes (TMA cannot "
+                "describe the view)"
+            )
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, H, S, D]
     k: torch.Tensor,  # [B, Hkv, T, D]
@@ -94,6 +122,9 @@ def flash_attention(
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
     check_kernel_inputs(q, k, v)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        check_tma_views(q, k, v)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     out = torch.empty_like(q)  # q's strides where q is dense: a transposed view stays one
@@ -104,12 +135,12 @@ def flash_attention(
     )
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     lib = _build.library()
+    launch = lib.repro_flash_attention_bf16 if bf16 else lib.repro_flash_attention_f32
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.repro_flash_attention(
+        rc = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            B, H, Hkv, S, T, D, int(causal), window or 0, scale, float(softcap or 0.0),
-            int(q.dtype == torch.bfloat16), stream,
+            B, H, Hkv, S, T, D, int(causal), window or 0, scale, float(softcap or 0.0), stream,
         )
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1

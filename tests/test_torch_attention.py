@@ -17,7 +17,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import check_kernel_inputs
+from repro_torch.kernels.flash_attention import check_kernel_inputs, check_tma_views
 
 SWEEP = [  # B, Hq, Hkv, S, T, D, causal, window, softcap, bf16 (tests/test_kernels.py)
     (2, 4, 2, 128, 128, 64, True, None, None, False),
@@ -125,3 +125,37 @@ def test_kernel_input_checks():
         check_kernel_inputs(q.half(), k.half(), v.half())
     with pytest.raises(RuntimeError, match="backward"):
         check_kernel_inputs(q.requires_grad_(), k, v)
+
+
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("view", ["dense", "transposed", "size_one_axes"])
+def test_tma_check_takes_the_model_views(view):
+    """TMA can describe dense tensors, the model's [B, S, H, D] projections
+    transposed to [B, H, S, D], and axes of one element whatever their
+    stride (the kernel never steps along them)."""
+    if view == "dense":
+        q, k = _bf16(2, 8, 70, 256), _bf16(2, 1, 70, 256)
+    elif view == "transposed":
+        q, k = _bf16(2, 70, 8, 256).transpose(1, 2), _bf16(2, 70, 1, 256).transpose(1, 2)
+    else:
+        q = _bf16(1, 1, 64, 257)[..., :256].as_strided((1, 1, 1, 256), (3, 5, 7, 1))
+        k = _bf16(1, 1, 64, 256)
+    check_tma_views(q, k, k)
+
+
+@pytest.mark.parametrize("bad", ["address", "row_stride", "head_stride", "zero_stride"])
+def test_tma_check_refuses_views_tma_cannot_describe(bad):
+    k = _bf16(1, 1, 64, 64)
+    if bad == "address":  # starts 2 bytes into an aligned buffer
+        q = _bf16(1, 1, 64, 72)[..., 1:65]
+    elif bad == "row_stride":  # 68 values = 136 bytes between rows
+        q = _bf16(1, 1, 64, 68)[..., :64]
+    elif bad == "head_stride":  # 64·64 + 4 values between heads
+        q = _bf16(2 * 64 * 64 + 8).as_strided((1, 2, 64, 64), (0, 64 * 64 + 4, 64, 1))
+    else:  # one row broadcast to every query position
+        q = _bf16(1, 1, 1, 64).expand(1, 1, 64, 64)
+    with pytest.raises(ValueError, match="TMA"):
+        check_tma_views(q, k, k)

@@ -74,7 +74,7 @@ def test_one_round_from_carried_state(warm_rounds):
     for _ in range(warm_rounds):
         state, _ = jround(state, jX, jy, jm)
 
-    tstate = convert.boost_state_from_numpy(_jax_state_numpy(state))
+    tstate = convert.boost_state_from_numpy(_jax_state_numpy(state), device="cpu")
     tl, tspec = get_learner("decision_tree"), LearnerSpec("decision_tree", d, K, HP)
     tstate, tm = tboost.adaboost_f_round(
         tl, tspec, tstate, torch.from_numpy(Xs), torch.from_numpy(ys), torch.from_numpy(masks)

@@ -161,18 +161,25 @@ def test_serving_on_the_card_goes_through_the_kernel(dev, tmp_path):
 
 
 # flash_attention: tests/test_kernels.py's sweep, the fully-masked-tiles case
-# and gemma-2b's head shapes; atol 2e-5 in float32; in bfloat16 one ulp of
-# rounding apart (rtol 1e-2) plus atol 4e-3, as chip_smoke.py holds it
+# and gemma-2b's head shapes, each in float32 (the CUDA-core kernel) and in
+# bfloat16 (the TMA/wgmma kernel); atol 2e-5 in float32; in bfloat16 one ulp
+# of rounding apart (rtol 1e-2) plus atol 4e-3, as chip_smoke.py holds it
+_FLASH_SHAPES = [  # B, H, Hkv, S, T, D, causal, window, softcap
+    (2, 4, 2, 128, 128, 64, True, None, None),
+    (1, 4, 1, 128, 128, 64, True, 64, None),
+    (1, 2, 2, 96, 160, 32, True, None, 30.0),
+    (1, 2, 2, 128, 128, 64, False, None, None),
+    (1, 2, 2, 100, 100, 64, True, None, None),
+    (1, 2, 2, 256, 256, 32, True, 16, None),
+    (2, 8, 1, 65, 65, 256, True, None, None),
+]
 FLASH = [  # B, H, Hkv, S, T, D, causal, window, softcap, dtype
-    (2, 4, 2, 128, 128, 64, True, None, None, torch.float32),
-    (1, 4, 1, 128, 128, 64, True, 64, None, torch.float32),
-    (1, 2, 2, 96, 160, 32, True, None, 30.0, torch.float32),
-    (1, 2, 2, 128, 128, 64, False, None, None, torch.float32),
+    *((*case, torch.float32) for case in _FLASH_SHAPES),
+    *((*case, torch.bfloat16) for case in _FLASH_SHAPES),
     (1, 8, 2, 128, 128, 128, True, None, None, torch.bfloat16),
-    (1, 2, 2, 100, 100, 64, True, None, None, torch.float32),
-    (1, 2, 2, 256, 256, 32, True, 16, None, torch.float32),
     (4, 8, 1, 64, 64, 256, True, None, None, torch.bfloat16),
-    (2, 8, 1, 65, 65, 256, True, None, None, torch.float32),
+    (2, 2, 1, 130, 130, 128, True, None, None, torch.bfloat16),
+    (1, 4, 1, 40, 200, 128, True, None, None, torch.bfloat16),
 ]
 
 
@@ -203,6 +210,38 @@ def test_flash_attention_kernel_takes_transposed_views(dev):
     torch.cuda.synchronize()
     assert got.stride() == q.stride()
     torch.testing.assert_close(got, ref.attention_ref(q, k, v), rtol=0, atol=2e-5)
+
+
+def test_flash_attention_bf16_kernel_takes_transposed_views(dev):
+    """The same in bfloat16, the model's dtype: the tensor maps are built
+    from the views' strides, so nothing is copied."""
+    g = torch.Generator().manual_seed(2)
+    q = torch.randn(2, 70, 8, 256, generator=g).to(torch.bfloat16).to(dev).transpose(1, 2)
+    k, v = (torch.randn(2, 70, 1, 256, generator=g).to(torch.bfloat16).to(dev).transpose(1, 2)
+            for _ in range(2))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.stride() == q.stride() and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.attention_ref(q, k, v).float(), rtol=1e-2, atol=4e-3)
+
+
+@pytest.mark.parametrize("bad", ["address", "row_stride"])
+def test_flash_attention_bf16_kernel_raises_on_views_tma_cannot_describe(dev, bad):
+    """A bf16 view whose address or strides are not multiples of 16 bytes
+    raises; it is neither copied nor handed to another kernel."""
+    if bad == "address":  # 2 bytes into an aligned buffer
+        q = torch.zeros(1, 2, 64, 72, dtype=torch.bfloat16, device=dev)[..., 1:65]
+    else:  # 136 bytes between rows
+        q = torch.zeros(1, 2, 64, 68, dtype=torch.bfloat16, device=dev)[..., :64]
+    k = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device=dev)
+    before = ops.launch_counts()["flash_attention"]
+    calls = dict(ref.device_calls)
+    with pytest.raises(ValueError, match="TMA"):
+        ops.flash_attention(q, k, k)
+    assert ops.launch_counts()["flash_attention"] == before
+    assert ref.device_calls == calls
 
 
 def test_llm_serving_on_the_card_goes_through_the_kernel(dev):

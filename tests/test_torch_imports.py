@@ -96,6 +96,63 @@ def test_load_artifact_defaults_to_cuda_and_raises_without_a_card(tmp_path):
         load_artifact(path)
 
 
+def _numpy_ensemble():
+    import numpy as np
+
+    return {"feature": np.zeros((2, 2), np.int32), "threshold": np.zeros((2, 2), np.float32),
+            "leaf_logits": np.zeros((2, 4, 3), np.float32), "alpha": np.ones(2, np.float32),
+            "count": np.asarray(2, np.int32)}
+
+
+def _numpy_boost_state():
+    import numpy as np
+
+    return {**_numpy_ensemble(), "weights": np.ones((2, 5), np.float32),
+            "edges": np.zeros((2, 3, 15), np.float32), "bin_idx": np.zeros((2, 5, 3), np.int32)}
+
+
+def _numpy_model(cfg):
+    from repro_torch.models.transformer import Transformer
+
+    model = Transformer(cfg, torch.Generator().manual_seed(0))
+    flat = {name: p.detach().numpy() for name, p in model.named_parameters()}
+    unit = {}
+    for name, a in flat.items():
+        if name.startswith("layers.0."):
+            key = name[len("layers.0."):].replace(".gamma", "").split(".")
+            stacked = torch.stack([torch.from_numpy(flat[f"layers.{r}.{name[len('layers.0.'):]}"])
+                                   for r in range(cfg.n_layers)]).numpy()
+            node = unit
+            for part in key[:-1]:
+                node = node.setdefault(part, {})
+            node[key[-1]] = stacked
+    embed = {k.split(".")[1]: v for k, v in flat.items() if k.startswith("embed.")}
+    return {"embed": embed, "final_norm": flat["final_norm.gamma"], "unit": {"L0": unit}}
+
+
+@pytest.mark.parametrize("name", ["tree_params_from_numpy", "ensemble_from_numpy",
+                                  "boost_state_from_numpy", "model_params_from_numpy"])
+def test_convert_defaults_to_cuda_and_raises_without_a_card(name):
+    """The carry-over functions place state on the card unless the caller
+    asks for the CPU, as every other entry point of the port does."""
+    _no_card()
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+
+    if name == "model_params_from_numpy":
+        cfg = get_arch("gemma-2b").reduced()
+        args = (cfg, _numpy_model(cfg))
+    else:
+        args = (_numpy_boost_state(),)
+    fn = getattr(convert, name)
+    with pytest.raises(RuntimeError, match=r"'cuda' requested.*pass device='cpu'"):
+        fn(*args)
+    out = fn(*args, device="cpu")
+    tensors = [p for p in out.parameters()] if name == "model_params_from_numpy" else \
+        [t for t in torch.utils._pytree.tree_leaves(out) if isinstance(t, torch.Tensor)]
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
 def test_fl_run_cpu_rehearsal_runs():
     from repro_torch.launch import fl_run
 

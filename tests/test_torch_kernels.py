@@ -9,6 +9,9 @@ CPU against CPU leaves little to explain, so the tolerances here are
 tighter than the card's: histograms atol 1e-5, errors rtol 1e-5,
 weights rtol 1e-6.
 """
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +21,7 @@ from repro.kernels import ref as jref
 from repro.kernels.boost_update import weight_update as pallas_weight_update
 from repro.kernels.boost_update import weighted_errors as pallas_weighted_errors
 from repro.kernels.tree_hist import tree_hist as pallas_tree_hist
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.tree_hist import MAX_SHARED_BYTES, launch_plan
 
 
@@ -212,3 +215,54 @@ def test_wrappers_check_dtypes():
     with pytest.raises(ValueError):
         ops.weighted_errors(*_t(np.zeros((3, 4), np.int32), np.zeros(4, np.int32),
                                 np.ones(4, np.float32)))
+
+
+# -- the ctypes bindings -----------------------------------------------------------
+
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
+_EXTERN_C = re.compile(r'extern "C"\s+([\w\s]+?\**)\s*(\w+)\s*\(([^)]*)\)')
+
+
+def _extern_c_declarations():
+    """{function: (return type, [argument declarations])} over every
+    ``extern "C"`` function in the port's CUDA sources."""
+    found = {}
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        for ret, name, args in _EXTERN_C.findall(path.read_text()):
+            assert name not in found, f"{name} is declared twice"
+            found[name] = (" ".join(ret.split()), [" ".join(a.split()) for a in args.split(",")])
+    return found
+
+
+def _ctype(decl: str):
+    """The ctypes type an argument or return declaration must be bound
+    with: ``c_void_p`` for any pointer (ctypes would pass a 32-bit int and
+    cut it), the matching scalar otherwise."""
+    if "*" in decl:
+        return ctypes.c_char_p if decl.replace(" ", "") == "constchar*" else ctypes.c_void_p
+    words = [w for w in decl.split() if w != "const"]  # type, then the name (none on a return)
+    return _C_TYPES[" ".join(words[:-1]) if len(words) > 1 else words[0]]
+
+
+def test_every_source_is_built():
+    assert sorted(_build.SOURCES) == sorted(p.name for p in _build.CSRC.glob("*.cu"))
+
+
+def test_ctypes_signatures_match_the_extern_c_declarations():
+    declared = _extern_c_declarations()
+    assert sorted(declared) == sorted(_build._SIGNATURES)
+    for name, (ret, args) in declared.items():
+        restype, argtypes = _build._SIGNATURES[name]
+        assert restype is _ctype(ret), f"{name}: returns {ret}, bound as {restype}"
+        assert len(argtypes) == len(args), f"{name}: {len(args)} arguments, {len(argtypes)} bound"
+        for i, (decl, bound) in enumerate(zip(args, argtypes)):
+            assert bound is _ctype(decl), f"{name} argument {i} `{decl}` bound as {bound}"
+
+
+@pytest.mark.parametrize("decl,want", [
+    ("const void* q", ctypes.c_void_p), ("void* stream", ctypes.c_void_p),
+    ("const long long* strides", ctypes.c_void_p), ("long long N", ctypes.c_longlong),
+    ("int causal", ctypes.c_int), ("float softcap", ctypes.c_float), ("const char*", ctypes.c_char_p),
+])
+def test_signature_parser_maps_declarations(decl, want):
+    assert _ctype(decl) is want

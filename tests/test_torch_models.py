@@ -39,7 +39,8 @@ def _pair(**changes):
     cfg_j = dataclasses.replace(jax_get_arch("gemma-2b").reduced(), **changes)
     cfg = dataclasses.replace(get_arch("gemma-2b").reduced(), **changes)
     params = JM.init_params(cfg_j, jax.random.PRNGKey(0))
-    return cfg_j, params, cfg, model_params_from_numpy(cfg, jax.tree.map(np.asarray, params))
+    return cfg_j, params, cfg, model_params_from_numpy(cfg, jax.tree.map(np.asarray, params),
+                                                       device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -257,10 +258,10 @@ def test_model_params_from_numpy_checks_the_tree(pair):
     tree = jax.tree.map(np.asarray, params)
     bad = {**tree, "final_norm": tree["final_norm"][:-1]}
     with pytest.raises(ValueError, match="shape"):
-        model_params_from_numpy(cfg, bad)
+        model_params_from_numpy(cfg, bad, device="cpu")
     unit = {"L0": {k: v for k, v in tree["unit"]["L0"].items() if k != "norm2"}}
     with pytest.raises(ValueError, match="norm2"):
-        model_params_from_numpy(cfg, {**tree, "unit": unit})
+        model_params_from_numpy(cfg, {**tree, "unit": unit}, device="cpu")
 
 
 @pytest.mark.parametrize("changes", [

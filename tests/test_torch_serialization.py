@@ -46,13 +46,13 @@ def jax_ensemble(a):
 @pytest.mark.parametrize("packed", [True, False])
 def test_serialize_bytes_match_jax(packed):
     a = random_ensemble_arrays(1)
-    assert tser.serialize(convert.ensemble_from_numpy(a), packed) == \
+    assert tser.serialize(convert.ensemble_from_numpy(a, device="cpu"), packed) == \
         jser.serialize(jax_ensemble(a), packed)
 
 
 def test_wire_format_and_size_match_jax():
     a = random_ensemble_arrays(2)
-    ens, jens = convert.ensemble_from_numpy(a), jax_ensemble(a)
+    ens, jens = convert.ensemble_from_numpy(a, device="cpu"), jax_ensemble(a)
     fmt, jfmt = tser.wire_format(ens), jser.wire_format(jens)
     assert fmt.shapes == jfmt.shapes and fmt.dtypes == jfmt.dtypes
     assert tser.wire_size(ens) == jser.wire_size(jens)
@@ -62,7 +62,7 @@ def test_wire_format_and_size_match_jax():
 @pytest.mark.parametrize("packed", [True, False])
 def test_deserialize_jax_bytes_roundtrip(packed):
     a = random_ensemble_arrays(3)
-    ens = convert.ensemble_from_numpy(a)
+    ens = convert.ensemble_from_numpy(a, device="cpu")
     back = tser.deserialize(jser.serialize(jax_ensemble(a), packed), tser.wire_format(ens), packed)
     assert isinstance(back, tboost.Ensemble) and back.count == 4
     for k, v in convert.ensemble_to_numpy(back).items():

@@ -116,7 +116,7 @@ def test_jax_artifact_serves_identically_in_the_port(model, tmp_path, quantize, 
 @pytest.mark.parametrize("quantize,calibrate", QUANT, ids=["v1", "int8", "bf16"])
 def test_port_artifact_is_byte_identical_and_serves_in_jax(model, tmp_path, quantize, calibrate):
     cal = model["X"] if calibrate else None
-    ens = convert.ensemble_from_numpy(model["arrays"])
+    ens = convert.ensemble_from_numpy(model["arrays"], device="cpu")
     p = save_artifact(tmp_path / "t.mafl", model["spec"], ens, extra={"dataset": "test"},
                       quantize=quantize, calibrate=cal)
     j = jax_save(tmp_path / "j.mafl", model["jspec"], model["jens"], extra={"dataset": "test"},
@@ -135,7 +135,7 @@ def test_port_calibration_promotes_the_same_slots_as_jax(model, tmp_path):
     logits[:, :, 1] = logits[:, :, 0] + 1e-4  # every leaf row a near-tie bf16 breaks
     a["leaf_logits"] = logits
     spec, jspec = model["spec"], model["jspec"]
-    p = save_artifact(tmp_path / "t.mafl", spec, convert.ensemble_from_numpy(a),
+    p = save_artifact(tmp_path / "t.mafl", spec, convert.ensemble_from_numpy(a, device="cpu"),
                       quantize="bf16", calibrate=model["X"])
     j = jax_save(tmp_path / "j.mafl", jspec, jax_ensemble(a), quantize="bf16",
                  calibrate=model["X"])
@@ -202,14 +202,14 @@ def test_artifact_rejects_unported_flavours_naming_the_item(tmp_path, flavour):
 def test_save_artifact_rejects_a_foreign_structure(model, tmp_path):
     a = random_ensemble_arrays(9, T=T, count=2, depth=DEPTH + 1, d=D, K=K)
     with pytest.raises(ValueError, match="template"):
-        save_artifact(tmp_path / "x.mafl", model["spec"], convert.ensemble_from_numpy(a))
+        save_artifact(tmp_path / "x.mafl", model["spec"], convert.ensemble_from_numpy(a, device="cpu"))
 
 
 # -- engine and cache behaviour ----------------------------------------------
 
 
 def test_engine_pads_the_ragged_tail(model):
-    engine = _port_engine(convert.ensemble_from_numpy(model["arrays"]), model["spec"])
+    engine = _port_engine(convert.ensemble_from_numpy(model["arrays"], device="cpu"), model["spec"])
     got = engine.predict(model["X"][:70])
     np.testing.assert_array_equal(got, model["want"][:70])
     assert (engine.stats.batches, engine.stats.padded_rows, engine.stats.requests) == (3, 26, 70)
@@ -222,7 +222,7 @@ def test_engine_pads_the_ragged_tail(model):
 
 
 def test_engine_counts_no_launch_on_the_cpu(model):
-    engine = _port_engine(convert.ensemble_from_numpy(model["arrays"]), model["spec"])
+    engine = _port_engine(convert.ensemble_from_numpy(model["arrays"], device="cpu"), model["spec"])
     before = ops.launch_counts()["vote_argmax"]
     engine.warmup()
     engine.predict(model["X"])
@@ -233,21 +233,21 @@ def test_engine_counts_no_launch_on_the_cpu(model):
 def test_update_ensemble_accepts_an_append_and_rejects_a_foreign_structure(model):
     a = dict(model["arrays"])
     small = dict(a, alpha=a["alpha"] * (np.arange(T) < 2), count=np.asarray(2, np.int32))
-    engine = _port_engine(convert.ensemble_from_numpy(small), model["spec"])
+    engine = _port_engine(convert.ensemble_from_numpy(small, device="cpu"), model["spec"])
     before = engine.predict(model["X"])
-    engine.update_ensemble(convert.ensemble_from_numpy(a))  # members 2, 3 appended
+    engine.update_ensemble(convert.ensemble_from_numpy(a, device="cpu"))  # members 2, 3 appended
     np.testing.assert_array_equal(engine.predict(model["X"]), model["want"])
     assert not np.array_equal(before, model["want"])
     deeper = random_ensemble_arrays(3, T=T, count=COUNT, depth=DEPTH + 1, d=D, K=K)
     with pytest.raises(ValueError, match="structure"):
-        engine.update_ensemble(convert.ensemble_from_numpy(deeper))
+        engine.update_ensemble(convert.ensemble_from_numpy(deeper, device="cpu"))
     wider = random_ensemble_arrays(3, T=T + 1, count=COUNT, depth=DEPTH, d=D, K=K)
     with pytest.raises(ValueError, match="structure"):
-        engine.update_ensemble(convert.ensemble_from_numpy(wider))
+        engine.update_ensemble(convert.ensemble_from_numpy(wider, device="cpu"))
 
 
 def test_scheduler_records_each_request_queue_wait(model):
-    engine = _port_engine(convert.ensemble_from_numpy(model["arrays"]), model["spec"])
+    engine = _port_engine(convert.ensemble_from_numpy(model["arrays"], device="cpu"), model["spec"])
     with engine.scheduler(t_max_s=0.02) as sched:
         ids = sched.submit(model["X"][:5])  # a partial batch: it waits out its deadline
         np.testing.assert_array_equal(sched.results(ids, timeout_s=60), model["want"][:5])
@@ -265,14 +265,14 @@ def _grown(a, count):
 def test_cache_counts_match_jax_for_one_request_sequence(model):
     a = random_ensemble_arrays(11, T=T, count=T, depth=DEPTH, d=D, K=K)
     X, X2 = model["X"][:60], model["X"][60:100]
-    port = ShardVoteCache(*_learner_spec(model), convert.ensemble_from_numpy(_grown(a, 2)))
+    port = ShardVoteCache(*_learner_spec(model), convert.ensemble_from_numpy(_grown(a, 2), device="cpu"))
     jcache = JaxCache(jax_learner("decision_tree"), model["jspec"], jax_ensemble(_grown(a, 2)))
     steps = [("predict", "s", X), ("predict", "s", None), ("grow", 4), ("predict", "s", None),
              ("predict", "t", X2), ("predict", "s", X2), ("grow", 6), ("predict", "s", None),
              ("predict", "t", None), ("predict", "t", None)]
     for step in steps:
         if step[0] == "grow":
-            port.update_ensemble(convert.ensemble_from_numpy(_grown(a, step[1])))
+            port.update_ensemble(convert.ensemble_from_numpy(_grown(a, step[1]), device="cpu"))
             jcache.update_ensemble(jax_ensemble(_grown(a, step[1])))
             continue
         _, key, rows = step
@@ -288,14 +288,14 @@ def _learner_spec(model):
 
 def test_cache_rejects_a_changed_tallied_member(model):
     a = model["arrays"]
-    cache = ShardVoteCache(*_learner_spec(model), convert.ensemble_from_numpy(a))
+    cache = ShardVoteCache(*_learner_spec(model), convert.ensemble_from_numpy(a, device="cpu"))
     cache.predict("s", model["X"])
     changed = dict(a, alpha=a["alpha"].copy())
     changed["alpha"][0] += 0.25
     with pytest.raises(ValueError, match="append-only"):
-        cache.update_ensemble(convert.ensemble_from_numpy(changed))
+        cache.update_ensemble(convert.ensemble_from_numpy(changed, device="cpu"))
     with pytest.raises(ValueError, match="shrank"):
-        cache.update_ensemble(convert.ensemble_from_numpy(_grown(a, 2)))
+        cache.update_ensemble(convert.ensemble_from_numpy(_grown(a, 2), device="cpu"))
 
 
 # -- publishing ---------------------------------------------------------------

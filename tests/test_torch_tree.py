@@ -116,7 +116,8 @@ def test_tree_predict_logits_matches_jax():
     jX = jnp.asarray(X)
     hyps = jtree.fit_tree_batched(spec, jX, jnp.asarray(y), jnp.asarray(w),
                                   jax.random.split(jax.random.PRNGKey(0), C))
-    tparams = convert.tree_params_from_numpy({k: np.asarray(v) for k, v in hyps._asdict().items()})
+    tparams = convert.tree_params_from_numpy({k: np.asarray(v) for k, v in hyps._asdict().items()},
+                                             device="cpu")
     tspec = LearnerSpec("decision_tree", d, K, {"depth": 4, "n_bins": 16})
 
     one = jax.tree.map(lambda a: a[1], hyps)
