@@ -6,14 +6,22 @@
 Phases, each of which raises (non-zero exit) on failure:
 
 1. print the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
+2. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, and
+   check ptxas's report (no spill in the bf16 ``flash_attention``
+   instances, ``tree_hist`` or ``weighted_errors``) and ``tree_hist``'s
+   SASS (its shared-memory atomics are integer adds, no CAS loop);
 3. hold every kernel to its plain PyTorch version on the card, at the main
    paths' shapes (training: adult, letter, forestcover; C = 8, depth 4, 16
    bins; serving: ``vote_argmax`` at pendigits' and letter's batches) and
-   at ragged cases; time the kernel, its plain version and (where one
-   exists) the one PyTorch call that computes the same function, each on
-   the device alone (replayed from a CUDA graph), and the kernel wrapper's
-   eager time per call;
+   at ragged cases; the two cluster kernels (``tree_hist``,
+   ``weighted_errors``) also with clusters whose CTAs get no sample, each
+   output landing on a NaN-filled block (every cell must be written), the
+   same bits from two calls, and ``tree_hist``'s main-path plans against
+   the clusters the card holds at once; time the kernel, its plain version
+   and (where one exists) the one PyTorch call that computes the same
+   function, each on the device alone (replayed from a CUDA graph), beside
+   the launch floor (a 1-element ``fill_`` replayed the same way), and the
+   kernel wrapper's eager time per call;
 4. run the port's federation through ``repro_torch.launch.fl_run`` on the
    card — adult 10 rounds with the default flags (the main path, with every
    kernel's launch count set to 0 just before), letter and forestcover 5
@@ -71,7 +79,9 @@ SHAPES = {  # dataset: (n per collaborator, d, K) with C = 8
 C, DEPTH, N_BINS = 8, 4, 16
 DEV = "cuda"
 TOL = {  # kernel: tolerance against its plain version on the card
-    "tree_hist": {"atol": 1e-4, "rtol": 0.0},  # atomics reorder the sum
+    # the kernel sums in fixed point per CTA (an error of at most 2^-31 of a
+    # CTA's mass a value), the plain version in float32 in another order
+    "tree_hist": {"atol": 1e-4, "rtol": 0.0},
     "weighted_errors": {"atol": 0.0, "rtol": 1e-4},
     "weight_update": {"atol": 0.0, "rtol": 1e-5},
     # float32 sums in another order (tests/test_kernels.py's atol); in bf16
@@ -216,6 +226,26 @@ def timings(torch, kernel, plain, library=None) -> dict:
     }
 
 
+def launch_floor_ms(torch) -> float:
+    """Device time of the least a launch can cost: a 1-element ``fill_``,
+    replayed as every kernel is (``cuda_ms``).  A kernel's time reads
+    against its bound and this floor together."""
+    one = torch.empty(1, device=DEV)
+    return cuda_ms(torch, lambda: one.fill_(1.0))
+
+
+def poisoned(torch, shape, call):
+    """``call()`` right after a NaN-filled float32 block of ``shape`` was
+    freed, so that the caching allocator hands that block to the call's
+    output: a cell the kernel never writes stays NaN."""
+    junk = torch.full(shape, float("nan"), device=DEV)
+    ptr = junk.data_ptr()
+    del junk
+    out = call()
+    check(out.data_ptr() == ptr, f"the allocator did not hand back the NaN-filled {tuple(shape)} block")
+    return out
+
+
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -262,6 +292,29 @@ def ptxas_report(build_log: str) -> dict:
     return report
 
 
+def training_row(entry: str, info: dict) -> str:
+    """The "name: registers, spill bytes" of a tree_hist or weighted_errors instance."""
+    m = re.search(r"weighted_errors_kernelILi(\d+)E", entry)
+    name = f"weighted_errors<{m.group(1)}>" if m else "tree_hist"
+    return f"{name}: {info.get('registers')}, {info.get('spill_bytes')}"
+
+
+def shared_atomics(build, entry: str) -> set:
+    """The shared-memory atomic opcodes (``ATOMS...``) in the SASS of the
+    kernel whose name contains ``entry``, from cuobjdump.  A float
+    ``atomicAdd`` on shared memory compiles to a compare-and-swap loop
+    (``ATOMS.CAST.SPIN``) on this card, a 32-bit integer one to ``ATOMS.ADD``."""
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path())],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()[:500]}")
+    ops = set()
+    for function in sass.stdout.split("Function : ")[1:]:
+        if entry in function.splitlines()[0]:
+            ops |= set(re.findall(r"\b(ATOMS\.[\w.]+)", function))
+    return ops
+
+
 # -- phase 3: kernels against their plain versions --------------------------------
 
 
@@ -283,6 +336,8 @@ def hist_inputs(torch, g, H, n, d, L, K, dense=False, zero_tail=0):
 
 
 def check_tree_hist(torch, ops, ref, g):
+    from repro_torch.kernels import tree_hist as tree_hist_mod
+
     """Every level of the main path's fits at each dataset's shape, and
     ragged cases.  Returns ({dataset: record}, worst error); a dataset's
     times and bound are means per launch over one round's levels
@@ -290,17 +345,26 @@ def check_tree_hist(torch, ops, ref, g):
     results = {ds: {"levels": {}} for ds in SHAPES}
     cases = [(ds, C, n, d, K, L, False, 0) for ds, (n, d, K) in SHAPES.items() for L in (1, 2, 4, 8)]
     cases += [
-        ("ragged", 33, 1001, 5, 3, 8, True, 0),  # n off any block, H = 33, d < dblk
+        ("ragged", 33, 1001, 5, 3, 8, True, 0),  # odd n, H = 33
         ("ragged", 3, 257, 19, 26, 8, True, 0),  # K = 26, d ragged against dblk
         ("ragged", 8, 777, 14, 2, 4, True, 100),  # zero-weight rows
-        ("ragged", 1, 5, 3, 2, 1, True, 0),  # fewer samples than threads
+        ("ragged", 1, 3, 3, 2, 1, True, 0),  # n < cs: CTAs of a cluster with no sample
+        ("ragged", 2, 1, 4, 2, 2, True, 0),  # n = 1
     ]
-    worst = 0.0
+    worst, empty = 0.0, []
     for ds, H, n, d, K, L, dense, tail in cases:
         bins, leaf, wy = hist_inputs(torch, g, H, n, d, L, K, dense, tail)
-        got = ops.tree_hist(bins, leaf, wy, n_leaves=L, n_bins_p1=N_BINS + 1)
+        # every output cell must be written: the output lands on a NaN-filled block
+        got = poisoned(torch, (H, L, d, N_BINS + 1, K),
+                       lambda: ops.tree_hist(bins, leaf, wy, n_leaves=L, n_bins_p1=N_BINS + 1))
         want = ref.tree_hist_batched_ref(bins, leaf, wy, L, N_BINS + 1)
         err = assert_close(torch, "tree_hist", got, want, f"{ds} H={H} n={n} d={d} K={K} L={L}")
+        again = ops.tree_hist(bins, leaf, wy, n_leaves=L, n_bins_p1=N_BINS + 1)
+        check(torch.equal(got, again), f"tree_hist {ds} H={H} n={n} L={L}: two calls differ by up to "
+              f"{max_err(got, again):.3g}")
+        plan = tree_hist_mod.launch_plan(H, n, d, L, N_BINS + 1, K)
+        if n < plan.cs:
+            empty.append(f"n={n} cs={plan.cs}")
         worst = max(worst, err)
         if tail:
             trimmed = ref.tree_hist_batched_ref(
@@ -332,24 +396,56 @@ def check_tree_hist(torch, ops, ref, g):
         results[ds].update(mean, shape=f"bin_idx [{C}, {n}, {d}], L=1,2,4,8, K={K}",
                            max_abs_err=max(v["max_abs_err"] for v in levels.values()),
                            bound_by=levels[2**(DEPTH - 1)]["bound_by"])
-    log(f"tree_hist: {len(cases)} cases agree, worst max_abs_err {worst:.3g}")
+    check(len(empty) == 2, f"tree_hist: the n < cs cases do not leave CTAs empty: {empty}")
+    log(f"tree_hist: {len(cases)} cases agree, each written over a NaN-filled block and the same "
+        f"bits in two calls, worst "
+        f"max_abs_err {worst:.3g}; clusters with empty CTAs at {', '.join(empty)}")
+    one_wave(torch, tree_hist_mod)
     return results, worst
+
+
+def one_wave(torch, tree_hist_mod) -> None:
+    """Each main-path launch plan against the card's own count of
+    clusters it holds at once (``cudaOccupancyMaxActiveClusters``): the
+    plan's grid must fit in one wave."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib, rows = _build.library(), []
+    for ds, (n, d, K) in SHAPES.items():
+        for L in (1, 2, 4, 8):
+            p = tree_hist_mod.launch_plan(C, n, d, L, N_BINS + 1, K)
+            held = ctypes.c_int(0)
+            _build.check(lib.repro_tree_hist_max_clusters(L, N_BINS + 1, K, p.dblk, p.cs, p.threads,
+                                                          ctypes.byref(held)), "max active clusters")
+            clusters = C * -(-d // p.dblk)
+            check(clusters <= held.value, f"tree_hist {ds} L={L}: plan {tuple(p)} has {clusters} "
+                  f"clusters, the card holds {held.value} at once")
+            rows.append(f"{ds} L={L} {clusters}/{held.value} (dblk {p.dblk}, cs {p.cs}, "
+                        f"{p.threads} threads, {p.shared_bytes} B)")
+    log("tree_hist plans, clusters / clusters the card holds at once: " + "; ".join(rows))
 
 
 def check_weighted_errors(torch, ops, ref, g):
     results, worst = {}, 0.0
     cases = [(ds, C, C, n, K) for ds, (n, _, K) in SHAPES.items()]
-    cases += [("ragged", 4, 33, 4097, 5), ("ragged", 8, 8, 1, 2), ("ragged", 2, 3, 100, 26)]
+    cases += [("ragged", 4, 33, 4097, 5), ("ragged", 8, 8, 1, 2), ("ragged", 2, 3, 100, 26),
+              ("ragged", 8, 8, 5, 2), ("ragged", 3, 8, 1001, 3)]  # n < cs twice; odd n
     for ds, Cc, H, n, K in cases:
         preds = torch.randint(0, K, (Cc, H, n), generator=g, dtype=torch.int32).to(DEV)
         y = torch.randint(0, K, (Cc, n), generator=g, dtype=torch.int32).to(DEV)
         w = torch.rand(Cc, n, generator=g)
         w[0] = 0.0  # a zero-weight shard
         w = (w / w.sum()).to(DEV)
-        got = ops.weighted_errors(preds, y, w)
+        # every output element must be written: the output lands on a NaN-filled block
+        got = poisoned(torch, (Cc, H), lambda: ops.weighted_errors(preds, y, w))
         want = ref.weighted_errors_ref(preds, y, w)
         err = assert_close(torch, "weighted_errors", got, want, f"{ds} [{Cc}, {H}, {n}]")
         check(float(got[0].abs().max()) == 0.0, "weighted_errors: zero-weight shard is not 0")
+        again = ops.weighted_errors(preds, y, w)
+        check(torch.equal(got, again), f"weighted_errors {ds} [{Cc}, {H}, {n}]: two calls differ "
+              f"by up to {max_err(got, again):.3g}")
         worst = max(worst, err)
         if ds in SHAPES:
             nbytes = 4 * (Cc * H * n + 2 * Cc * n + Cc * H)
@@ -361,7 +457,8 @@ def check_weighted_errors(torch, ops, ref, g):
                 **timings(torch, lambda: ops.weighted_errors(preds, y, w),
                           lambda: ref.weighted_errors_ref(preds, y, w)),
             }
-    log(f"weighted_errors: {len(cases)} cases agree, worst max_abs_err {worst:.3g}")
+    log(f"weighted_errors: {len(cases)} cases agree, each written over a NaN-filled block and "
+        f"the same bits in two calls; worst max_abs_err {worst:.3g}")
     return results, worst
 
 
@@ -879,9 +976,22 @@ def main() -> int:
               "instances, not 4 and 4")
         spilled = [row(e) for e in sm90 if flash[e].get("spill_bytes", 1) != 0]
         check(not spilled, f"bf16 flash_attention instances spill: {spilled}")
+        # the cluster kernels: tree_hist and weighted_errors for 1, 2, 4, 8 and 16 rows
+        training = {e: i for e, i in report.items()
+                    if "tree_hist_kernel" in e or "weighted_errors_kernel" in e}
+        log("tree_hist / weighted_errors ptxas (registers, spill bytes): "
+            + "; ".join(training_row(e, i) for e, i in training.items()))
+        check(len(training) == 6, f"ptxas reported {len(training)} tree_hist/weighted_errors kernels, not 6")
+        spilled = [e for e, i in training.items() if i.get("spill_bytes", 1) != 0]
+        check(not spilled, f"tree_hist / weighted_errors kernels spill: {spilled}")
+    atoms = shared_atomics(_build, "tree_hist_kernel")
+    log(f"tree_hist SASS shared-memory atomics: {sorted(atoms)}")
+    check("ATOMS.ADD" in atoms and not any("CAS" in a for a in atoms),
+          f"tree_hist's shared atomics are not single integer adds: {sorted(atoms)}")
 
     # 3. kernels against their plain versions
     g = torch.Generator().manual_seed(0)
+    floor = launch_floor_ms(torch)
     per_kernel = {
         "tree_hist": check_tree_hist(torch, ops, ref, g),
         "weighted_errors": check_weighted_errors(torch, ops, ref, g),
@@ -890,7 +1000,10 @@ def main() -> int:
         "flash_attention": check_flash_attention(torch, ops, ref, g),
     }
     detail = {k: v[0] for k, v in per_kernel.items()}
-    log("kernel_detail " + json.dumps({"card": card, "kernels": detail}))
+    log("kernel_detail " + json.dumps({"card": card, "launch_floor_ms": floor, "kernels": detail}))
+    log(f"kernel ms / bound ms / launch floor ms at the main paths' shapes ({card}): " + "; ".join(
+        f"{name} {res[MAIN_SHAPE[name]]['ms']:.5f} / {res[MAIN_SHAPE[name]]['bound_ms']:.6f} / {floor:.5f}"
+        for name, (res, _) in per_kernel.items()))
 
     # 4. the federation on the card; the adult run is the main path
     ops.reset_launches()
@@ -970,6 +1083,7 @@ def main() -> int:
             "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"], "library_ms": main_shape["library_ms"],
             "eager_ms": main_shape["eager_ms"], "shape": main_shape["shape"],
+            "launch_floor_ms": floor,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

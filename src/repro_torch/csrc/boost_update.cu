@@ -9,12 +9,24 @@
 //   Bound on an H100: bytes.  C*H*n*4 (preds) + 2*C*n*4 (y, w) read once,
 //   C*H*4 written, over 3.35 TB/s; one compare and one add per element is far
 //   below any compute peak.  At the main path's shapes (adult: [8, 8, 4070])
-//   that is ~1.3 MB, well under a microsecond: launch latency dominates.
-//   Design: one block per (c, h) row; threads stride over n with coalesced
-//   loads, then a warp-shuffle and shared-memory tree reduction.  The order of
-//   the sum depends only on n and the block size, so the result is the same
-//   from run to run.  It is held to the plain row sum (repro_torch/kernels/
-//   ref.py:weighted_errors_ref) at rtol 1e-4, not to the Pallas matvec.
+//   that is ~1.3 MB, well under a microsecond: the kernel is a chain of
+//   latencies (launch, one round of loads, the reduction).
+//   Design (launch plan: repro_torch/kernels/boost_update.py:errors_plan):
+//   one thread-block cluster of cs CTAs per collaborator c (grid (cs, C),
+//   cluster (cs, 1, 1)), its CTAs splitting n into cs balanced, contiguous
+//   ranges.  A thread reads y[c, s] and w[c, s] once for its samples and
+//   tests all H rows' preds[c, h, s], neighbouring threads on neighbouring
+//   s (coalesced 4-byte loads: a row of preds is only 4-byte aligned when n
+//   is odd, 8-byte when n = 2 mod 4), so the bytes read are those the bound
+//   counts.  It keeps up to 16 row sums in registers (a template over 1, 2,
+//   4, 8 or 16 rows), in groups of 16 rows beyond that.  The sums are
+//   reduced by a warp shuffle, then across the warps in shared memory, then
+//   across the cluster through distributed shared memory in rank order; CTA
+//   0 writes out[c, :] with plain stores, so the caller allocates `out`
+//   uninitialised.  The order of every sum depends only on (n, H,
+//   blockDim, cs): two calls on the same inputs give the same bits.  It is
+//   held to the plain row sum (repro_torch/kernels/ref.py:
+//   weighted_errors_ref) at rtol 1e-4, not to the Pallas matvec.
 //
 // weight_update:  out[i] = w[i] * expf(alpha * mis[i]) * mask[i]
 //   Replaces: src/repro/kernels/boost_update.py:weight_update (Pallas body
@@ -27,37 +39,77 @@
 //   __expf) keeps it within rtol 1e-5 of the plain version.  The global
 //   renormalisation stays a separate sum, as in the JAX package.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-__global__ void weighted_errors_kernel(const int* __restrict__ preds,
-                                       const int* __restrict__ y,
-                                       const float* __restrict__ w,
-                                       float* __restrict__ out, int H, int n) {
-  __shared__ float partial[32];
-  const int row = blockIdx.x;  // c * H + h
-  const int c = row / H;
-  const int* p = preds + (long long)row * n;
+template <int HB>  // rows summed at once, in registers
+__global__ void __launch_bounds__(1024)
+weighted_errors_kernel(const int* __restrict__ preds, const int* __restrict__ y,
+                       const float* __restrict__ w, float* __restrict__ out, int H, int n) {
+  extern __shared__ float red[];  // partial [warps][HB], then total [H]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int c = blockIdx.y;
+  const int s0 = (int)((long long)rank * n / cs);
+  const int s1 = (int)((long long)(rank + 1) * n / cs);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  float* partial = red;
+  float* total = red + n_warps * HB;
+  const int* pc = preds + (long long)c * H * n;
   const int* yc = y + (long long)c * n;
   const float* wc = w + (long long)c * n;
 
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    acc += (p[i] != yc[i]) ? wc[i] : 0.f;
+  for (int g0 = 0; g0 < H; g0 += HB) {
+    const int hb = min(HB, H - g0);
+    float acc[HB];
+#pragma unroll
+    for (int j = 0; j < HB; ++j) acc[j] = 0.f;
+    for (int s = s0 + threadIdx.x; s < s1; s += blockDim.x) {
+      const int ys = yc[s];
+      const float ws = wc[s];
+      int p[HB];
+#pragma unroll
+      for (int j = 0; j < HB; ++j) p[j] = j < hb ? pc[(long long)(g0 + j) * n + s] : ys;
+#pragma unroll
+      for (int j = 0; j < HB; ++j) acc[j] += p[j] != ys ? ws : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < HB; ++j)
+      for (int off = 16; off > 0; off >>= 1) acc[j] += __shfl_down_sync(0xffffffffu, acc[j], off);
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < HB; ++j) partial[warp * HB + j] = acc[j];
+    }
+    __syncthreads();
+    if (threadIdx.x < hb) {
+      float t = 0.f;
+      for (int q = 0; q < n_warps; ++q) t += partial[q * HB + threadIdx.x];
+      total[g0 + threadIdx.x] = t;
+    }
+    __syncthreads();  // partial is rewritten by the next group
   }
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) partial[warp] = acc;
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = blockDim.x >> 5;
-    acc = lane < n_warps ? partial[lane] : 0.f;
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-    if (lane == 0) out[row] = acc;
+  cluster.sync();
+  if (rank == 0) {
+    for (int hh = threadIdx.x; hh < H; hh += blockDim.x) {
+      float v[8];  // every rank's load in flight before the first add
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (q < cs) v[q] = cluster.map_shared_rank(total, q)[hh];
+      float t = v[0];
+#pragma unroll
+      for (int q = 1; q < 8; ++q)
+        if (q < cs) t += v[q];
+      out[(long long)c * H + hh] = t;
+    }
   }
+  cluster.sync();  // no CTA's total is read after it exits
 }
 
 __global__ void weight_update_kernel(const float* __restrict__ w,
@@ -74,14 +126,40 @@ __global__ void weight_update_kernel(const float* __restrict__ w,
 
 }  // namespace
 
-// preds [C, H, n] i32, y [C, n] i32, w [C, n] f32 -> out [C, H] f32.
-// threads must be a multiple of 32, at most 1024.
+// preds [C, H, n] i32, y [C, n] i32, w [C, n] f32 -> out [C, H] f32, every
+// element written.  cs in {1, 2, 4, 8}; threads a multiple of 32, at most
+// 1024.  Returns the launch's cudaError_t; a refused cluster launch is
+// returned, never retried.
 extern "C" int repro_weighted_errors(const void* preds, const void* y, const void* w,
-                                     void* out, int C, int H, int n, int threads,
+                                     void* out, int C, int H, int n, int cs, int threads,
                                      void* stream) {
-  weighted_errors_kernel<<<C * H, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)preds, (const int*)y, (const float*)w, (float*)out, H, n);
-  return (int)cudaGetLastError();
+  if (cs < 1 || cs > 8 || H < 1) return (int)cudaErrorInvalidValue;
+  const int hb = H > 8 ? 16 : H > 4 ? 8 : H > 2 ? 4 : H;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = ((threads / 32) * hb + H) * sizeof(float);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const int* p = (const int*)preds;
+  const int* yy = (const int*)y;
+  const float* ww = (const float*)w;
+  float* o = (float*)out;
+  cudaError_t e;
+  switch (hb) {
+    case 1: e = cudaLaunchKernelEx(&cfg, weighted_errors_kernel<1>, p, yy, ww, o, H, n); break;
+    case 2: e = cudaLaunchKernelEx(&cfg, weighted_errors_kernel<2>, p, yy, ww, o, H, n); break;
+    case 4: e = cudaLaunchKernelEx(&cfg, weighted_errors_kernel<4>, p, yy, ww, o, H, n); break;
+    case 8: e = cudaLaunchKernelEx(&cfg, weighted_errors_kernel<8>, p, yy, ww, o, H, n); break;
+    default: e = cudaLaunchKernelEx(&cfg, weighted_errors_kernel<16>, p, yy, ww, o, H, n); break;
+  }
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // w, mis, mask, out [N] f32; alpha [1] f32 on the device.

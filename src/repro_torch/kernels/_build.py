@@ -37,10 +37,12 @@ _F = ctypes.c_float
 _FLASH = [  # q, k, v, o, strides[12], B, H, Hkv, S, T, D, causal, window, scale, softcap, stream
     _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 _SIGNATURES = {  # every extern "C" function of the sources: (restype, argtypes)
-    # bin_idx, leaf, wy, out, H, n, d, L, B1, K, dblk, n_chunks, threads, stream
+    # bin_idx, leaf, wy, out, H, n, d, L, B1, K, dblk, cs, threads, stream
     "repro_tree_hist": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    # preds, y, w, out, C, H, n, threads, stream
-    "repro_weighted_errors": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # L, B1, K, dblk, cs, threads, &clusters
+    "repro_tree_hist_max_clusters": (_I, [_I, _I, _I, _I, _I, _I, _P]),
+    # preds, y, w, out, C, H, n, cs, threads, stream
+    "repro_weighted_errors": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # w, mis, mask, alpha, out, N, blocks, threads, stream
     "repro_weight_update": (_I, [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P]),
     # preds, alpha, out, T, n, K, threads, stream

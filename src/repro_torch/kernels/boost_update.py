@@ -1,7 +1,9 @@
 """The AdaBoost.F inner-loop kernels (paper steps 3-4):
 
 * ``weighted_errors`` — eps[c, h] = sum_n w[c, n] * 1[preds[c, h, n] != y[c, n]],
-  one launch over the round's whole ``[C, H, n]`` prediction tensor;
+  one launch over the round's whole ``[C, H, n]`` prediction tensor, a
+  thread-block cluster per collaborator reduced through distributed
+  shared memory;
 * ``weight_update`` — w * exp(alpha * mis) * mask, elementwise, with
   ``alpha`` read on the device.
 
@@ -11,12 +13,38 @@ CPU tensors it runs the plain version in ``ref.py``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.tree_hist import SMS, blocks_per_sm
 
-THREADS = 256
+THREADS = 256  # weight_update
 MAX_UPDATE_BLOCKS = 132 * 8  # grid-stride beyond this
+ERRORS_CLUSTER = 8  # CTAs per collaborator, unless a wave cannot hold the grid
+MIN_ERROR_THREADS, MAX_ERROR_THREADS = 64, 1024
+
+
+class ErrorsPlan(NamedTuple):
+    cs: int  # CTAs per cluster, splitting one collaborator's n samples
+    threads: int  # threads per CTA
+
+
+def errors_plan(C: int, H: int, n: int) -> ErrorsPlan:
+    """One cluster per collaborator: the largest cluster (up to 8) whose
+    grid fits in one wave (every CTA resident at once), and enough threads
+    that each takes one sample of its CTA's range (whole warps, up to
+    1024).  The cluster does not shrink with n, so a CTA's range is empty
+    where n < cs."""
+    def threads(cs):
+        per_cta = -(-n // cs)
+        return min(MAX_ERROR_THREADS, max(MIN_ERROR_THREADS, 32 * -(-per_cta // 32)))
+
+    cs = ERRORS_CLUSTER
+    while cs > 1 and C * cs > SMS * blocks_per_sm(threads(cs), 0):
+        cs //= 2
+    return ErrorsPlan(cs, threads(cs))
 
 
 def _same_device(name: str, *ts: torch.Tensor) -> torch.device:
@@ -50,14 +78,15 @@ def weighted_errors(
     if dev.type == "cpu":
         return ref.weighted_errors_ref(preds, y, w)
     C, H, n = preds.shape
-    out = torch.zeros(C, H, dtype=torch.float32, device=dev)
-    if C * H > 0 and n > 0:
+    out = torch.empty(C, H, dtype=torch.float32, device=dev)  # every element is written: no memset
+    if C * H > 0:
+        plan = errors_plan(C, H, n)
         lib = _build.library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.repro_weighted_errors(
                 preds.data_ptr(), y.data_ptr(), w.data_ptr(), out.data_ptr(),
-                C, H, n, THREADS, stream,
+                C, H, n, plan.cs, plan.threads, stream,
             )
         _build.check(rc, "weighted_errors")
         weighted_errors.launches += 1

@@ -5,8 +5,9 @@ kernels.  Imports no JAX, so it runs on a machine with a card:
   python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Where ``torch.cuda.is_available()`` is False every test here skips.
-Tolerances are the card's: atomics reorder the histogram sum (atol 1e-4,
-on cells of mass up to about 1, as on the main path), errors rtol 1e-4,
+Tolerances are the card's: the histogram kernel sums in fixed point per
+CTA, the plain version in float32 in another order (atol 1e-4, on cells
+of mass up to about 1, as on the main path), errors rtol 1e-4,
 weights rtol 1e-5.  ``vote_argmax`` is exact: on half-integer alphas the
 vote sums are exact in f32, so any summation order gives the same argmax.
 """
@@ -55,6 +56,62 @@ def test_weighted_errors_kernel_matches_plain(dev, C, H, n):
     torch.testing.assert_close(got, ref.weighted_errors_ref(preds, y, w), rtol=1e-4, atol=0)
 
 
+def _poisoned(dev, shape, call):
+    """``call()`` right after a NaN-filled block of ``shape`` was freed, so
+    that the caching allocator hands that block to the call's output: a
+    cell the kernel never writes stays NaN."""
+    junk = torch.full(shape, float("nan"), device=dev)
+    ptr = junk.data_ptr()
+    del junk
+    out = call()
+    assert out.data_ptr() == ptr, "the allocator did not hand back the NaN-filled block"
+    return out
+
+
+@pytest.mark.parametrize("H,n,d,K,L", [
+    (1, 3, 3, 2, 1),  # n < cs: CTAs of a cluster with no sample
+    (2, 1, 4, 2, 2),  # n = 1
+    (33, 1001, 5, 3, 8),  # H = 33, odd n
+    (8, 2000, 16, 26, 8),  # letter at L = 8: the widest histogram
+])
+def test_tree_hist_kernel_writes_every_cell(dev, H, n, d, K, L):
+    """Edge shapes of the cluster kernel, its output on a NaN-filled
+    block: every cell must be written, agree with the plain version, and
+    come out the same bits from two calls."""
+    from repro_torch.kernels.tree_hist import launch_plan
+
+    g = torch.Generator().manual_seed(n)
+    bins = torch.randint(0, 17, (H, n, d), generator=g, dtype=torch.int32).to(dev)
+    leaf = torch.randint(0, L, (H, n), generator=g, dtype=torch.int32).to(dev)
+    wy = (torch.rand(H, n, K, generator=g) * (L * 17 / n)).to(dev)
+    got = _poisoned(dev, (H, L, d, 17, K), lambda: ops.tree_hist(bins, leaf, wy, n_leaves=L, n_bins_p1=17))
+    again = ops.tree_hist(bins, leaf, wy, n_leaves=L, n_bins_p1=17)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.tree_hist_batched_ref(bins, leaf, wy, L, 17), rtol=0, atol=1e-4)
+    assert torch.equal(got, again)  # integer sums in each CTA, a fixed order across the cluster
+    if n < 8:
+        assert launch_plan(H, n, d, L, 17, K).cs > n  # the case leaves CTAs of a cluster empty
+
+
+@pytest.mark.parametrize("C,H,n", [(8, 8, 1), (8, 8, 5), (4, 33, 4097), (3, 8, 1001), (8, 8, 6250)])
+def test_weighted_errors_kernel_writes_every_element_the_same_bits_twice(dev, C, H, n):
+    """Edge shapes of the cluster kernel, its output on a NaN-filled
+    block: every element written, the same bits from two calls, and
+    exactly 0 on a zero-weight shard."""
+    g = torch.Generator().manual_seed(n)
+    preds = torch.randint(0, 3, (C, H, n), generator=g, dtype=torch.int32).to(dev)
+    y = torch.randint(0, 3, (C, n), generator=g, dtype=torch.int32).to(dev)
+    w = torch.rand(C, n, generator=g)
+    w[0] = 0.0
+    w = w.to(dev)
+    got = _poisoned(dev, (C, H), lambda: ops.weighted_errors(preds, y, w))
+    again = ops.weighted_errors(preds, y, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.weighted_errors_ref(preds, y, w), rtol=1e-4, atol=0)
+    assert torch.equal(got, again)
+    assert float(got[0].abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("N", [32560, 16000, 50000, 1])
 def test_weight_update_kernel_matches_plain(dev, N):
     g = torch.Generator().manual_seed(N)
@@ -86,6 +143,21 @@ def test_round_never_waits_for_the_card(dev):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert state.ensemble.count == 3 and 0 <= int(metrics["chosen"]) < 4
+
+
+def test_a_round_launches_each_level_and_the_errors_once(dev):
+    """One AdaBoost.F round of depth-4 trees: one tree_hist launch per
+    level for all collaborators, one weighted_errors and one weight_update."""
+    from repro_torch.core import boosting
+    from repro_torch.launch import fl_run
+
+    fed = fl_run.build_federation("vehicle", 4, 1, 4, 0, dev)
+    state = boosting.init_boost_state(fed.learner, fed.spec, 1, fed.masks, X=fed.Xs)
+    ops.reset_launches()
+    boosting.adaboost_f_round(fed.learner, fed.spec, state, fed.Xs, fed.ys, fed.masks)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"tree_hist": 4, "weighted_errors": 1, "weight_update": 1,
+                                   "vote_argmax": 0, "flash_attention": 0}
 
 
 def test_federation_on_the_card_goes_through_the_kernels(dev):

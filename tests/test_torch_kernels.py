@@ -22,7 +22,11 @@ from repro.kernels.boost_update import weight_update as pallas_weight_update
 from repro.kernels.boost_update import weighted_errors as pallas_weighted_errors
 from repro.kernels.tree_hist import tree_hist as pallas_tree_hist
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.tree_hist import MAX_SHARED_BYTES, launch_plan
+from repro_torch.kernels.boost_update import errors_plan
+from repro_torch.kernels.tree_hist import (
+    MAX_FEATURES_PER_BLOCK, MAX_SHARED_BYTES, MAX_THREADS, MIN_THREADS, SMS,
+    blocks_per_sm, launch_plan,
+)
 
 
 def _hist_inputs(seed, shape, L, B1, K):
@@ -93,19 +97,54 @@ def test_tree_hist_zero_weight_rows_are_noops():
     assert float(zero.abs().max()) == 0.0
 
 
+def _sample_ranges(n, cs):
+    """The contiguous sample range each CTA of a cluster takes: rank r
+    gets [r*n // cs, (r+1)*n // cs), as both kernels compute it."""
+    return [(r * n // cs, (r + 1) * n // cs) for r in range(cs)]
+
+
+def _assert_ranges_tile(n, cs):
+    ranges = _sample_ranges(n, cs)
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    empty = sum(lo == hi for lo, hi in ranges)
+    assert empty == max(0, cs - n)  # no empty CTA except where n < cs
+
+
 @pytest.mark.parametrize("n,d,K", [(4070, 14, 2), (2000, 16, 26), (6250, 54, 2)])
 @pytest.mark.parametrize("L", [1, 2, 4, 8])
 def test_tree_hist_launch_plan_fits_the_card(n, d, K, L):
     """The main path's shapes (adult, letter, forestcover; C = 8, 16 bins)
-    get a block that fits in shared memory and sample chunks that cover
-    every sample with none empty."""
-    plan = launch_plan(8, n, d, L, 17, K)
-    assert 1 <= plan.dblk <= min(d, 8)
-    assert plan.shared_bytes == L * plan.dblk * 17 * K * 4 <= MAX_SHARED_BYTES
-    chunks = plan.n_chunks
-    assert chunks >= 1
-    chunk = -(-n // chunks)
-    assert chunk * chunks >= n and (chunks - 1) * chunk < n  # no empty trailing chunk
+    get clusters of 1, 2, 4 or 8 CTAs whose sample ranges tile [0, n),
+    a histogram that fits in shared memory, whole warps (a thread for
+    each sample, or at least 256), and a grid that fits in one wave on
+    132 SMs."""
+    H = 8
+    plan = launch_plan(H, n, d, L, 17, K)
+    assert 1 <= plan.dblk <= min(d, MAX_FEATURES_PER_BLOCK)
+    grid = (H, -(-d // plan.dblk), plan.cs)
+    assert plan.cs in (1, 2, 4, 8) and grid[2] % plan.cs == 0
+    _assert_ranges_tile(n, plan.cs)
+    cells = L * plan.dblk * 17 * K
+    # the int32 histogram padded to 16 bytes, and a float for each of up to 32 warps
+    assert plan.shared_bytes == 16 * -(-cells // 4) + 4 * 32 <= MAX_SHARED_BYTES
+    assert plan.threads % 32 == 0 and plan.threads * plan.cs >= min(n, 256 * plan.cs)
+    assert grid[0] * grid[1] * grid[2] <= SMS * blocks_per_sm(plan.threads, plan.shared_bytes)
+
+
+@pytest.mark.parametrize("H,n,d,L,K", [(33, 1001, 5, 8, 3), (3, 257, 19, 8, 26), (1, 3, 3, 1, 2),
+                                       (2, 1, 4, 2, 2), (8, 0, 14, 1, 2), (64, 20000, 54, 8, 2)])
+def test_tree_hist_launch_plan_ragged_shapes(H, n, d, L, K):
+    """Ragged shapes: the cluster stays a power of two up to 8 and does
+    not shrink with n (so that n < cs leaves CTAs empty), the features are
+    covered, and only a grid too large for one wave has clusters of 1."""
+    plan = launch_plan(H, n, d, L, 17, K)
+    assert plan.cs in (1, 2, 4, 8) and 1 <= plan.dblk <= min(d, MAX_FEATURES_PER_BLOCK)
+    assert -(-d // plan.dblk) * plan.dblk >= d > (-(-d // plan.dblk) - 1) * plan.dblk
+    _assert_ranges_tile(n, plan.cs)
+    assert MIN_THREADS <= plan.threads <= MAX_THREADS and plan.threads % 32 == 0
+    grid = H * -(-d // plan.dblk) * plan.cs
+    assert plan.cs == 1 or grid <= SMS * blocks_per_sm(plan.threads, plan.shared_bytes)
 
 
 def test_tree_hist_launch_plan_rejects_oversized_histogram():
@@ -183,6 +222,22 @@ def test_weight_update_ref_matches_pallas_interpret():
     want = pallas_weight_update(jnp.asarray(w), jnp.asarray(mis), jnp.asarray(mask),
                                 jnp.float32(1.5), block_s=128, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("C,H,n", [
+    (8, 8, 4070), (8, 8, 2000), (8, 8, 6250),  # adult, letter, forestcover
+    (4, 33, 4097), (8, 8, 1), (8, 8, 5), (3, 8, 1001), (2, 3, 100), (300, 8, 4070), (8, 8, 100000),
+])
+def test_weighted_errors_plan_fits_the_card(C, H, n):
+    """One cluster of 1, 2, 4 or 8 CTAs per collaborator, sample ranges
+    that tile [0, n) (empty CTAs only where n < cs), whole warps with one
+    sample a thread up to 1024 threads, and at most one wave."""
+    plan = errors_plan(C, H, n)
+    assert plan.cs in (1, 2, 4, 8)
+    _assert_ranges_tile(n, plan.cs)
+    assert plan.threads % 32 == 0 and 64 <= plan.threads <= 1024
+    assert plan.threads * plan.cs >= n or plan.threads == 1024
+    assert C * plan.cs <= SMS * blocks_per_sm(plan.threads, 0) or plan.cs == 1
 
 
 # -- dispatch ----------------------------------------------------------------------
