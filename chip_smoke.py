@@ -8,16 +8,21 @@ Phases, each of which raises (non-zero exit) on failure:
 1. print the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, and
    check ptxas's report (no spill in the bf16 ``flash_attention``
-   instances, ``tree_hist`` or ``weighted_errors``) and ``tree_hist``'s
-   SASS (its shared-memory atomics are integer adds, no CAS loop);
+   instances, ``tree_hist``, ``weighted_errors``, ``weight_update`` or
+   ``vote_argmax``) and ``tree_hist``'s SASS (its shared-memory atomics
+   are integer adds, no CAS loop);
 3. hold every kernel to its plain PyTorch version on the card, at the main
    paths' shapes (training: adult, letter, forestcover; C = 8, depth 4, 16
-   bins; serving: ``vote_argmax`` at pendigits' and letter's batches) and
-   at ragged cases; the two cluster kernels (``tree_hist``,
-   ``weighted_errors``) also with clusters whose CTAs get no sample, each
-   output landing on a NaN-filled block (every cell must be written), the
-   same bits from two calls, and ``tree_hist``'s main-path plans against
-   the clusters the card holds at once; time the kernel, its plain version
+   bins; ``weight_update`` also at adult's 64 collaborators; serving:
+   ``vote_argmax`` at pendigits' and letter's batches) and at ragged cases;
+   the training and voting kernels each with its output landing on a
+   NaN-filled block (every element must be written), the cluster kernels
+   (``tree_hist``, ``weighted_errors``, ``weight_update``) with the same
+   bits from two calls and ``tree_hist``'s main-path plans against the
+   clusters the card holds at once, ``tree_hist`` under AdaBoost's skewed
+   weights (the same split as the plain version), ``vote_argmax`` past one
+   member tile, at 1 808 classes, with NaN alphas and equal to a
+   member-by-member ``VoteTally``; time the kernel, its plain version
    and (where one exists) the one PyTorch call that computes the same
    function, each on the device alone (replayed from a CUDA graph), beside
    the launch floor (a 1-element ``fill_`` replayed the same way), and the
@@ -28,8 +33,10 @@ Phases, each of which raises (non-zero exit) on failure:
    rounds each — and check the launch counts and that no plain version ran
    on a CUDA tensor;
 5. run the adult configuration on the CPU and compare it with the card's;
-6. print ms/round on the card for each dataset, the adult round's ms per
-   stage, and where the adult run's device time goes (``torch.profiler``);
+6. print ms/round on the card for each dataset, the host operations of an
+   adult round (PyTorch operators and kernel launches, counted), the adult
+   round's ms per stage, and where the adult run's device time goes
+   (``torch.profiler``);
 7. serve through ``repro_torch.launch.serve_fl`` on the card — pendigits
    with the defaults, saving an artifact, under ``--policy sync`` (the
    serving main path, with every launch count set to 0 just before), that
@@ -105,11 +112,13 @@ SOURCES = {
 MAIN_SHAPE = {"tree_hist": "adult", "weighted_errors": "adult", "weight_update": "adult",
               "vote_argmax": "pendigits", "flash_attention": "gemma_serve"}
 # vote_argmax [T, n, K]: serve_fl's defaults on pendigits (10 rounds, batch
-# 256) and letter at 100 rounds, at the batch and at a whole 4096-row shard
+# 256) and letter at 100 rounds, at the batch and at a whole 4096-row shard,
+# and letter's batch at 1000 rounds
 VOTE_SHAPES = {
     "pendigits": (10, 256, 10),
     "letter": (100, 256, 26),
     "letter_4096": (100, 4096, 26),
+    "letter_1000": (1000, 256, 26),  # eight member tiles, double-buffered
 }
 SERVE = OUT / "serve"  # serving artifacts and the rolling checkpoint stream
 WINDOW_S = 1.0  # seconds each policy serves pendigits' test split for
@@ -292,11 +301,18 @@ def ptxas_report(build_log: str) -> dict:
     return report
 
 
-def training_row(entry: str, info: dict) -> str:
-    """The "name: registers, spill bytes" of a tree_hist or weighted_errors instance."""
-    m = re.search(r"weighted_errors_kernelILi(\d+)E", entry)
-    name = f"weighted_errors<{m.group(1)}>" if m else "tree_hist"
-    return f"{name}: {info.get('registers')}, {info.get('spill_bytes')}"
+# the CUDA-core kernels of the training and serving paths, by mangled name:
+# tree_hist, weighted_errors for 1, 2, 4, 8 and 16 rows, weight_update, and
+# vote_argmax for 1, 2, 4, 8 and 16 classes a thread
+CORE_KERNELS = ("tree_hist_kernel", "weighted_errors_kernel", "weight_update_kernel",
+                "vote_argmax_kernel")
+
+
+def kernel_row(entry: str, info: dict) -> str:
+    """The "name: registers, spill bytes" of one instance of ``CORE_KERNELS``."""
+    name = next(k for k in CORE_KERNELS if k in entry)[: -len("_kernel")]
+    m = re.search(r"_kernelILi(\d+)E", entry)
+    return f"{name}{f'<{m.group(1)}>' if m else ''}: {info.get('registers')}, {info.get('spill_bytes')}"
 
 
 def shared_atomics(build, entry: str) -> set:
@@ -400,8 +416,45 @@ def check_tree_hist(torch, ops, ref, g):
     log(f"tree_hist: {len(cases)} cases agree, each written over a NaN-filled block and the same "
         f"bits in two calls, worst "
         f"max_abs_err {worst:.3g}; clusters with empty CTAs at {', '.join(empty)}")
+    worst = max(worst, check_tree_hist_skewed(torch, ops, ref, g, tree_hist_mod))
     one_wave(torch, tree_hist_mod)
     return results, worst
+
+
+def check_tree_hist_skewed(torch, ops, ref, g, tree_hist_mod, fits: int = 8) -> float:
+    """AdaBoost's skewed weights at adult's deepest level (C = 8, L = 8):
+    log-normal weights with sigma = 4 normalised to sum 1, so a CTA's
+    fixed-point step, set by its heaviest sample, is coarse for the light
+    ones.  Each fit is held at atol 1e-4 and must pick the plain version's
+    split for every collaborator; the worst error and the cells whose
+    plain mass is nonzero but whose kernel sum rounds to 0 are logged."""
+    from repro_torch.learners.tree import _split_scores
+
+    n, d, K = SHAPES["adult"]
+    L, B1 = 2**(DEPTH - 1), N_BINS + 1
+    worst, zeroed, nonzero, same = 0.0, 0, 0, 0
+    for _ in range(fits):
+        bins = torch.randint(0, B1, (C, n, d), generator=g, dtype=torch.int32).to(DEV)
+        leaf = torch.randint(0, L, (C, n), generator=g, dtype=torch.int32).to(DEV)
+        w = torch.exp(4.0 * torch.randn(C, n, generator=g, dtype=torch.float64))
+        w = (w / w.sum()).float()
+        y = torch.randint(0, K, (C, n), generator=g)
+        wy = (torch.nn.functional.one_hot(y, K).float() * w.unsqueeze(-1)).contiguous().to(DEV)
+        got = ops.tree_hist(bins, leaf, wy, n_leaves=L, n_bins_p1=B1)
+        want = ref.tree_hist_batched_ref(bins, leaf, wy, L, B1)
+        worst = max(worst, assert_close(torch, "tree_hist", got, want, "skewed weights, adult L=8"))
+        zeroed += int(((want != 0) & (got == 0)).sum())
+        nonzero += int((want != 0).sum())
+        split_got = torch.argmax(_split_scores(got).flatten(1), dim=1)
+        split_want = torch.argmax(_split_scores(want).flatten(1), dim=1)
+        check(torch.equal(split_got, split_want), f"tree_hist skewed weights: splits "
+              f"{split_got.tolist()} differ from the plain version's {split_want.tolist()}")
+        same += C
+    plan = tree_hist_mod.launch_plan(C, n, d, L, B1, K)
+    log(f"tree_hist, skewed weights (log-normal sigma 4, sum 1; adult [{C}, {n}, {d}], L={L}, "
+        f"cluster {plan.cs}): {fits} draws, worst max_abs_err {worst:.3g} (atol 1e-4); "
+        f"{zeroed} of {nonzero} nonzero cells round to 0; the same split in {same}/{same} fits")
+    return worst
 
 
 def one_wave(torch, tree_hist_mod) -> None:
@@ -462,31 +515,56 @@ def check_weighted_errors(torch, ops, ref, g):
     return results, worst
 
 
+UPDATE_SHAPES = {  # weight_update N = C * n: the main path's datasets at C = 8, and adult at
+    # the paper's 64 collaborators (its largest scale)
+    **{ds: C * n for ds, (n, _, _) in SHAPES.items()},
+    "adult_64": 64 * SHAPES["adult"][0],
+}
+
+
 def check_weight_update(torch, ops, ref, g):
+    """The fused update (the Pallas body, then division by the clamped
+    total) against its plain version at rtol 1e-5: the four N of
+    ``UPDATE_SHAPES`` and N = 1 and 4 097, three alphas, a mask with
+    zeros; each output written over a NaN-filled block and the same bits
+    from a second call; an all-zero mask gives zeros through the 1e-30
+    clamp."""
     results, worst = {}, 0.0
-    cases = [(ds, C * n) for ds, (n, _, _) in SHAPES.items()] + [("ragged", 4097), ("ragged", 1)]
+    cases = list(UPDATE_SHAPES.items()) + [("ragged", 4097), ("ragged", 1)]
     for ds, N in cases:
         w = (torch.rand(N, generator=g) / N).to(DEV)
         mis = (torch.rand(N, generator=g) < 0.3).float().to(DEV)
         mask = torch.ones(N)
-        mask[-3:] = 0.0
+        mask[3::7] = 0.0  # padding rows
         mask = mask.to(DEV)
         for a in (0.37, -2.0, 10.0):
             alpha = torch.tensor(a, device=DEV)
-            got = ops.weight_update(w, mis, mask, alpha)
-            want = ref.boost_weight_update_ref(w, mis, mask, alpha)
+            got = poisoned(torch, (N,), lambda: ops.weight_update(w, mis, mask, alpha))
+            want = ref.renormalised_weight_update_ref(w, mis, mask, alpha)
             err = assert_close(torch, "weight_update", got, want, f"{ds} N={N} alpha={a}")
+            again = ops.weight_update(w, mis, mask, alpha)
+            check(torch.equal(got, again), f"weight_update {ds} N={N} alpha={a}: two calls differ "
+                  f"by up to {max_err(got, again):.3g}")
             worst = max(worst, err)
-        if ds in SHAPES:
+        zeros = ops.weight_update(w, mis, torch.zeros_like(mask), alpha)
+        torch.cuda.synchronize()
+        check(bool((zeros == 0).all()), f"weight_update N={N}: an all-zero mask gives "
+              f"{zeros[zeros != 0][:4].tolist()}, not zeros")
+        if ds in UPDATE_SHAPES:
             alpha = torch.tensor(0.37, device=DEV)
-            bms, by = bound_ms(4 * (4 * N + 1), 4 * N)
-            # no single PyTorch call computes w * exp(a * mis) * mask: no library time
+            # bytes: w, mis, mask and alpha read once, out written once; operations:
+            # a product (exp and three multiplies), an add and a division an element
+            bms, by = bound_ms(4 * (4 * N + 1), 6 * N)
+            # no single PyTorch call computes the renormalised update: no library time
             results[ds] = {
                 "shape": f"w [{N}]", "max_abs_err": err, "bound_ms": bms, "bound_by": by,
                 **timings(torch, lambda: ops.weight_update(w, mis, mask, alpha),
-                          lambda: ref.boost_weight_update_ref(w, mis, mask, alpha)),
+                          lambda: ref.renormalised_weight_update_ref(w, mis, mask, alpha)),
             }
-    log(f"weight_update: {len(cases) * 3} cases agree, worst max_abs_err {worst:.3g}")
+    log(f"weight_update: {len(cases) * 3} cases agree, each written over a NaN-filled block and "
+        f"the same bits in two calls, all-zero masks give zeros; worst max_abs_err {worst:.3g}; "
+        + "; ".join(f"{k} N={UPDATE_SHAPES[k]} {v['ms']:.5f} ms (bound {v['bound_ms']:.6f}, plain "
+                    f"{v['plain_ms']:.5f}, eager {v['eager_ms']:.5f})" for k, v in results.items()))
     return results, worst
 
 
@@ -501,22 +579,56 @@ def vote_gap_agree(votes, a, b, alpha) -> tuple:
     return int((differ & ~near).sum()), int(near.sum()), int((differ & near).sum())
 
 
+def tally_classes(torch, preds, alpha, K):
+    """The classes of a ``VoteTally`` built member by member
+    (``scoring.tally_new_votes``: one ``alpha[t] * one_hot`` add a member,
+    in ascending order), from a stub learner that predicts ``preds``."""
+    import dataclasses
+    from typing import NamedTuple
+
+    from repro_torch.core import boosting, scoring
+    from repro_torch.learners.base import LearnerSpec, WeakLearner
+
+    class Votes(NamedTuple):
+        preds: object
+
+    @dataclasses.dataclass(frozen=True)
+    class Stub(WeakLearner):
+        def predict(self, spec, params, X):
+            return params.preds
+
+    T, n = preds.shape
+    learner = Stub("stub", None, None, None)
+    ens = boosting.Ensemble(Votes(preds), alpha, T)
+    tally = scoring.tally_new_votes(learner, LearnerSpec("stub", 1, K), ens,
+                                    scoring.init_tally(n, K, DEV), torch.zeros(n, 1, device=DEV))
+    return scoring.tally_predict(tally)
+
+
 def check_vote_argmax(torch, ops, ref, g):
-    """Exact agreement with the plain version at the serving shapes, with
-    out-of-range predictions and constructed ties (half-integer alphas
-    from a few values: every vote sum is exact in f32, so the summation
-    order cannot matter), and on arbitrary alphas outside the near-tie gap.
-    The error returned is the largest |kernel - plain| class index over the
-    exact cases; rows that differ inside the near-tie gap are counted
-    apart."""
+    """Exact agreement with the plain version, each output written over a
+    NaN-filled block: the serving shapes, ragged n, T = 0 and 1, T past
+    one member tile, K = 400 and K = 1 808 (several classes a thread), and
+    NaN and infinite alphas (NaN votes, ranked as torch.argmax ranks them);
+    predictions in [-1, K] and constructed ties (half-integer alphas from
+    a few values: every vote sum is exact in f32, so the summation order
+    cannot matter).  At letter's batch, equality with a member-by-member
+    ``VoteTally`` under arbitrary alphas, which holds only if the kernel
+    sums the members in ascending order.  The error returned is the
+    largest |kernel - plain| class index over the exact cases."""
     results, worst = {}, 0
     cases = [(name, T, n, K) for name, (T, n, K) in VOTE_SHAPES.items()]
     cases += [("ragged", 13, 1001, 5), ("ragged", 1, 1, 2), ("ragged", 0, 7, 3),
-              ("ragged", 300, 333, 7), ("ragged", 4, 300, 400)]  # K = 400 opts in to > 48 KB
+              ("ragged", 300, 333, 7), ("ragged", 4, 300, 400),  # 4 classes a thread
+              ("ragged", 6, 77, 1808),  # 16 classes a thread, 928 threads
+              ("nan_alpha", 20, 203, 6)]  # NaN and inf alphas
     for name, T, n, K in cases:
         preds = torch.randint(-1, K + 1, (T, n), generator=g, dtype=torch.int32).to(DEV)
-        alpha = (torch.randint(0, 4, (T,), generator=g).float() * 0.5).to(DEV)
-        got = ops.vote_argmax(preds, alpha, n_classes=K)
+        alpha = torch.randint(0, 4, (T,), generator=g).float() * 0.5
+        if name == "nan_alpha":
+            alpha[3], alpha[11] = float("nan"), float("inf")
+        alpha = alpha.to(DEV)
+        got = poisoned(torch, (n,), lambda: ops.vote_argmax(preds, alpha, n_classes=K))
         want = ref.vote_argmax_ref(preds, alpha, K)
         torch.cuda.synchronize()
         check(got.dtype == torch.int32 and got.shape == (n,), f"vote_argmax {name}: {got.dtype} {tuple(got.shape)}")
@@ -541,10 +653,30 @@ def check_vote_argmax(torch, ops, ref, g):
                 **timings(torch, lambda: ops.vote_argmax(clean, alpha_r, n_classes=K),
                           lambda: ref.vote_argmax_ref(clean, alpha_r, K)),
             }
-    log(f"vote_argmax: {len(cases)} cases equal to the plain version; arbitrary alphas agree "
-        f"outside the near-tie gap (rows inside, of them differing: "
+    # ascending member order, bit for bit: against a member-by-member tally at
+    # letter's batch, with arbitrary alphas and with alphas a few ulps apart
+    # (sums of equal counts that only the order of rounding tells apart)
+    T, n, K = VOTE_SHAPES["letter"]
+    preds = torch.randint(0, K, (T, n), generator=g, dtype=torch.int32).to(DEV)
+    tally_rows = []
+    for what, alpha in (("arbitrary", torch.rand(T, generator=g) * 3.0),
+                        ("ulps apart", 1.0 + torch.randint(0, 4, (T,), generator=g) * 2.0**-23)):
+        alpha = alpha.to(DEV)
+        want = tally_classes(torch, preds, alpha, K)
+        got = ops.vote_argmax(preds, alpha, n_classes=K)
+        plain = ref.vote_argmax_ref(preds, alpha, K)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"vote_argmax letter, {what} alphas: {int((got != want).sum())} "
+              "rows differ from a member-by-member VoteTally")
+        tally_rows.append(f"{what}: equal in {n}/{n} rows (the plain einsum differs in "
+                          f"{int((plain != want).sum())})")
+    log(f"vote_argmax: {len(cases)} cases equal to the plain version, each written over a NaN-filled "
+        f"block; arbitrary alphas agree outside the near-tie gap (rows inside, of them differing: "
         + ", ".join(f"{k} {v['near_tie_rows']}, {v['near_tie_rows_differ']}"
-                    for k, v in results.items()) + ")")
+                    for k, v in results.items()) + "); against a member-by-member VoteTally at "
+        f"letter [{T}, {n}, {K}]: " + "; ".join(tally_rows) + "; "
+        + "; ".join(f"{k} {v['ms']:.5f} ms (bound {v['bound_ms']:.7f}, plain {v['plain_ms']:.5f}, "
+                    f"eager {v['eager_ms']:.5f})" for k, v in results.items()))
     return results, float(worst)
 
 
@@ -636,6 +768,56 @@ def check_run(run: dict, rounds: int, what: str) -> None:
         check(0 <= r["chosen"] < C, f"{what}: chosen {r['chosen']} out of range")
         check(0.0 <= r["epsilon"] <= 1.0, f"{what}: epsilon {r['epsilon']} outside [0, 1]")
         check(abs(r["alpha"]) <= 10.0, f"{what}: alpha {r['alpha']} outside [-10, 10]")
+
+
+def host_ops(torch, ops, fn) -> dict:
+    """The host operations ``fn()`` issues: PyTorch operators through the
+    dispatcher (counted by a ``TorchDispatchMode``; most launch a kernel,
+    each costs the host its dispatch) and the port's own kernel launches,
+    which bypass the dispatcher."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    before = ops.launch_counts()
+    with Count() as count:
+        fn()
+    kernels = sum(ops.launch_counts().values()) - sum(before.values())
+    torch_ops = sum(count.ops.values())
+    return {"host_ops": torch_ops + kernels, "torch_ops": torch_ops, "kernel_launches": kernels,
+            "top": dict(count.ops.most_common(8))}
+
+
+def round_host_ops(torch, ops, fl_run) -> dict:
+    """Host operations of one steady adult round (the sixth of ten) and of
+    its weight update alone (``scoring.update_weights``)."""
+    from repro_torch.core import boosting, scoring
+
+    fed = fl_run.build_federation("adult", C, MAIN["rounds"], DEPTH, 0, DEV)
+    state = boosting.init_boost_state(fed.learner, fed.spec, MAIN["rounds"], fed.masks, X=fed.Xs)
+    for _ in range(MAIN["rounds"] // 2):
+        state, _ = boosting.adaboost_f_round(fed.learner, fed.spec, state, fed.Xs, fed.ys, fed.masks)
+    box = {}
+
+    def one_round():
+        box["state"], _ = boosting.adaboost_f_round(fed.learner, fed.spec, state, fed.Xs, fed.ys,
+                                                    fed.masks)
+
+    per_round = host_ops(torch, ops, one_round)
+    mis = (torch.rand(state.weights.shape, device=DEV) < 0.3).float()
+    alpha = torch.tensor(0.37, device=DEV)
+    update = host_ops(torch, ops, lambda: scoring.update_weights(state.weights, mis, fed.masks, alpha))
+    torch.cuda.synchronize()
+    return {"round": per_round, "update_weights": update}
 
 
 def stage_breakdown(torch, fl_run, card: str) -> None:
@@ -976,14 +1158,13 @@ def main() -> int:
               "instances, not 4 and 4")
         spilled = [row(e) for e in sm90 if flash[e].get("spill_bytes", 1) != 0]
         check(not spilled, f"bf16 flash_attention instances spill: {spilled}")
-        # the cluster kernels: tree_hist and weighted_errors for 1, 2, 4, 8 and 16 rows
-        training = {e: i for e, i in report.items()
-                    if "tree_hist_kernel" in e or "weighted_errors_kernel" in e}
-        log("tree_hist / weighted_errors ptxas (registers, spill bytes): "
-            + "; ".join(training_row(e, i) for e, i in training.items()))
-        check(len(training) == 6, f"ptxas reported {len(training)} tree_hist/weighted_errors kernels, not 6")
-        spilled = [e for e, i in training.items() if i.get("spill_bytes", 1) != 0]
-        check(not spilled, f"tree_hist / weighted_errors kernels spill: {spilled}")
+        core = {e: i for e, i in report.items() if any(k in e for k in CORE_KERNELS)}
+        log("tree_hist / weighted_errors / weight_update / vote_argmax ptxas (registers, spill "
+            "bytes): " + "; ".join(kernel_row(e, i) for e, i in core.items()))
+        check(len(core) == 12, f"ptxas reported {len(core)} tree_hist/weighted_errors/weight_update/"
+              "vote_argmax kernels, not 12")
+        spilled = [kernel_row(e, i) for e, i in core.items() if i.get("spill_bytes", 1) != 0]
+        check(not spilled, f"kernels spill: {spilled}")
     atoms = shared_atomics(_build, "tree_hist_kernel")
     log(f"tree_hist SASS shared-memory atomics: {sorted(atoms)}")
     check("ATOMS.ADD" in atoms and not any("CAS" in a for a in atoms),
@@ -1055,6 +1236,12 @@ def main() -> int:
     log(f"ms/round (rounds 5-9, one eval) on {card}: "
         + ", ".join(f"{k} {v:.3f}" for k, v in ms_round.items())
         + f"; first adult run, set-up and warm-up included: {1e3 * main_s / MAIN['rounds']:.3f}")
+    counted = round_host_ops(torch, ops, fl_run)
+    log(f"host operations (adult, round 6 of 10; PyTorch operators + kernel launches): a round "
+        f"{counted['round']['host_ops']} ({counted['round']['torch_ops']} + "
+        f"{counted['round']['kernel_launches']}), of them the weight update "
+        f"{counted['update_weights']['host_ops']} ({counted['update_weights']['torch_ops']} + "
+        f"{counted['update_weights']['kernel_launches']}); most frequent {counted['round']['top']}")
     stage_breakdown(torch, fl_run, card)
     profile_round(torch, fl_run, card)
 

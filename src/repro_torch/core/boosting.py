@@ -19,9 +19,9 @@ from typing import Any, Dict, NamedTuple, Tuple
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import scoring
+from repro_torch.kernels.ref import one_hot
 from repro_torch.learners.base import LearnerSpec, WeakLearner
 
 # ---------------------------------------------------------------------------
@@ -55,7 +55,7 @@ def ensemble_votes(learner: WeakLearner, spec: LearnerSpec, ens: Ensemble, X: to
     T = ens.alpha.shape[0]
     preds = learner.predict(spec, ens.params, X)  # [T, n]
     used = (torch.arange(T, device=X.device) < ens.count).to(torch.float32) * ens.alpha
-    onehot = F.one_hot(preds.long(), spec.n_classes).to(torch.float32)  # [T, n, K]
+    onehot = one_hot(preds, spec.n_classes, torch.float32)  # [T, n, K]; out of range: a zero row
     return torch.einsum("t,tnk->nk", used, onehot)
 
 

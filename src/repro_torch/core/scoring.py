@@ -9,8 +9,8 @@ update are all reductions over it:
   * ``error_matrix``  — one ``weighted_errors`` launch over ``[C, H, n]``
     (the JAX package maps a per-shard call over C);
   * ``chosen_mis``    — a row slice of ``preds``, never a second predict;
-  * ``update_weights`` — the ``weight_update`` kernel over the flattened
-    ``[C*n]`` weights, then a plain global renormalisation;
+  * ``update_weights`` — one ``weight_update`` launch over the flattened
+    ``[C*n]`` weights, the global renormalisation included;
   * ``member_prediction`` — the one member-vote rule, shared by the
     incremental tally and the serving engine;
   * ``VoteTally`` — incremental evaluation: a running ``[n, K]`` tally
@@ -24,9 +24,9 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import one_hot
 from repro_torch.learners.base import LearnerSpec, WeakLearner
 
 
@@ -81,12 +81,9 @@ def update_weights(
     mask: torch.Tensor,  # [C, n] f32
     alpha: torch.Tensor,  # 0-dim f32 on the device
 ) -> torch.Tensor:
-    """``w * exp(alpha*mis) * mask`` by the kernel, then global
-    renormalisation by a plain sum (paper step 4)."""
-    flat = ops.weight_update(
-        w.reshape(-1), mis.reshape(-1), mask.reshape(-1), alpha
-    ).view(w.shape)
-    return flat / torch.clamp_min(torch.sum(flat), 1e-30)
+    """``w * exp(alpha*mis) * mask`` renormalised over all collaborators
+    (paper step 4), in one kernel launch."""
+    return ops.weight_update(w.reshape(-1), mis.reshape(-1), mask.reshape(-1), alpha).view(w.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +123,7 @@ def tally_new_votes(
     votes = tally.votes
     for t in range(tally.counted, ensemble.count):
         pred = member_prediction(learner, spec, take_slot(ensemble.params, t), X)
-        votes = votes + ensemble.alpha[t] * F.one_hot(pred.long(), spec.n_classes).to(votes.dtype)
+        votes = votes + ensemble.alpha[t] * one_hot(pred, spec.n_classes, votes.dtype)
     return VoteTally(votes, ensemble.count)
 
 

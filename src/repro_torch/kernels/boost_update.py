@@ -4,12 +4,16 @@
   one launch over the round's whole ``[C, H, n]`` prediction tensor, a
   thread-block cluster per collaborator reduced through distributed
   shared memory;
-* ``weight_update`` — w * exp(alpha * mis) * mask, elementwise, with
-  ``alpha`` read on the device.
+* ``weight_update`` — w * exp(alpha * mis) * mask, renormalised to sum 1
+  (its total clamped at 1e-30), one thread-block cluster over the whole
+  vector reduced through distributed shared memory, with ``alpha`` read
+  on the device.
 
-Answers to ``repro/kernels/boost_update.py``.  On CUDA tensors each
-wrapper launches its kernel from ``csrc/boost_update.cu`` or raises; on
-CPU tensors it runs the plain version in ``ref.py``.
+Answers to ``repro/kernels/boost_update.py`` (``weight_update`` together
+with the renormalisation of ``repro/core/scoring.py:update_weights``).
+On CUDA tensors each wrapper launches its kernel from
+``csrc/boost_update.cu`` or raises; on CPU tensors it runs the plain
+version in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -20,10 +24,16 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.tree_hist import SMS, blocks_per_sm
 
-THREADS = 256  # weight_update
-MAX_UPDATE_BLOCKS = 132 * 8  # grid-stride beyond this
+UPDATE_CLUSTER = 16  # weight_update: CTAs of its one cluster (the non-portable size)
+UPDATE_REGISTERS = 8  # products a thread keeps in registers (csrc: UPDATE_REGS)
 ERRORS_CLUSTER = 8  # CTAs per collaborator, unless a wave cannot hold the grid
-MIN_ERROR_THREADS, MAX_ERROR_THREADS = 64, 1024
+MIN_THREADS, MAX_THREADS = 64, 1024  # per CTA, both kernels
+
+
+def _cta_threads(n: int, cs: int) -> int:
+    """Whole warps, a thread for each of a CTA's ceil(n / cs) elements, from 64 up to 1024."""
+    per_cta = -(-n // cs)
+    return min(MAX_THREADS, max(MIN_THREADS, 32 * -(-per_cta // 32)))
 
 
 class ErrorsPlan(NamedTuple):
@@ -37,14 +47,23 @@ def errors_plan(C: int, H: int, n: int) -> ErrorsPlan:
     that each takes one sample of its CTA's range (whole warps, up to
     1024).  The cluster does not shrink with n, so a CTA's range is empty
     where n < cs."""
-    def threads(cs):
-        per_cta = -(-n // cs)
-        return min(MAX_ERROR_THREADS, max(MIN_ERROR_THREADS, 32 * -(-per_cta // 32)))
-
     cs = ERRORS_CLUSTER
-    while cs > 1 and C * cs > SMS * blocks_per_sm(threads(cs), 0):
+    while cs > 1 and C * cs > SMS * blocks_per_sm(_cta_threads(n, cs), 0):
         cs //= 2
-    return ErrorsPlan(cs, threads(cs))
+    return ErrorsPlan(cs, _cta_threads(n, cs))
+
+
+class UpdatePlan(NamedTuple):
+    cs: int  # CTAs in the one cluster
+    threads: int  # threads per CTA
+
+
+def update_plan(N: int) -> UpdatePlan:
+    """One cluster of 16 CTAs over the whole ``[N]`` vector, with a thread
+    per element up to 1024 a CTA (whole warps, at least 64); past 16 384
+    elements each thread takes ``ceil(N / 16384)``, the first 8 of them in
+    registers."""
+    return UpdatePlan(UPDATE_CLUSTER, _cta_threads(N, UPDATE_CLUSTER))
 
 
 def _same_device(name: str, *ts: torch.Tensor) -> torch.device:
@@ -99,7 +118,9 @@ def weight_update(
     mask: torch.Tensor,  # [N] float32
     alpha: torch.Tensor,  # scalar float32, on the same device
 ) -> torch.Tensor:
-    """w * exp(alpha * mis) * mask; [N] float32."""
+    """p / max(sum(p), 1e-30) with p = w * exp(alpha * mis) * mask; [N]
+    float32.  Answers to the Pallas ``weight_update`` followed by the
+    renormalisation at ``repro/core/scoring.py:136-138``."""
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=w.device)
     dev = _same_device("weight_update", w, mis, mask, alpha)
     if any(t.dtype != torch.float32 for t in (w, mis, mask)):
@@ -112,18 +133,18 @@ def weight_update(
     if not (w.is_contiguous() and mis.is_contiguous() and mask.is_contiguous()):
         raise ValueError("weight_update takes contiguous tensors")
     if dev.type == "cpu":
-        return ref.boost_weight_update_ref(w, mis, mask, alpha)
-    out = torch.empty_like(w)
+        return ref.renormalised_weight_update_ref(w, mis, mask, alpha)
+    out = torch.empty_like(w)  # every element is written: no memset
     N = w.numel()
     if N > 0:
-        blocks = min(-(-N // THREADS), MAX_UPDATE_BLOCKS)
+        plan = update_plan(N)
         alpha = alpha.reshape(1).contiguous()
         lib = _build.library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.repro_weight_update(
                 w.data_ptr(), mis.data_ptr(), mask.data_ptr(), alpha.data_ptr(),
-                out.data_ptr(), N, blocks, THREADS, stream,
+                out.data_ptr(), N, plan.cs, plan.threads, stream,
             )
         _build.check(rc, "weight_update")
         weight_update.launches += 1

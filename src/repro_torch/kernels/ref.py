@@ -8,9 +8,11 @@ tensors on the CPU.  They answer to ``repro/kernels/ref.py``:
   (``index_add_``) over combined (collaborator, leaf, feature, bin) ids;
 * ``weighted_errors_ref`` — a last-axis ``sum(mis * w, -1)``, not a
   matvec, with an optional leading ``[C]`` batch;
-* ``boost_weight_update_ref`` — ``w * exp(alpha * mis) * mask``;
-* ``vote_argmax_ref`` — a comparison one-hot, an ``einsum`` over members
-  and an ``argmax`` (first maximum);
+* ``boost_weight_update_ref`` — ``w * exp(alpha * mis) * mask`` (the
+  Pallas kernel's body), and ``renormalised_weight_update_ref`` — that
+  product divided by its clamped total (the ``weight_update`` kernel);
+* ``vote_argmax_ref`` — a comparison one-hot (``one_hot``), an
+  ``einsum`` over members and an ``argmax`` (first maximum);
 * ``attention_ref`` — grouped-query attention with the whole ``[S, T]``
   logit matrix, masked with ``-1e30`` and a softmax, in float32.
 
@@ -90,9 +92,30 @@ def boost_weight_update_ref(
     mask: torch.Tensor,  # [n] f32
     alpha: torch.Tensor,  # scalar f32
 ) -> torch.Tensor:
-    """w * exp(alpha * mis) * mask (renormalisation happens globally)."""
+    """w * exp(alpha * mis) * mask: the Pallas kernel's body, before the
+    global renormalisation."""
     _note("weight_update", w)
     return w * torch.exp(alpha * mis) * mask
+
+
+def renormalised_weight_update_ref(
+    w: torch.Tensor,  # [N] f32
+    mis: torch.Tensor,  # [N] f32
+    mask: torch.Tensor,  # [N] f32
+    alpha: torch.Tensor,  # scalar f32
+) -> torch.Tensor:
+    """The product renormalised to sum 1 (its total clamped at 1e-30), as
+    ``repro/core/scoring.py:update_weights`` does after the kernel."""
+    p = boost_weight_update_ref(w, mis, mask, alpha)
+    return p / torch.clamp_min(torch.sum(p), 1e-30)
+
+
+def one_hot(x: torch.Tensor, n_classes: int, dtype: torch.dtype) -> torch.Tensor:
+    """[...] class indices -> [..., K] one-hot of ``dtype``, by comparison
+    with ``arange(K)``: a value outside ``[0, K)`` gives a zero row, as
+    ``jax.nn.one_hot`` does (``F.one_hot`` raises, and asserts on the card).
+    Every vote tally and weighted label of the port is built with it."""
+    return (x.unsqueeze(-1) == torch.arange(n_classes, device=x.device)).to(dtype)
 
 
 def vote_argmax_ref(
@@ -102,14 +125,10 @@ def vote_argmax_ref(
 ) -> torch.Tensor:
     """pred[n] = argmax_k sum_t alpha_t * 1[preds[t, n] == k]; [n] int32.
 
-    The one-hot is a comparison with ``arange(K)``, not ``F.one_hot``
-    (which raises on out-of-range values), so a prediction outside
-    ``[0, K)`` votes for nothing, as ``jax.nn.one_hot`` makes it.  The
-    ``einsum`` may sum the members in any order."""
+    A prediction outside ``[0, K)`` votes for nothing (:func:`one_hot`).
+    The ``einsum`` may sum the members in any order."""
     _note("vote_argmax", alpha)
-    k = torch.arange(n_classes, dtype=preds.dtype, device=preds.device)
-    onehot = (preds.unsqueeze(-1) == k).to(alpha.dtype)  # [T, n, K]
-    votes = torch.einsum("t,tnk->nk", alpha, onehot)
+    votes = torch.einsum("t,tnk->nk", alpha, one_hot(preds, n_classes, alpha.dtype))
     return torch.argmax(votes, dim=-1).to(torch.int32)
 
 

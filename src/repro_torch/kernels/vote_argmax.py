@@ -7,8 +7,9 @@ predictions into the strong hypothesis's answer.  Every served batch ends
 in one call (``serve/engine.py``).
 
 Answers to ``repro/kernels/vote_argmax.py``.  On CUDA tensors the wrapper
-launches the hand-written kernel in ``csrc/vote_argmax.cu`` (one thread
-per sample, the member loop inside the block; the source note gives its
+launches the hand-written kernel in ``csrc/vote_argmax.cu`` (a strip of 8
+samples a block, the members staged in shared memory by ``cp.async``, a
+thread per (sample, class) summing in registers; the source note gives its
 bound and design) or raises; on CPU tensors it runs the plain version,
 ``ref.vote_argmax_ref``.  Unused members vote with ``alpha == 0``; a
 prediction outside ``[0, n_classes)`` votes for nothing; ties go to the
@@ -22,30 +23,37 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-THREADS = 256
-DEFAULT_SHARED_BYTES = 48 * 1024  # dynamic shared memory a block gets without opting in
-MAX_SHARED_BYTES = 227 * 1024 - 1024  # the opt-in limit less the kernel's static alpha tile
+STRIP = 8  # samples per block (csrc: STRIP)
+MEMBER_TILE = 128  # members staged per shared-memory tile, double-buffered (csrc: MEMBER_TILE)
+MAX_THREADS = 1024
+CLASSES_PER_THREAD = (1, 2, 4, 8, 16)  # the kernel's template instances
+MAX_CLASSES = MAX_THREADS // STRIP * CLASSES_PER_THREAD[-1]
+# static shared memory per block: two [MEMBER_TILE, STRIP] int32 tiles and
+# their alphas, and a (value, class) pair per warp and sample for the argmax
+SHARED_BYTES = 2 * MEMBER_TILE * (STRIP + 1) * 4 + 32 * STRIP * 8
 
 
 class LaunchPlan(NamedTuple):
-    threads: int  # samples per block
-    shared_bytes: int  # dynamic shared memory per block: votes[K][threads] f32
+    strip: int  # samples per block
+    classes_per_thread: int  # class sums a thread keeps in registers
+    threads: int  # per block: STRIP * ceil(K / classes_per_thread), in whole warps
+    shared_bytes: int  # static shared memory per block
 
 
 def launch_plan(n_classes: int) -> LaunchPlan:
-    """The widest block (up to 256 threads, at least one warp) whose vote
-    columns fit in 48 KB; a class count too large for even one warp there
-    opts in to more, up to the card's 227 KB."""
-    threads = THREADS
-    while threads > 32 and n_classes * threads * 4 > DEFAULT_SHARED_BYTES:
-        threads //= 2
-    smem = n_classes * threads * 4
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"vote_argmax: {n_classes} classes need {smem} B of shared vote columns "
-            f"for one warp, over the {MAX_SHARED_BYTES} B a block may have"
-        )
-    return LaunchPlan(threads, smem)
+    """A thread per (sample, class) pair of an 8-sample strip, in whole
+    warps; past 1024 threads (K > 128) each thread sums 2, 4, 8 or 16
+    classes.  The shared memory does not grow with K: registers and the
+    1024-thread block bound it, at 2048 classes."""
+    for cpt in CLASSES_PER_THREAD:
+        threads = 32 * -(-STRIP * -(-n_classes // cpt) // 32)
+        if threads <= MAX_THREADS:
+            return LaunchPlan(STRIP, cpt, threads, SHARED_BYTES)
+    raise ValueError(
+        f"vote_argmax: {n_classes} classes exceed the {MAX_CLASSES} a block sums: "
+        f"{MAX_THREADS} threads of {CLASSES_PER_THREAD[-1]} register sums for {STRIP} samples "
+        f"(shared memory, {SHARED_BYTES} B a block, is not the limit)"
+    )
 
 
 def _check_inputs(preds: torch.Tensor, alpha: torch.Tensor, n_classes: int) -> None:
@@ -88,7 +96,7 @@ def vote_argmax(
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.repro_vote_argmax(
             preds.data_ptr(), alpha.data_ptr(), out.data_ptr(),
-            T, n, n_classes, plan.threads, stream,
+            T, n, n_classes, plan.classes_per_thread, plan.threads, stream,
         )
     _build.check(rc, "vote_argmax")
     vote_argmax.launches += 1

@@ -27,7 +27,8 @@ import dataclasses
 from typing import Any, Callable, Dict
 
 import torch
-import torch.nn.functional as F
+
+from repro_torch.kernels.ref import one_hot
 
 Params = Any
 
@@ -81,5 +82,6 @@ def get_learner(name: str) -> WeakLearner:
 
 
 def weighted_onehot(y: torch.Tensor, w: torch.Tensor, n_classes: int) -> torch.Tensor:
-    """[..., n] labels + [..., n] weights -> [..., n, K] weighted one-hot."""
-    return F.one_hot(y.long(), n_classes).to(w.dtype) * w.unsqueeze(-1)
+    """[..., n] labels + [..., n] weights -> [..., n, K] weighted one-hot
+    (a label outside ``[0, K)`` weighs nothing)."""
+    return one_hot(y, n_classes, w.dtype) * w.unsqueeze(-1)

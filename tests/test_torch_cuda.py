@@ -8,8 +8,10 @@ Where ``torch.cuda.is_available()`` is False every test here skips.
 Tolerances are the card's: the histogram kernel sums in fixed point per
 CTA, the plain version in float32 in another order (atol 1e-4, on cells
 of mass up to about 1, as on the main path), errors rtol 1e-4,
-weights rtol 1e-5.  ``vote_argmax`` is exact: on half-integer alphas the
-vote sums are exact in f32, so any summation order gives the same argmax.
+weights rtol 1e-5 (the renormalising total in another order).
+``vote_argmax`` is exact: on half-integer alphas the vote sums are exact
+in f32, so any summation order gives the same argmax, and on any alphas
+it sums the members in ascending order, as a member-by-member tally does.
 """
 import pytest
 import torch
@@ -112,16 +114,75 @@ def test_weighted_errors_kernel_writes_every_element_the_same_bits_twice(dev, C,
     assert float(got[0].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("N", [32560, 16000, 50000, 1])
-def test_weight_update_kernel_matches_plain(dev, N):
-    g = torch.Generator().manual_seed(N)
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tree_hist_kernel_skewed_weights_pick_the_same_split(dev, seed):
+    """AdaBoost's skewed weights (log-normal, sigma 4, summing to 1) at
+    adult's deepest level: a CTA's fixed-point step is set by its heaviest
+    sample, yet the histogram stays within atol 1e-4 and every
+    collaborator's split is the plain version's."""
+    from repro_torch.learners.tree import _split_scores
+
+    C, n, d, K, L = 8, 4070, 14, 2, 8
+    g = torch.Generator().manual_seed(100 + seed)
+    bins = torch.randint(0, 17, (C, n, d), generator=g, dtype=torch.int32).to(dev)
+    leaf = torch.randint(0, L, (C, n), generator=g, dtype=torch.int32).to(dev)
+    w = torch.exp(4.0 * torch.randn(C, n, generator=g, dtype=torch.float64))
+    w = (w / w.sum()).float()
+    y = torch.randint(0, K, (C, n), generator=g)
+    wy = (torch.nn.functional.one_hot(y, K).float() * w.unsqueeze(-1)).contiguous().to(dev)
+    got = ops.tree_hist(bins, leaf, wy, n_leaves=L, n_bins_p1=17)
+    want = ref.tree_hist_batched_ref(bins, leaf, wy, L, 17)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert torch.equal(torch.argmax(_split_scores(got).flatten(1), dim=1),
+                       torch.argmax(_split_scores(want).flatten(1), dim=1))
+
+
+def _update_inputs(dev, N, seed, zero_mask=False):
+    g = torch.Generator().manual_seed(seed)
     w = torch.rand(N, generator=g).to(dev)
     mis = (torch.rand(N, generator=g) < 0.4).float().to(dev)
-    mask = torch.ones(N, device=dev)
+    mask = torch.zeros(N) if zero_mask else (torch.rand(N, generator=g) > 0.1).float()
+    return w, mis, mask.to(dev)
+
+
+# adult, letter, forestcover at C = 8, adult at the paper's 64 collaborators, edges
+UPDATE_N = [32560, 16000, 50000, 260480, 1, 4097]
+
+
+@pytest.mark.parametrize("N", UPDATE_N)
+def test_weight_update_kernel_matches_plain(dev, N):
+    """The fused update (product, then division by the clamped total)
+    against its plain version: rtol 1e-5, the sum taken in another order."""
+    w, mis, mask = _update_inputs(dev, N, N)
     alpha = torch.tensor(0.7, device=dev)
+    before = ops.launch_counts()["weight_update"]
     got = ops.weight_update(w, mis, mask, alpha)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, ref.boost_weight_update_ref(w, mis, mask, alpha), rtol=1e-5, atol=0)
+    torch.testing.assert_close(got, ref.renormalised_weight_update_ref(w, mis, mask, alpha),
+                               rtol=1e-5, atol=0)
+    assert ops.launch_counts()["weight_update"] == before + 1
+
+
+@pytest.mark.parametrize("N", UPDATE_N)
+def test_weight_update_kernel_writes_every_element_the_same_bits_twice(dev, N):
+    """The output on a NaN-filled block: every element written, and the
+    same bits from a second call (the cluster sums in a fixed order)."""
+    w, mis, mask = _update_inputs(dev, N, N + 1)
+    alpha = torch.tensor(-1.3, device=dev)
+    got = _poisoned(dev, (N,), lambda: ops.weight_update(w, mis, mask, alpha))
+    again = ops.weight_update(w, mis, mask, alpha)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("N", [32560, 260480, 1])
+def test_weight_update_kernel_all_zero_mask_gives_zeros(dev, N):
+    w, mis, mask = _update_inputs(dev, N, N + 2, zero_mask=True)
+    got = ops.weight_update(w, mis, mask, torch.tensor(2.0, device=dev))
+    torch.cuda.synchronize()
+    assert bool((got == 0).all())  # 0 / 1e-30, never 0 / 0
 
 
 def test_round_never_waits_for_the_card(dev):
@@ -174,7 +235,9 @@ def test_federation_on_the_card_goes_through_the_kernels(dev):
 
 
 @pytest.mark.parametrize("T,n,K", [(10, 256, 10), (100, 256, 26), (100, 4096, 26),
-                                   (0, 7, 3), (13, 1001, 5), (4, 300, 400)])
+                                   (0, 7, 3), (13, 1001, 5), (4, 300, 400),
+                                   (300, 333, 7), (1000, 256, 26),  # past one 128-member tile
+                                   (6, 77, 1808)])  # 16 classes a thread
 def test_vote_argmax_kernel_matches_plain(dev, T, n, K):
     g = torch.Generator().manual_seed(T + n + K)
     # out-of-range predictions vote for nothing; half-integer alphas with
@@ -182,11 +245,59 @@ def test_vote_argmax_kernel_matches_plain(dev, T, n, K):
     preds = torch.randint(-1, K + 1, (T, n), generator=g, dtype=torch.int32).to(dev)
     alpha = (torch.randint(0, 4, (T,), generator=g).float() * 0.5).to(dev)
     before = ops.launch_counts()["vote_argmax"]
-    got = ops.vote_argmax(preds, alpha, n_classes=K)
+    got = _poisoned(dev, (n,), lambda: ops.vote_argmax(preds, alpha, n_classes=K))
     want = ref.vote_argmax_ref(preds, alpha, K)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert ops.launch_counts()["vote_argmax"] == before + 1
+
+
+def test_vote_argmax_kernel_nan_votes_rank_as_the_plain_version_ranks_them(dev):
+    """A NaN or infinite alpha makes NaN votes (alpha * 0); the kernel
+    ranks them as torch.argmax does, so it answers what the plain version
+    answers."""
+    g = torch.Generator().manual_seed(5)
+    preds = torch.randint(-1, 7, (20, 203), generator=g, dtype=torch.int32).to(dev)
+    alpha = torch.randint(0, 4, (20,), generator=g).float() * 0.5
+    alpha[3], alpha[11] = float("nan"), float("inf")
+    alpha = alpha.to(dev)
+    assert torch.equal(ops.vote_argmax(preds, alpha, n_classes=6), ref.vote_argmax_ref(preds, alpha, 6))
+
+
+@pytest.mark.parametrize("spread", ["arbitrary", "ulps apart"])
+def test_vote_argmax_kernel_equals_a_member_by_member_tally(dev, spread):
+    """At letter's serving shape, with float alphas whose sums depend on
+    the order of the adds, the kernel answers bit for bit what a
+    ``VoteTally`` built one member at a time in ascending order answers
+    (the vote cache's rule)."""
+    import dataclasses
+    from typing import NamedTuple
+
+    from repro_torch.core import boosting, scoring
+    from repro_torch.learners.base import LearnerSpec, WeakLearner
+
+    class Votes(NamedTuple):
+        preds: torch.Tensor
+
+    @dataclasses.dataclass(frozen=True)
+    class Stub(WeakLearner):
+        def predict(self, spec, params, X):
+            return params.preds
+
+    T, n, K = 100, 256, 26
+    g = torch.Generator().manual_seed(26)
+    preds = torch.randint(0, K, (T, n), generator=g, dtype=torch.int32).to(dev)
+    if spread == "arbitrary":
+        alpha = torch.rand(T, generator=g) * 3.0
+    else:  # equal counts of members tell classes apart only by the order of rounding
+        alpha = 1.0 + torch.randint(0, 4, (T,), generator=g) * 2.0**-23
+    alpha = alpha.to(dev)
+    ens = boosting.Ensemble(Votes(preds), alpha, T)
+    tally = scoring.tally_new_votes(Stub("stub", None, None, None), LearnerSpec("stub", 1, K), ens,
+                                    scoring.init_tally(n, K, dev), torch.zeros(n, 1, device=dev))
+    got = ops.vote_argmax(preds, alpha, n_classes=K)
+    torch.cuda.synchronize()
+    assert torch.equal(got, scoring.tally_predict(tally))
 
 
 def test_engine_on_the_card_launches_the_kernel_once_per_batch(dev):

@@ -17,12 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import scoring as jscoring
 from repro.kernels import ref as jref
 from repro.kernels.boost_update import weight_update as pallas_weight_update
 from repro.kernels.boost_update import weighted_errors as pallas_weighted_errors
 from repro.kernels.tree_hist import tree_hist as pallas_tree_hist
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.boost_update import errors_plan
+from repro_torch.core import scoring
+from repro_torch.kernels.boost_update import UPDATE_REGISTERS, errors_plan, update_plan
 from repro_torch.kernels.tree_hist import (
     MAX_FEATURES_PER_BLOCK, MAX_SHARED_BYTES, MAX_THREADS, MIN_THREADS, SMS,
     blocks_per_sm, launch_plan,
@@ -217,11 +219,53 @@ def test_weight_update_ref_sweep(n, alpha):
 
 
 def test_weight_update_ref_matches_pallas_interpret():
+    """``ops.weight_update`` (its CPU dispatch, the fused plain version)
+    against the Pallas kernel in interpret mode followed by the
+    renormalisation of ``repro/core/scoring.py:update_weights``."""
     w, mis, mask = _update_inputs(300, seed=4)
     got = ops.weight_update(*_t(w, mis, mask), torch.tensor(1.5))
-    want = pallas_weight_update(jnp.asarray(w), jnp.asarray(mis), jnp.asarray(mask),
+    flat = pallas_weight_update(jnp.asarray(w), jnp.asarray(mis), jnp.asarray(mask),
                                 jnp.float32(1.5), block_s=128, interpret=True)
+    want = flat / jnp.maximum(jnp.sum(flat), 1e-30)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("C,n,alpha,zero_mask", [
+    (8, 407, 0.37, False), (4, 1000, -2.0, False), (3, 129, 10.0, False), (2, 50, 1.0, True),
+])
+def test_update_weights_matches_jax_pallas(C, n, alpha, zero_mask):
+    """The port's ``update_weights`` (one fused ``weight_update``) against
+    the JAX package's with ``use_pallas=True`` (the Pallas kernel in
+    interpret mode off the TPU, then the renormalisation); an all-zero
+    mask gives zeros through the 1e-30 clamp on both sides."""
+    w, mis, mask = (x.reshape(C, n) for x in _update_inputs(C * n, seed=C + n))
+    if zero_mask:
+        mask = np.zeros_like(mask)
+    got = scoring.update_weights(*_t(w, mis, mask), torch.tensor(alpha))
+    want = jscoring.update_weights(jnp.asarray(w), jnp.asarray(mis), jnp.asarray(mask),
+                                   jnp.float32(alpha), use_pallas=True)
+    assert got.shape == (C, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=0)
+    assert np.isfinite(got.numpy()).all()
+    if not zero_mask:
+        assert abs(float(got.sum()) - 1.0) < 1e-5
+
+
+@pytest.mark.parametrize("N,threads,per_thread", [
+    (32560, 1024, 2), (16000, 1024, 1), (50000, 1024, 4),  # adult, letter, forestcover at C = 8
+    (260480, 1024, 16),  # adult at 64 collaborators: 8 a thread through the output
+    (1, 64, 1), (4097, 288, 1),
+])
+def test_weight_update_plan(N, threads, per_thread):
+    """One cluster of 16 CTAs (the non-portable size, within the 1-16 the
+    C entry takes) of whole warps, 64 to 1024 threads, covering N; the main
+    path's N keep every product in registers."""
+    plan = update_plan(N)
+    assert (plan.cs, plan.threads) == (16, threads)
+    assert plan.threads % 32 == 0 and 64 <= plan.threads <= 1024
+    assert -(-N // (plan.cs * plan.threads)) == per_thread
+    assert plan.threads == 1024 or plan.cs * plan.threads >= N
+    assert (per_thread <= UPDATE_REGISTERS) == (N <= 50000)
 
 
 @pytest.mark.parametrize("C,H,n", [

@@ -15,7 +15,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.vote_argmax import vote_argmax as pallas_vote_argmax
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.vote_argmax import MAX_SHARED_BYTES, launch_plan
+from repro_torch.kernels.vote_argmax import MAX_CLASSES, SHARED_BYTES, launch_plan
 
 
 def _inputs(seed, T, n, K, lo=0, hi=None):
@@ -111,13 +111,26 @@ def test_vote_argmax_rejects_what_the_kernel_does_not_take(bad):
         ops.vote_argmax(preds, alpha, n_classes=K)
 
 
-@pytest.mark.parametrize("K,threads", [(10, 256), (26, 256), (48, 256), (49, 128), (400, 32)])
-def test_vote_argmax_launch_plan(K, threads):
+@pytest.mark.parametrize("K,cpt,threads", [
+    (2, 1, 32), (10, 1, 96), (26, 1, 224),  # a thread per (sample, class), whole warps
+    (400, 4, 800), (1808, 16, 928),  # K * strip past one block: several classes a thread
+])
+def test_vote_argmax_launch_plan(K, cpt, threads):
+    """An 8-sample strip a block; classes per thread the fewest of 1, 2,
+    4, 8, 16 that keep the block at 1024 threads; every class owned by
+    one thread; the static shared memory (two member tiles and the argmax
+    pairs) under the 48 KB a block has without opting in, whatever K."""
     plan = launch_plan(K)
-    assert plan.threads == threads and plan.shared_bytes == K * threads * 4
-    assert plan.shared_bytes <= MAX_SHARED_BYTES
+    assert (plan.strip, plan.classes_per_thread, plan.threads) == (8, cpt, threads)
+    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    assert plan.threads // plan.strip * plan.classes_per_thread >= K
+    assert plan.shared_bytes == SHARED_BYTES == 2 * 128 * (8 + 1) * 4 + 32 * 8 * 8
+    assert plan.shared_bytes <= 48 * 1024
 
 
 def test_vote_argmax_launch_plan_raises_past_the_shared_memory():
-    with pytest.raises(ValueError, match="shared"):
-        launch_plan(MAX_SHARED_BYTES // (32 * 4) + 1)
+    """Every K up to 2048 has a plan (the old limit, set by shared memory,
+    was 1808); past it the wrapper raises, naming the limit."""
+    assert MAX_CLASSES == 2048 and launch_plan(MAX_CLASSES).classes_per_thread == 16
+    with pytest.raises(ValueError, match="2049 classes exceed the 2048"):
+        launch_plan(MAX_CLASSES + 1)
