@@ -26,7 +26,9 @@ Phases, each of which raises (non-zero exit) on failure:
    and (where one exists) the one PyTorch call that computes the same
    function, each on the device alone (replayed from a CUDA graph), beside
    the launch floor (a 1-element ``fill_`` replayed the same way), and the
-   kernel wrapper's eager time per call;
+   kernel wrapper's eager time per call; ``weighted_errors`` also at
+   PreWeak.F's C*T rows (adult, T = 10 and 100) and past the 11 776 rows
+   a per-row shared-memory total could hold;
 4. run the port's federation through ``repro_torch.launch.fl_run`` on the
    card — adult 10 rounds with the default flags (the main path, with every
    kernel's launch count set to 0 just before), letter and forestcover 5
@@ -55,7 +57,19 @@ Phases, each of which raises (non-zero exit) on failure:
    the vocabulary and finite logits; then that prefill(S) and one decode
    step give prefill(S + 1)'s logits, that the same weights cut to 2 layers
    in float32 give the CPU's prefill logits, and where a prefill's and a
-   decode step's device time goes (``torch.profiler``).
+   decode step's device time goes (``torch.profiler``);
+9. run the other algorithms and learner through ``repro_torch.launch.fl_run``
+   on the card (adult, C = 8, depth 4, 16 bins, seed 0; every launch count
+   set to 0 just before each run): DistBoost.F, PreWeak.F, bagging and
+   ``--learner extra_tree`` for 10 rounds and PreWeak.F for 100 (its
+   ``weighted_errors`` at ``[8, 800, 4070]``), checking each run's launch
+   counts and that no plain version ran on the card; each 10-round run
+   again on the CPU (the same draws), compared with the card's; ms/round of
+   each and PreWeak.F's set-up ms; then publish a DistBoost.F committee
+   artifact from a pendigits run and serve it through ``serve_fl
+   --artifact ... --load`` (one ``vote_argmax`` launch a batch and a
+   warm-up, the vote cache answering what the engine answers, the card's
+   votes the CPU's outside the near-tie gap).
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Without a card, or beside no copy of
@@ -302,8 +316,8 @@ def ptxas_report(build_log: str) -> dict:
 
 
 # the CUDA-core kernels of the training and serving paths, by mangled name:
-# tree_hist, weighted_errors for 1, 2, 4, 8 and 16 rows, weight_update, and
-# vote_argmax for 1, 2, 4, 8 and 16 classes a thread
+# tree_hist, weighted_errors, weight_update, and vote_argmax for 1, 2, 4, 8
+# and 16 classes a thread
 CORE_KERNELS = ("tree_hist_kernel", "weighted_errors_kernel", "weight_update_kernel",
                 "vote_argmax_kernel")
 
@@ -480,11 +494,19 @@ def one_wave(torch, tree_hist_mod) -> None:
     log("tree_hist plans, clusters / clusters the card holds at once: " + "; ".join(rows))
 
 
+# weighted_errors at PreWeak.F's C*T rows (adult, C = 8, T = 10 and 100) and
+# past the 11 776 rows a per-row shared-memory total could hold
+PREWEAK_SHAPES = {"preweak_t10": (C, 10 * C, 4070), "preweak_t100": (C, 100 * C, 4070),
+                  "past_cap": (4, 12800, 2000)}
+
+
 def check_weighted_errors(torch, ops, ref, g):
     results, worst = {}, 0.0
     cases = [(ds, C, C, n, K) for ds, (n, _, K) in SHAPES.items()]
+    cases += [(ds, Cc, H, n, 2) for ds, (Cc, H, n) in PREWEAK_SHAPES.items()]
     cases += [("ragged", 4, 33, 4097, 5), ("ragged", 8, 8, 1, 2), ("ragged", 2, 3, 100, 26),
-              ("ragged", 8, 8, 5, 2), ("ragged", 3, 8, 1001, 3)]  # n < cs twice; odd n
+              ("ragged", 8, 8, 5, 2), ("ragged", 3, 8, 1001, 3),  # n < cs twice; odd n
+              ("ragged", 2, 17, 1, 2), ("ragged", 5, 41, 1001, 3)]  # empty slices; a ragged chunk
     for ds, Cc, H, n, K in cases:
         preds = torch.randint(0, K, (Cc, H, n), generator=g, dtype=torch.int32).to(DEV)
         y = torch.randint(0, K, (Cc, n), generator=g, dtype=torch.int32).to(DEV)
@@ -500,7 +522,7 @@ def check_weighted_errors(torch, ops, ref, g):
         check(torch.equal(got, again), f"weighted_errors {ds} [{Cc}, {H}, {n}]: two calls differ "
               f"by up to {max_err(got, again):.3g}")
         worst = max(worst, err)
-        if ds in SHAPES:
+        if ds in SHAPES or ds in PREWEAK_SHAPES:
             nbytes = 4 * (Cc * H * n + 2 * Cc * n + Cc * H)
             bms, by = bound_ms(nbytes, 2 * Cc * H * n)
             # no single PyTorch call computes a masked weighted row sum: no library time
@@ -747,25 +769,26 @@ def check_flash_attention(torch, ops, ref, g):
 # -- phases 4-6: the federation ---------------------------------------------------
 
 
-def run_fl(fl_run, dataset: str, rounds: int, device: str, tag: str) -> dict:
+def run_fl(fl_run, dataset: str, rounds: int, device: str, tag: str, extra=()) -> dict:
     """One ``fl_run`` invocation as a user would make it; returns its
     history file (history rows + every round's metrics)."""
     OUT.mkdir(parents=True, exist_ok=True)
     path = OUT / f"chip_smoke_{tag}.json"
     argv = ["--dataset", dataset, "--rounds", str(rounds), "--collaborators", str(C),
             "--depth", str(DEPTH), "--eval-every", str(MAIN["eval_every"]), "--seed", "0",
-            "--device", device, "--history-out", str(path)]
+            "--device", device, "--history-out", str(path), *extra]
     log(f"$ python -m repro_torch.launch.fl_run {' '.join(argv)}")
     fl_run.main(argv)
     return json.loads(path.read_text())
 
 
-def check_run(run: dict, rounds: int, what: str) -> None:
+def check_run(run: dict, rounds: int, what: str, space: int = C) -> None:
+    """``space``: the hypotheses a round chooses from (C; PreWeak.F's C*T)."""
     check(len(run["rounds"]) == rounds, f"{what}: {len(run['rounds'])} rounds recorded, not {rounds}")
     f1 = run["history"][-1]["f1"]
     check(0.0 < f1 <= 1.0, f"{what}: final F1 {f1} outside (0, 1]")
     for r in run["rounds"]:
-        check(0 <= r["chosen"] < C, f"{what}: chosen {r['chosen']} out of range")
+        check(0 <= r["chosen"] < space, f"{what}: chosen {r['chosen']} out of range")
         check(0.0 <= r["epsilon"] <= 1.0, f"{what}: epsilon {r['epsilon']} outside [0, 1]")
         check(abs(r["alpha"]) <= 10.0, f"{what}: alpha {r['alpha']} outside [-10, 10]")
 
@@ -902,7 +925,7 @@ def card_vs_cpu(torch, path: Path, dataset: str, card_pred, what: str) -> str:
     art = load_artifact(path, "cpu")
     _, (_, _, Xte, _) = get_dataset(dataset, torch.Generator().manual_seed(0))
     cpu_pred = ServeEngine.from_artifact(art).predict(Xte.numpy())
-    votes = boosting.ensemble_votes(art.learner, art.spec, art.ensemble, Xte)
+    votes = boosting.ensemble_votes(art.learner, art.spec, art.ensemble, Xte, committee=art.committee)
     used = art.ensemble.alpha[: art.ensemble.count]
     differ, near, _ = vote_gap_agree(votes, torch.from_numpy(cpu_pred), torch.from_numpy(card_pred),
                                      used)
@@ -985,6 +1008,95 @@ def profile_serving(torch, path: Path, card: str) -> None:
         f"({100 * busy_us / wall_us:.1f}%), {sum(r[1] for r in rows)} device activities")
     for key, count, us in rows[:8]:
         log(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:110]}")
+
+
+# -- phase 9: the other algorithms and learner, and committee serving ---------------
+
+# (tag, fl_run flags, rounds, launches, hypotheses a round chooses from); adult, C = 8
+ALGORITHM_RUNS = [
+    ("distboost_f", ["--algorithm", "distboost_f"], 10,
+     {"tree_hist": 40, "weighted_errors": 0, "weight_update": 10}, C),
+    ("preweak_f", ["--algorithm", "preweak_f"], 10,
+     {"tree_hist": 40, "weighted_errors": 10, "weight_update": 10}, 10 * C),
+    # the re-planned weighted_errors at full width: [8, 800, 4070] a round
+    ("preweak_f_t100", ["--algorithm", "preweak_f"], 100,
+     {"tree_hist": 400, "weighted_errors": 100, "weight_update": 100}, 100 * C),
+    ("bagging", ["--algorithm", "bagging"], 10,
+     {"tree_hist": 40, "weighted_errors": 0, "weight_update": 0}, C),
+    ("extra_tree", ["--learner", "extra_tree"], 10,
+     {"tree_hist": 40, "weighted_errors": 10, "weight_update": 10}, C),
+]
+
+
+def preweak_setup_ms(torch, fl_run, rounds: int) -> float:
+    """Host ms of PreWeak.F's set-up on the card (T local rounds for every
+    collaborator, then the [C, C*T, n] prediction cache), ended by a sync."""
+    from repro_torch.core import boosting
+
+    fed = fl_run.build_federation("adult", C, rounds, DEPTH, 0, DEV, algorithm="preweak_f")
+    state = boosting.init_boost_state(fed.learner, fed.spec, rounds, fed.masks, X=fed.Xs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    space, _ = boosting.preweak_f_setup(fed.learner, fed.spec, state, fed.Xs, fed.ys, fed.masks, rounds,
+                                        fed.generator)
+    boosting.preweak_f_predictions(fed.learner, fed.spec, space, fed.Xs)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def algorithms_phase(torch, ops, ref, fl_run, card: str) -> None:
+    ms_round = {}
+    for tag, extra, rounds, want, space in ALGORITHM_RUNS:
+        ops.reset_launches()
+        calls = dict(ref.device_calls)
+        run = run_fl(fl_run, "adult", rounds, "cuda", f"{tag}_cuda", extra)
+        got = ops.launch_counts()
+        check(got == {**want, "vote_argmax": 0, "flash_attention": 0}, f"{tag}: launches {got} != {want}")
+        check(ref.device_calls == calls, f"{tag}: a plain version ran on CUDA tensors: {ref.device_calls}")
+        check_run(run, rounds, f"{tag} on the card", space)
+        ms_round[tag] = 1e3 * run["history"][-1]["round_seconds"]
+        if rounds != MAIN["rounds"]:
+            log(f"{tag}: {rounds} rounds, final F1 {run['history'][-1]['f1']:.4f}, launches {got}")
+            continue
+        cpu = run_fl(fl_run, "adult", rounds, "cpu", f"{tag}_cpu", extra)
+        check_run(cpu, rounds, f"{tag} on the CPU", space)
+        g0, c0 = run["rounds"][0], cpu["rounds"][0]
+        check(g0["chosen"] == c0["chosen"], f"{tag} round 0 chosen: card {g0['chosen']} vs CPU {c0['chosen']}")
+        check(abs(g0["epsilon"] - c0["epsilon"]) <= 1e-4 * abs(c0["epsilon"]),
+              f"{tag} round 0 epsilon: card {g0['epsilon']} vs CPU {c0['epsilon']}")
+        f1_gpu, f1_cpu = run["history"][-1]["f1"], cpu["history"][-1]["f1"]
+        check(abs(f1_gpu - f1_cpu) <= 0.02, f"{tag} final F1: card {f1_gpu} vs CPU {f1_cpu}")
+        agree = sum(a["chosen"] == b["chosen"] for a, b in zip(run["rounds"], cpu["rounds"]))
+        log(f"{tag}: launches {got}; card vs CPU: chosen agrees in {agree}/{rounds} rounds, "
+            f"final F1 {f1_gpu:.4f} vs {f1_cpu:.4f}")
+    log(f"ms/round (the last history row: rounds 5-9 of 10, 95-99 of 100; one eval) on {card}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms_round.items()))
+    log(f"PreWeak.F set-up ms (adult, C = 8; T local rounds, then the prediction cache) on {card}: "
+        + ", ".join(f"T = {t} {preweak_setup_ms(torch, fl_run, t):.3f}" for t in (10, 100)))
+
+
+def committee_serving(torch, ops, ref, fl_run, card: str) -> None:
+    """A DistBoost.F committee artifact published by a pendigits run (C = 4,
+    10 rounds), served through ``serve_fl --artifact ... --load``."""
+    from repro_torch.launch import serve_fl
+    from repro_torch.serve import latest_artifact
+
+    pub = SERVE / "pendigits_distboost"
+    shutil.rmtree(pub, ignore_errors=True)
+    log("$ python -m repro_torch.launch.fl_run --dataset pendigits --collaborators 4 --rounds 10 "
+        f"--algorithm distboost_f --publish-every 10 --publish-dir {pub}")
+    fl_run.main(["--dataset", "pendigits", "--collaborators", "4", "--rounds", "10", "--depth", str(DEPTH),
+                 "--eval-every", "10", "--algorithm", "distboost_f", "--publish-every", "10",
+                 "--publish-dir", str(pub)])
+    path = latest_artifact(pub)
+    out, launches = run_serve(torch, ops, ref, serve_fl,
+                              ["--dataset", "pendigits", "--artifact", str(path), "--load"],
+                              "pendigits DistBoost.F committee (--load)")
+    st = out["stats"]
+    log(f"committee serving on {card}: {launches['vote_argmax']} vote_argmax launches for "
+        f"{st.batches} batches and {st.warmup_batches} warm-up, F1 {out['f1']:.4f}, batch p50 "
+        f"{1e3 * st.batch_seconds.percentile(50):.3f} ms; vote cache {out['cache']}")
+    log(card_vs_cpu(torch, path, "pendigits", out["pred"], "pendigits committee"))
 
 
 # -- phase 8: LLM serving -----------------------------------------------------------
@@ -1161,8 +1273,8 @@ def main() -> int:
         core = {e: i for e, i in report.items() if any(k in e for k in CORE_KERNELS)}
         log("tree_hist / weighted_errors / weight_update / vote_argmax ptxas (registers, spill "
             "bytes): " + "; ".join(kernel_row(e, i) for e, i in core.items()))
-        check(len(core) == 12, f"ptxas reported {len(core)} tree_hist/weighted_errors/weight_update/"
-              "vote_argmax kernels, not 12")
+        check(len(core) == 8, f"ptxas reported {len(core)} tree_hist/weighted_errors/weight_update/"
+              "vote_argmax kernels, not 8")
         spilled = [kernel_row(e, i) for e, i in core.items() if i.get("spill_bytes", 1) != 0]
         check(not spilled, f"kernels spill: {spilled}")
     atoms = shared_atomics(_build, "tree_hist_kernel")
@@ -1185,6 +1297,10 @@ def main() -> int:
     log(f"kernel ms / bound ms / launch floor ms at the main paths' shapes ({card}): " + "; ".join(
         f"{name} {res[MAIN_SHAPE[name]]['ms']:.5f} / {res[MAIN_SHAPE[name]]['bound_ms']:.6f} / {floor:.5f}"
         for name, (res, _) in per_kernel.items()))
+    errs = per_kernel["weighted_errors"][0]
+    log(f"weighted_errors ms / bound ms / launch floor ms / plain ms at PreWeak.F's rows ({card}): "
+        + "; ".join(f"{ds} {errs[ds]['shape']} {errs[ds]['ms']:.5f} / {errs[ds]['bound_ms']:.5f} / "
+                    f"{floor:.5f} / {errs[ds]['plain_ms']:.5f}" for ds in PREWEAK_SHAPES))
 
     # 4. the federation on the card; the adult run is the main path
     ops.reset_launches()
@@ -1252,6 +1368,10 @@ def main() -> int:
     # 8. LLM serving: gemma-2b at full width, the flash_attention path
     llm = llm_phase(torch, ops, ref, card)
     launches["flash_attention"] = llm["launches"]["flash_attention"]
+
+    # 9. DistBoost.F, PreWeak.F, bagging, extra_tree; committee serving
+    algorithms_phase(torch, ops, ref, fl_run, card)
+    committee_serving(torch, ops, ref, fl_run, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
 
     kernels = []

@@ -37,7 +37,9 @@ def ensemble_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> Ensemble:
     """A tree ensemble as numpy arrays -> the port's ``Ensemble``.
 
     Keys: the tree slots ``feature [T, depth]``, ``threshold [T, depth]``,
-    ``leaf_logits [T, 2**depth, K]``; ``alpha [T]`` and ``count``."""
+    ``leaf_logits [T, 2**depth, K]`` (a DistBoost.F committee ensemble:
+    ``[T, C, depth]`` and ``[T, C, 2**depth, K]``); ``alpha [T]`` and
+    ``count``."""
     return Ensemble(
         params=tree_params_from_numpy(d, device),
         alpha=_t(d["alpha"], torch.float32, device),
@@ -55,10 +57,11 @@ def ensemble_to_numpy(ens: Ensemble) -> Dict[str, np.ndarray]:
 
 
 def boost_state_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> BoostState:
-    """A JAX AdaBoost.F state as numpy arrays -> the port's ``BoostState``.
+    """A JAX boosting state as numpy arrays -> the port's ``BoostState``.
 
     Keys: the ensemble's tree slots ``feature [T, depth]``, ``threshold
-    [T, depth]``, ``leaf_logits [T, 2**depth, K]``; ``alpha [T]`` and
+    [T, depth]``, ``leaf_logits [T, 2**depth, K]`` (a DistBoost.F state's
+    committee slots carry a ``[T, C, ...]`` lead); ``alpha [T]`` and
     ``count``; ``weights [C, n]``; the fit cache ``edges [C, d, B]`` and
     ``bin_idx [C, n, d]``."""
     ens = ensemble_from_numpy(d, device)

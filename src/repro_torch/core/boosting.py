@@ -1,6 +1,6 @@
-"""Model-agnostic federated boosting: AdaBoost.F (paper §3, Fig. 1).
-Answers to ``repro/core/boosting.py``; DistBoost.F, PreWeak.F and bagging
-are not ported yet.
+"""Model-agnostic federated boosting — AdaBoost.F, DistBoost.F, PreWeak.F
+and federated bagging (paper §3, Fig. 1), plus the centralized AdaBoost
+(SAMME) oracle (answers to ``repro/core/boosting.py``).
 
 Data layout: collaborator-stacked fixed shapes —
     X [C, n, d]   y [C, n]   mask [C, n]  (padding -> mask 0)
@@ -9,12 +9,19 @@ over ALL collaborators is 1).
 
 A round never waits for the card: the chosen index and alpha stay on the
 device, and the ensemble slot written is the host-known member count
-(AdaBoost.F appends exactly one member per round).  The ensemble's slot
-buffers are updated in place, so a round allocates no copy of them.
+(every algorithm appends exactly one member per round).  The ensemble's
+slot buffers are updated in place, so a round allocates no copy of them.
+
+Randomness (bagging's pick, ``extra_tree``'s split candidates, drawn for
+PreWeak.F's local rounds too) comes from one explicit CPU
+``torch.Generator`` handed to the stage factories and drawn in a fixed
+order, so the card and the CPU draw the same numbers; the JAX package's
+keys have no counterpart, and its draws cannot be reproduced, only
+injected (``bagging_stages(pick=)``, ``extra_tree``'s ``candidates``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import math
 
@@ -32,14 +39,18 @@ from repro_torch.learners.base import LearnerSpec, WeakLearner
 class Ensemble(NamedTuple):
     """Pre-allocated strong hypothesis: T slots of weak-hypothesis tensors."""
 
-    params: Any  # NamedTuple of tensors, each with leading dim T
+    params: Any  # NamedTuple of tensors, each with leading dim T ([T, C] for committees)
     alpha: torch.Tensor  # [T] f32
     count: int  # slots used so far (host-known)
 
 
-def init_ensemble(learner: WeakLearner, spec: LearnerSpec, T: int, device) -> Ensemble:
+def init_ensemble(learner: WeakLearner, spec: LearnerSpec, T: int, device,
+                  committee_size: int | None = None) -> Ensemble:
+    """T zero slots; a DistBoost.F slot holds a committee of
+    ``committee_size`` hypotheses."""
     proto = learner.init(spec, device)
-    params = type(proto)(*(torch.zeros((T,) + x.shape, dtype=x.dtype, device=device) for x in proto))
+    lead = (T,) if committee_size is None else (T, committee_size)
+    params = type(proto)(*(torch.zeros(lead + x.shape, dtype=x.dtype, device=device) for x in proto))
     return Ensemble(params=params, alpha=torch.zeros(T, dtype=torch.float32, device=device), count=0)
 
 
@@ -50,17 +61,18 @@ def ensemble_to(ens: Ensemble, device) -> Ensemble:
     return Ensemble(params, ens.alpha.to(device), ens.count)
 
 
-def ensemble_votes(learner: WeakLearner, spec: LearnerSpec, ens: Ensemble, X: torch.Tensor) -> torch.Tensor:
+def ensemble_votes(learner: WeakLearner, spec: LearnerSpec, ens: Ensemble, X: torch.Tensor,
+                   *, committee: bool = False) -> torch.Tensor:
     """alpha-weighted vote tally [n, K] over the used slots."""
     T = ens.alpha.shape[0]
-    preds = learner.predict(spec, ens.params, X)  # [T, n]
+    preds = scoring.member_prediction(learner, spec, ens.params, X, committee=committee)  # [T, n]
     used = (torch.arange(T, device=X.device) < ens.count).to(torch.float32) * ens.alpha
     onehot = one_hot(preds, spec.n_classes, torch.float32)  # [T, n, K]; out of range: a zero row
     return torch.einsum("t,tnk->nk", used, onehot)
 
 
-def strong_predict(learner, spec, ens: Ensemble, X) -> torch.Tensor:
-    return torch.argmax(ensemble_votes(learner, spec, ens, X), dim=-1)
+def strong_predict(learner, spec, ens: Ensemble, X, *, committee: bool = False) -> torch.Tensor:
+    return torch.argmax(ensemble_votes(learner, spec, ens, X, committee=committee), dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -82,6 +94,7 @@ def init_boost_state(
     T: int,
     mask: torch.Tensor,  # [C, n]
     *,
+    committee_size: int | None = None,
     X: torch.Tensor | None = None,  # [C, n, d] — enables the fit cache
 ) -> BoostState:
     w = mask / torch.clamp_min(torch.sum(mask), 1.0)  # uniform over the GLOBAL dataset
@@ -89,21 +102,31 @@ def init_boost_state(
     if X is not None and learner.precompute is not None:
         cache = learner.precompute(spec, X)  # [C, ...]
     return BoostState(
-        ensemble=init_ensemble(learner, spec, T, mask.device),
+        ensemble=init_ensemble(learner, spec, T, mask.device, committee_size=committee_size),
         weights=w.to(torch.float32),
         fit_cache=cache,
     )
 
 
-def _local_fits(learner, spec, w, X, y, fit_cache):
+def _local_fits(learner, spec, w, X, y, fit_cache, generator=None):
     """Train one weak hypothesis per collaborator (paper step 2): all C
-    fits as one batched tensor program over the shard-static fit cache."""
+    fits as one batched tensor program over the shard-static fit cache;
+    a randomised learner draws from ``generator``."""
     if learner.fit_batched is None or fit_cache is None:
         raise NotImplementedError(
             f"learner {learner.name!r} needs fit_batched and a fit cache; the "
-            "per-collaborator fit routes are not ported"
+            "per-collaborator fit routes are not ported (ROADMAP Queue 1 item 8)"
         )
-    return learner.fit_batched(spec, X, y, w, fit_cache)
+    return learner.fit_batched(spec, X, y, w, fit_cache, generator=generator)
+
+
+def _append(ens: Ensemble, member: Any, alpha) -> Ensemble:
+    """Write slot ``ens.count`` in place and count it."""
+    t = ens.count
+    for slot, x in zip(ens.params, member):
+        slot[t].copy_(x)
+    ens.alpha[t].copy_(alpha)
+    return Ensemble(ens.params, ens.alpha, t + 1)
 
 
 def _samme_alpha(eps: torch.Tensor, n_classes: int) -> torch.Tensor:
@@ -127,12 +150,13 @@ def run_stages(stages, state: BoostState, X, y, mask):
 # ---------------------------------------------------------------------------
 
 
-def adaboost_f_stages(learner: WeakLearner, spec: LearnerSpec):
+def adaboost_f_stages(learner: WeakLearner, spec: LearnerSpec, *,
+                      generator: torch.Generator | None = None):
     """The AdaBoost.F round as named stages (see :func:`run_stages`)."""
 
     def fit(state, carry, X, y, mask):
         # step 2: local training, all C fits as one batched tensor program
-        hyps = _local_fits(learner, spec, state.weights, X, y, state.fit_cache)
+        hyps = _local_fits(learner, spec, state.weights, X, y, state.fit_cache, generator)
         return state, {"hyps": hyps}
 
     def score(state, carry, X, y, mask):
@@ -149,14 +173,7 @@ def adaboost_f_stages(learner: WeakLearner, spec: LearnerSpec):
         c = torch.argmin(eps)  # stays on the device
         eps_c = torch.take(eps, c)
         alpha = _samme_alpha(eps_c, spec.n_classes)
-
-        ens = state.ensemble
-        t = ens.count
-        for slot, chosen in zip(ens.params, scoring.take_slot(hyps, c)):
-            slot[t].copy_(chosen)
-        ens.alpha[t].copy_(alpha)
-        ens = Ensemble(ens.params, ens.alpha, t + 1)
-
+        ens = _append(state.ensemble, scoring.take_slot(hyps, c), alpha)
         mis = scoring.chosen_mis(preds, y, c)  # row slice of preds
         w = scoring.update_weights(state.weights, mis, mask, alpha)
         metrics = {"epsilon": eps_c, "alpha": alpha, "chosen": c.to(torch.int32)}
@@ -166,6 +183,193 @@ def adaboost_f_stages(learner: WeakLearner, spec: LearnerSpec):
 
 
 def adaboost_f_round(
-    learner: WeakLearner, spec: LearnerSpec, state: BoostState, X, y, mask
+    learner: WeakLearner, spec: LearnerSpec, state: BoostState, X, y, mask, *,
+    generator: torch.Generator | None = None,
 ) -> Tuple[BoostState, Dict[str, torch.Tensor]]:
-    return run_stages(adaboost_f_stages(learner, spec), state, X, y, mask)
+    return run_stages(adaboost_f_stages(learner, spec, generator=generator), state, X, y, mask)
+
+
+# ---------------------------------------------------------------------------
+# DistBoost.F — the round hypothesis is the committee of all local models
+# ---------------------------------------------------------------------------
+
+
+def _committee_predict(learner, spec, committee, X) -> torch.Tensor:
+    """The committee's vote on each shard: X [C, n, d] -> [C, n] int32."""
+    return scoring.member_prediction(learner, spec, committee, X, committee=True)
+
+
+def distboost_f_stages(learner: WeakLearner, spec: LearnerSpec, *,
+                       generator: torch.Generator | None = None):
+    """The DistBoost.F round as named stages (see :func:`run_stages`)."""
+
+    def fit(state, carry, X, y, mask):
+        committee = _local_fits(learner, spec, state.weights, X, y, state.fit_cache, generator)
+        return state, {"committee": committee}
+
+    def score(state, carry, X, y, mask):
+        # the round's only predict pass: every member on every shard, one vote per shard
+        mis = (_committee_predict(learner, spec, carry["committee"], X) != y).to(torch.float32)
+        return state, {**carry, "mis": mis}
+
+    def aggregate(state, carry, X, y, mask):
+        committee, mis = carry["committee"], carry["mis"]
+        eps = torch.sum(state.weights * mis)
+        alpha = _samme_alpha(eps, spec.n_classes)
+        ens = _append(state.ensemble, committee, alpha)
+        w = scoring.update_weights(state.weights, mis, mask, alpha)
+        metrics = {"epsilon": eps, "alpha": alpha,
+                   "chosen": torch.zeros((), dtype=torch.int32, device=eps.device)}
+        return BoostState(ens, w, state.fit_cache), {"metrics": metrics}
+
+    return [("fit", fit), ("score", score), ("aggregate", aggregate)]
+
+
+def distboost_f_round(learner, spec, state, X, y, mask, *,
+                      generator: torch.Generator | None = None):
+    return run_stages(distboost_f_stages(learner, spec, generator=generator), state, X, y, mask)
+
+
+# ---------------------------------------------------------------------------
+# PreWeak.F — search a pre-trained C x T hypothesis space
+# ---------------------------------------------------------------------------
+
+
+def _preweak_local_space(learner, spec, X, y, mask, fit_cache, T: int,
+                         generator: torch.Generator | None = None):
+    """Steps 1+2 of PreWeak.F: every collaborator runs T rounds of LOCAL
+    AdaBoost on its own shard; returns the flat ``[C*T, ...]`` hypothesis
+    block (collaborator-major, as the JAX package's ``reshape``).
+
+    Each local round fits all C collaborators as one ``fit_batched`` (one
+    ``tree_hist`` launch a level).  The local error and update stay plain
+    tensor operations, renormalised per collaborator: the fused
+    ``weight_update`` kernel renormalises over all collaborators."""
+    C = y.shape[0]
+    w = mask / torch.clamp_min(torch.sum(mask, dim=1, keepdim=True), 1.0)
+    rounds = []
+    for _ in range(T):
+        p = _local_fits(learner, spec, w, X, y, fit_cache, generator)
+        own = torch.diagonal(scoring.predict_tensor(learner, spec, p, X)).T  # [C, n]: own tree, own shard
+        mis = (own != y).to(torch.float32)
+        e = torch.sum(w * mis, dim=1) / torch.clamp_min(torch.sum(w, dim=1), 1e-30)
+        a = _samme_alpha(e, spec.n_classes)
+        w = w * torch.exp(a.unsqueeze(1) * mis) * mask
+        w = w / torch.clamp_min(torch.sum(w, dim=1, keepdim=True), 1e-30)
+        rounds.append(p)
+    return type(rounds[0])(*(
+        torch.stack(leaves, dim=1).reshape((C * T,) + leaves[0].shape[1:])
+        for leaves in zip(*rounds)
+    ))
+
+
+def preweak_f_setup(learner, spec, state: BoostState, X, y, mask, T: int,
+                    generator: torch.Generator | None = None):
+    """Fuse steps 1+2: every collaborator runs T rounds of LOCAL AdaBoost,
+    shipping all T hypotheses; the federation then owns a C*T space.
+    Returns ``(hypothesis space, state)``."""
+    return _preweak_local_space(learner, spec, X, y, mask, state.fit_cache, T, generator), state
+
+
+def preweak_f_predictions(learner, spec, hyp_space, X) -> torch.Tensor:
+    """Setup-time prediction cache [C, C*T, n] for the static hypothesis
+    space: every round's scoring is one ``weighted_errors`` launch over it."""
+    return scoring.predict_tensor(learner, spec, hyp_space, X)
+
+
+def preweak_f_stages(learner, spec, hyp_space, pred_cache: torch.Tensor):
+    """The PreWeak.F round as named stages (see :func:`run_stages`).  No fit
+    stage: the space is pre-trained and pre-predicted at setup."""
+
+    def score(state, carry, X, y, mask):
+        errs = scoring.error_matrix(pred_cache, y, state.weights)  # [C, C*T]
+        return state, {"errs": errs}
+
+    def aggregate(state, carry, X, y, mask):
+        eps = torch.sum(carry["errs"], dim=0)
+        c = torch.argmin(eps)  # stays on the device
+        eps_c = torch.take(eps, c)
+        alpha = _samme_alpha(eps_c, spec.n_classes)
+        ens = _append(state.ensemble, scoring.take_slot(hyp_space, c), alpha)
+        mis = scoring.chosen_mis(pred_cache, y, c)  # row slice of the cache
+        w = scoring.update_weights(state.weights, mis, mask, alpha)
+        metrics = {"epsilon": eps_c, "alpha": alpha, "chosen": c.to(torch.int32)}
+        return BoostState(ens, w, state.fit_cache), {"metrics": metrics}
+
+    return [("score", score), ("aggregate", aggregate)]
+
+
+def preweak_f_round(learner, spec, state, hyp_space, X, y, mask, *, pred_cache: torch.Tensor):
+    """Rounds loop only on steps 3-4 (the red dotted line of Fig. 1)."""
+    return run_stages(preweak_f_stages(learner, spec, hyp_space, pred_cache), state, X, y, mask)
+
+
+# ---------------------------------------------------------------------------
+# Federated bagging — omit adaboost_update (paper §4.1)
+# ---------------------------------------------------------------------------
+
+
+def bagging_stages(learner, spec, *, generator: torch.Generator | None = None, pick=None):
+    """The federated-bagging round as named stages (see :func:`run_stages`).
+    No score stage.  The member kept is ``pick`` when given (a collaborator
+    index, injected), else drawn uniformly from ``generator`` after the
+    fit's own draws; it goes to the device, never back."""
+
+    def fit(state, carry, X, y, mask):
+        w = mask / torch.clamp_min(torch.sum(mask, dim=1, keepdim=True), 1.0)  # local-uniform
+        hyps = _local_fits(learner, spec, w, X, y, state.fit_cache, generator)
+        return state, {"hyps": hyps}
+
+    def aggregate(state, carry, X, y, mask):
+        if pick is None:
+            if generator is None:
+                raise ValueError("bagging draws its member: pass a generator or a pick")
+            c = torch.randint(0, X.shape[0], (), generator=generator)
+        else:
+            c = torch.as_tensor(pick, dtype=torch.int64)
+        c = c.to(X.device)
+        one = torch.ones((), dtype=torch.float32, device=X.device)
+        ens = _append(state.ensemble, scoring.take_slot(carry["hyps"], c), one)  # unweighted vote
+        metrics = {"epsilon": torch.zeros_like(one), "alpha": one, "chosen": c.to(torch.int32)}
+        return BoostState(ens, state.weights, state.fit_cache), {"metrics": metrics}
+
+    return [("fit", fit), ("aggregate", aggregate)]
+
+
+def bagging_round(learner, spec, state, X, y, mask, *,
+                  generator: torch.Generator | None = None, pick=None):
+    return run_stages(bagging_stages(learner, spec, generator=generator, pick=pick),
+                      state, X, y, mask)
+
+
+# ---------------------------------------------------------------------------
+# Centralized AdaBoost (SAMME) — the Table 1 "Reference" oracle
+# ---------------------------------------------------------------------------
+
+
+def centralized_adaboost(learner: WeakLearner, spec: LearnerSpec, X: torch.Tensor,
+                         y: torch.Tensor, T: int, *,
+                         generator: torch.Generator | None = None) -> Ensemble:
+    """T AdaBoost.F rounds over the pooled data as one collaborator."""
+    Xc, yc = X[None], y[None]
+    mc = torch.ones(yc.shape, dtype=torch.float32, device=X.device)
+    state = init_boost_state(learner, spec, T, mc, X=Xc)
+    stages = adaboost_f_stages(learner, spec, generator=generator)
+    for _ in range(T):
+        state, _ = run_stages(stages, state, Xc, yc, mc)
+    return state.ensemble
+
+
+ROUND_FNS: Dict[str, Callable] = {
+    "adaboost_f": adaboost_f_round,
+    "distboost_f": distboost_f_round,
+    "bagging": bagging_round,
+}
+
+# Stage factories (PreWeak.F's is absent: it needs the hypothesis space and
+# its prediction cache, so the federation calls preweak_f_stages directly).
+ROUND_STAGES: Dict[str, Callable] = {
+    "adaboost_f": adaboost_f_stages,
+    "distboost_f": distboost_f_stages,
+    "bagging": bagging_stages,
+}

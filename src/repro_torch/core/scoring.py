@@ -107,22 +107,36 @@ def init_tally(n: int, n_classes: int, device) -> VoteTally:
 
 
 def member_prediction(learner: WeakLearner, spec: LearnerSpec, params_t: Any,
-                      X: torch.Tensor) -> torch.Tensor:
+                      X: torch.Tensor, *, committee: bool = False) -> torch.Tensor:
     """A member's [n] class prediction (or [T, n] for a slot stack) — the
-    single definition of the member vote rule, shared by incremental
-    evaluation (:func:`tally_new_votes`) and the serving engine.
-    DistBoost.F committees, which vote within the member first, are not
-    ported (ROADMAP Queue 1 item 7)."""
-    return learner.predict(spec, params_t, X)
+    single definition of the member vote rule, shared by full
+    (``boosting.ensemble_votes``) and incremental (:func:`tally_new_votes`)
+    evaluation and the serving engine.
+
+    A DistBoost.F member is a committee of C hypotheses (slots ``[C, ...]``,
+    a stack ``[T, C, ...]``) that votes within itself first: its C votes
+    become one-hots (out of range: a zero row), are summed, and the first
+    argmax is the member's class, as ``repro/core/scoring.py`` rules."""
+    if not committee:
+        return learner.predict(spec, params_t, X)
+    proto = learner.init(spec, X.device)
+    lead = params_t[0].shape[: params_t[0].dim() - proto[0].dim()]  # ([T,] C)
+    flat = type(params_t)(*(x.reshape((-1,) + p.shape) for x, p in zip(params_t, proto)))
+    batch = X.shape[:-2]  # a leading shard axis, when X is [C, n, d]
+    preds = learner.predict(spec, flat, X).view(batch + lead + X.shape[-2:-1])  # [.., [T,] C, n]
+    tally = one_hot(preds, spec.n_classes, torch.float32).sum(dim=len(batch) + len(lead) - 1)
+    return torch.argmax(tally, dim=-1).to(torch.int32)
 
 
 def tally_new_votes(
-    learner: WeakLearner, spec: LearnerSpec, ensemble, tally: VoteTally, X: torch.Tensor
+    learner: WeakLearner, spec: LearnerSpec, ensemble, tally: VoteTally, X: torch.Tensor,
+    *, committee: bool = False,
 ) -> VoteTally:
     """Fold members ``[tally.counted, ensemble.count)`` into the tally."""
     votes = tally.votes
     for t in range(tally.counted, ensemble.count):
-        pred = member_prediction(learner, spec, take_slot(ensemble.params, t), X)
+        pred = member_prediction(learner, spec, take_slot(ensemble.params, t), X,
+                                 committee=committee)
         votes = votes + ensemble.alpha[t] * one_hot(pred, spec.n_classes, votes.dtype)
     return VoteTally(votes, ensemble.count)
 

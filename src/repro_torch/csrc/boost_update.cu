@@ -9,25 +9,31 @@
 //   whole [C, H, n] prediction tensor.
 //   Bound on an H100: bytes.  C*H*n*4 (preds) + 2*C*n*4 (y, w) read once,
 //   C*H*4 written, over 3.35 TB/s; one compare and one add per element is far
-//   below any compute peak.  At the main path's shapes (adult: [8, 8, 4070])
-//   that is ~1.3 MB, well under a microsecond: the kernel is a chain of
-//   latencies (launch, one round of loads, the reduction).
-//   Design (launch plan: repro_torch/kernels/boost_update.py:errors_plan):
-//   one thread-block cluster of cs CTAs per collaborator c (grid (cs, C),
-//   cluster (cs, 1, 1)), its CTAs splitting n into cs balanced, contiguous
-//   ranges.  A thread reads y[c, s] and w[c, s] once for its samples and
-//   tests all H rows' preds[c, h, s], neighbouring threads on neighbouring
-//   s (coalesced 4-byte loads: a row of preds is only 4-byte aligned when n
-//   is odd, 8-byte when n = 2 mod 4), so the bytes read are those the bound
-//   counts.  It keeps up to 16 row sums in registers (a template over 1, 2,
-//   4, 8 or 16 rows), in groups of 16 rows beyond that.  The sums are
-//   reduced by a warp shuffle, then across the warps in shared memory, then
-//   across the cluster through distributed shared memory in rank order; CTA
-//   0 writes out[c, :] with plain stores, so the caller allocates `out`
-//   uninitialised.  The order of every sum depends only on (n, H,
-//   blockDim, cs): two calls on the same inputs give the same bits.  It is
-//   held to the plain row sum (repro_torch/kernels/ref.py:
-//   weighted_errors_ref) at rtol 1e-4, not to the Pallas matvec.
+//   below any compute peak.  AdaBoost.F scores H = C rows a round (adult:
+//   [8, 8, 4070], ~1.3 MB, well under a microsecond: a chain of latencies -
+//   launch, one round of loads, the reduction).  PreWeak.F scores its whole
+//   space, H = C*T rows (adult at T = 100: [8, 800, 4070], 104 MB, 31 us: the
+//   bytes).
+//   Design (launch plan: repro_torch/kernels/boost_update.py:errors_plan): a
+//   warp per (row, sample slice).  A row's n samples split into cs balanced,
+//   contiguous slices, one per CTA of a thread-block cluster; a CTA takes a
+//   chunk of hc rows, a warp each, so the grid (cs, ceil(H / hc), C) splits
+//   the rows as well as the samples.  A warp walks its slice with
+//   coalesced 4-byte loads, 8 loads a lane in flight before the first add;
+//   preds are read once (L1::no_allocate, so they do not evict y and w,
+//   which every warp of the CTA reads again).  A row is only 4-byte aligned
+//   when n is odd, so 16-byte loads would need a head and a tail per row and
+//   per-lane gathers of y and w; the 4-byte loads issue 3 L1 wavefronts per
+//   128 bytes of preds, ~3x what HBM feeds an SM.  A shuffle tree gives one
+//   float per (row, slice), kept in shared memory: nothing there grows with
+//   H, so H has no cap.  After one cluster barrier a thread of rank 0 adds a
+//   row's cs slice sums in rank order through distributed shared memory and
+//   stores it with a plain store, so the caller allocates `out`
+//   uninitialised; a second barrier keeps every CTA's sums alive until they
+//   are read.  The order of every sum depends only on (n, cs): two calls on
+//   the same inputs give the same bits.  It is held to the plain row sum
+//   (repro_torch/kernels/ref.py: weighted_errors_ref) at rtol 1e-4, not to
+//   the Pallas matvec.
 //
 // weight_update, renormalised:
 //   out[i] = p[i] / max(sum_j p[j], 1e-30),  p[i] = w[i] * expf(alpha * mis[i]) * mask[i]
@@ -67,70 +73,65 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-template <int HB>  // rows summed at once, in registers
+constexpr int ERR_UNROLL = 8;  // loads a lane keeps in flight
+
+__device__ __forceinline__ int load_once(const int* p) {  // read once: not kept in L1
+  int v;
+  asm volatile("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
 __global__ void __launch_bounds__(1024)
 weighted_errors_kernel(const int* __restrict__ preds, const int* __restrict__ y,
                        const float* __restrict__ w, float* __restrict__ out, int H, int n) {
-  extern __shared__ float red[];  // partial [warps][HB], then total [H]
+  extern __shared__ float part[];  // [hc] this CTA's slice sum of each row of the chunk
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int c = blockIdx.y;
-  const int s0 = (int)((long long)rank * n / cs);
-  const int s1 = (int)((long long)(rank + 1) * n / cs);
+  const int hc = blockDim.x >> 5;
+  const int c = blockIdx.z;
+  const int h0 = blockIdx.y * hc;
+  const int rows = min(hc, H - h0);
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  float* partial = red;
-  float* total = red + n_warps * HB;
-  const int* pc = preds + (long long)c * H * n;
+  const int j = threadIdx.x >> 5;  // the warp's row of the chunk
+  const int a0 = (int)((long long)rank * n / cs);
+  const int a1 = (int)((long long)(rank + 1) * n / cs);
   const int* yc = y + (long long)c * n;
   const float* wc = w + (long long)c * n;
 
-  for (int g0 = 0; g0 < H; g0 += HB) {
-    const int hb = min(HB, H - g0);
-    float acc[HB];
+  if (j < rows) {
+    const int* row = preds + ((long long)c * H + h0 + j) * n;
+    float acc = 0.f;
+    for (int s0 = a0; s0 < a1; s0 += 32 * ERR_UNROLL) {
+      int p[ERR_UNROLL], ys[ERR_UNROLL];
+      float ws[ERR_UNROLL];
 #pragma unroll
-    for (int j = 0; j < HB; ++j) acc[j] = 0.f;
-    for (int s = s0 + threadIdx.x; s < s1; s += blockDim.x) {
-      const int ys = yc[s];
-      const float ws = wc[s];
-      int p[HB];
+      for (int u = 0; u < ERR_UNROLL; ++u) {  // every load in flight before the first add
+        const int s = s0 + u * 32 + lane;
+        const bool in = s < a1;
+        p[u] = in ? load_once(row + s) : 0;
+        ys[u] = in ? __ldg(yc + s) : 0;
+        ws[u] = in ? __ldg(wc + s) : 0.f;
+      }
 #pragma unroll
-      for (int j = 0; j < HB; ++j) p[j] = j < hb ? pc[(long long)(g0 + j) * n + s] : ys;
-#pragma unroll
-      for (int j = 0; j < HB; ++j) acc[j] += p[j] != ys ? ws : 0.f;
+      for (int u = 0; u < ERR_UNROLL; ++u) acc += p[u] != ys[u] ? ws[u] : 0.f;
     }
-#pragma unroll
-    for (int j = 0; j < HB; ++j)
-      for (int off = 16; off > 0; off >>= 1) acc[j] += __shfl_down_sync(0xffffffffu, acc[j], off);
-    if (lane == 0) {
-#pragma unroll
-      for (int j = 0; j < HB; ++j) partial[warp * HB + j] = acc[j];
-    }
-    __syncthreads();
-    if (threadIdx.x < hb) {
-      float t = 0.f;
-      for (int q = 0; q < n_warps; ++q) t += partial[q * HB + threadIdx.x];
-      total[g0 + threadIdx.x] = t;
-    }
-    __syncthreads();  // partial is rewritten by the next group
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (lane == 0) part[j] = acc;
   }
-  cluster.sync();
-  if (rank == 0) {
-    for (int hh = threadIdx.x; hh < H; hh += blockDim.x) {
-      float v[8];  // every rank's load in flight before the first add
+  cluster.sync();  // every slice sum of the chunk is published
+  if (rank == 0 && threadIdx.x < rows) {
+    float v[8];  // every rank's load in flight before the first add
 #pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (q < cs) v[q] = cluster.map_shared_rank(total, q)[hh];
-      float t = v[0];
+    for (int q = 0; q < 8; ++q)
+      if (q < cs) v[q] = cluster.map_shared_rank(part, q)[threadIdx.x];
+    float t = v[0];
 #pragma unroll
-      for (int q = 1; q < 8; ++q)
-        if (q < cs) t += v[q];
-      out[(long long)c * H + hh] = t;
-    }
+    for (int q = 1; q < 8; ++q)
+      if (q < cs) t += v[q];
+    out[(long long)c * H + h0 + threadIdx.x] = t;
   }
-  cluster.sync();  // no CTA's total is read after it exits
+  cluster.sync();  // no CTA's slice sums are read after it exits
 }
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -212,18 +213,19 @@ weight_update_kernel(const float* __restrict__ w, const float* __restrict__ mis,
 }  // namespace
 
 // preds [C, H, n] i32, y [C, n] i32, w [C, n] f32 -> out [C, H] f32, every
-// element written.  cs in {1, 2, 4, 8}; threads a multiple of 32, at most
-// 1024.  Returns the launch's cudaError_t; a refused cluster launch is
-// returned, never retried.
+// element written.  Clusters of cs CTAs (1, 2, 4 or 8) over each row's
+// samples, hc rows (a warp each, 1 to 32) per CTA.  Returns the launch's
+// cudaError_t; a refused cluster launch is returned, never retried.
 extern "C" int repro_weighted_errors(const void* preds, const void* y, const void* w,
-                                     void* out, int C, int H, int n, int cs, int threads,
+                                     void* out, int C, int H, int n, int cs, int hc,
                                      void* stream) {
-  if (cs < 1 || cs > 8 || H < 1) return (int)cudaErrorInvalidValue;
-  const int hb = H > 8 ? 16 : H > 4 ? 8 : H > 2 ? 4 : H;
+  if (cs < 1 || cs > 8 || (cs & (cs - 1)) != 0 || hc < 1 || hc > 32 || C < 1 || C > 65535 ||
+      H < 1 || n < 0 || (H + hc - 1) / hc > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, C);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = ((threads / 32) * hb + H) * sizeof(float);
+  cfg.gridDim = dim3(cs, (H + hc - 1) / hc, C);
+  cfg.blockDim = dim3(32 * hc);
+  cfg.dynamicSmemBytes = hc * sizeof(float);
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -232,18 +234,8 @@ extern "C" int repro_weighted_errors(const void* preds, const void* y, const voi
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const int* p = (const int*)preds;
-  const int* yy = (const int*)y;
-  const float* ww = (const float*)w;
-  float* o = (float*)out;
-  cudaError_t e;
-  switch (hb) {
-    case 1: e = cudaLaunchKernelEx(&cfg, weighted_errors_kernel<1>, p, yy, ww, o, H, n); break;
-    case 2: e = cudaLaunchKernelEx(&cfg, weighted_errors_kernel<2>, p, yy, ww, o, H, n); break;
-    case 4: e = cudaLaunchKernelEx(&cfg, weighted_errors_kernel<4>, p, yy, ww, o, H, n); break;
-    case 8: e = cudaLaunchKernelEx(&cfg, weighted_errors_kernel<8>, p, yy, ww, o, H, n); break;
-    default: e = cudaLaunchKernelEx(&cfg, weighted_errors_kernel<16>, p, yy, ww, o, H, n); break;
-  }
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, weighted_errors_kernel, (const int*)preds,
+                                           (const int*)y, (const float*)w, (float*)out, H, n);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 

@@ -1,11 +1,18 @@
-"""The MAFL federation runtime, fused homogeneous AdaBoost.F path
-(answers to ``Federation`` in ``repro/fl/federation.py``).
+"""The MAFL federation runtime, fused homogeneous path (answers to
+``Federation`` in ``repro/fl/federation.py``): AdaBoost.F, DistBoost.F,
+PreWeak.F and federated bagging, picked by ``plan.algorithm``.
 
-A round is the composed fit / score / aggregate stages of
-``core/boosting.py`` run eagerly on the federation's device; its three hot
-spots launch the hand-written kernels on the card.  Nothing in the round
-loop copies to the host: the round's metrics stay device tensors until an
-evaluation row reads them, all in one transfer, and a serving checkpoint
+A round is the composed stages of ``core/boosting.py`` run eagerly on the
+federation's device; its hot spots launch the hand-written kernels on the
+card.  PreWeak.F trains its C*T hypothesis space and predicts it on every
+shard once, at set-up (the ``preweak.setup`` span); each of its rounds is
+then one ``weighted_errors`` launch over that cache and one
+``weight_update``.  Random draws (bagging's pick, ``extra_tree``'s split
+candidates) come from one CPU ``torch.Generator`` seeded from ``seed``, so
+a run on the card draws what the same run on the CPU draws; a draw is
+copied to the card, never read back.  Nothing in the round loop copies to
+the host: the round's metrics stay device tensors until an evaluation row
+reads them, all in one transfer, and a serving checkpoint
 (``publish_every``) copies the ensemble to the host once.  Communication
 is modelled from shapes, as the JAX package's fused path does.  The
 interpreted (OpenFL-style) path, heterogeneous and elastic federations
@@ -49,9 +56,10 @@ class Federation:
     """C collaborators' shards plus a held-out test set, on one device."""
 
     def __init__(self, plan: Plan, Xs, ys, masks, X_test, y_test, spec: LearnerSpec,
-                 *, device: str | torch.device = "cuda"):
+                 *, device: str | torch.device = "cuda", seed: int = 0):
         plan.validate()
         self.plan = plan
+        self.generator = torch.Generator().manual_seed(seed)  # host draws, a fixed order
         self.device = resolve_device(device)
         self.spec = spec
         self.learner = get_learner(spec.name)
@@ -122,16 +130,36 @@ class Federation:
         _M_ROUND_SECONDS.observe(dt)
         return {"round_seconds": dt, "comm_bytes": float(self.comm_bytes - c0)}
 
-    def _fused_comm_model(self, state: boosting.BoostState) -> int:
-        """Per-round wire bytes of the fused AdaBoost.F round, modelled
-        from shapes (``wire_size`` reads no tensor): every collaborator
-        uploads its hypothesis, the aggregator broadcasts the hypothesis
-        space for validation (C-1 extra copies each), then the (chosen
-        hypothesis, alpha) pair."""
+    def _fused_comm_model(self, state: boosting.BoostState, *, setup_tree=None) -> tuple:
+        """(setup bytes, per-round bytes), modelled from shapes
+        (``wire_size`` reads no tensor), as the JAX package's fused path
+        models them: per AdaBoost.F round every collaborator uploads its
+        hypothesis, the aggregator broadcasts the hypothesis space for
+        validation (C-1 extra copies each), then the (chosen hypothesis,
+        alpha) pair.  PreWeak.F ships its whole C*T space once at set-up and
+        only (alpha, index) a round; DistBoost.F's slot is the committee
+        (the C uploads), re-broadcast to every collaborator; bagging only
+        uploads."""
         C = self.n_collaborators
         ens = state.ensemble
         h = wire_size(ens.params) // max(ens.alpha.shape[0], 1)  # one slot
-        return C * h + C * h * (C - 1) + (h + 8) * C
+        alg = self.plan.algorithm
+        if alg == "preweak_f":
+            return wire_size(setup_tree) * C, 16 * C
+        if alg == "distboost_f":
+            return 0, h * (1 + C) + 8 * C
+        if alg == "bagging":
+            return 0, C * h
+        return 0, C * h + C * h * (C - 1) + (h + 8) * C
+
+    def _account_comm(self, nbytes: int) -> None:
+        self.comm_bytes += nbytes
+        _M_COMM.inc(nbytes)
+
+    @property
+    def committee_size(self) -> Optional[int]:
+        """C for DistBoost.F, whose every slot is the round's committee."""
+        return self.n_collaborators if self.plan.algorithm == "distboost_f" else None
 
     def _publish_checkpoint(self, state: boosting.BoostState, round_idx: int,
                             publish_dir: str, on_checkpoint) -> None:
@@ -142,6 +170,7 @@ class Federation:
         host = boosting.ensemble_to(state.ensemble, "cpu")
         path = publish_artifact(
             publish_dir, self.spec, host, version=round_idx + 1,
+            committee_size=self.committee_size,
             extra={"round": round_idx + 1, "algorithm": self.plan.algorithm},
         )
         self.published.append(path)
@@ -159,8 +188,7 @@ class Federation:
             with trace.span("round", round=r, algorithm=algorithm):
                 state, metrics = round_fn(state, self.Xs, self.ys, self.masks)
                 self._round_metrics.append(metrics)
-                self.comm_bytes += per_round_comm
-                _M_COMM.inc(per_round_comm)
+                self._account_comm(per_round_comm)
                 _M_ROUNDS.inc()
                 if (r + 1) % eval_every == 0 or r == rounds - 1:
                     with trace.span("round.eval", round=r):
@@ -182,9 +210,23 @@ class Federation:
 
     def _run_fused(self, rounds: int, eval_every: int, publish_every: Optional[int] = None,
                    publish_dir: Optional[str] = None, on_checkpoint=None) -> List[Dict[str, float]]:
-        learner, spec = self.learner, self.spec
-        state = boosting.init_boost_state(learner, spec, rounds, self.masks, X=self.Xs)
-        stages = boosting.adaboost_f_stages(learner, spec)
+        learner, spec, alg, g = self.learner, self.spec, self.plan.algorithm, self.generator
+        committee = self.committee_size
+        state = boosting.init_boost_state(learner, spec, rounds, self.masks,
+                                          committee_size=committee, X=self.Xs)
+        if alg == "preweak_f":
+            with trace.span("preweak.setup", rounds=rounds):
+                hyp_space, state = boosting.preweak_f_setup(
+                    learner, spec, state, self.Xs, self.ys, self.masks, rounds, g)
+                # the C*T space is static: predicted on every shard once, every
+                # round is then a reduction over this [C, C*T, n] cache
+                cache = boosting.preweak_f_predictions(learner, spec, hyp_space, self.Xs)
+            stages = boosting.preweak_f_stages(learner, spec, hyp_space, cache)
+            setup_bytes, per_round = self._fused_comm_model(state, setup_tree=hyp_space)
+            self._account_comm(setup_bytes)
+        else:
+            stages = boosting.ROUND_STAGES[alg](learner, spec, generator=g)
+            _, per_round = self._fused_comm_model(state)
 
         def round_fn(s, X, y, m):
             return boosting.run_stages(stages, s, X, y, m)
@@ -195,12 +237,12 @@ class Federation:
 
         def evaluate(s):
             nonlocal tally
-            tally = scoring.tally_new_votes(learner, spec, s.ensemble, tally, self.X_test)
+            tally = scoring.tally_new_votes(learner, spec, s.ensemble, tally, self.X_test,
+                                            committee=committee is not None)
             return f1_macro(self.y_test, scoring.tally_predict(tally), spec.n_classes)
 
-        return self._fused_loop(rounds, eval_every, state, round_fn, evaluate,
-                                self._fused_comm_model(state), publish_every, publish_dir,
-                                on_checkpoint)
+        return self._fused_loop(rounds, eval_every, state, round_fn, evaluate, per_round,
+                                publish_every, publish_dir, on_checkpoint)
 
 
 def history_summary(fed: Federation) -> Dict[str, Any]:

@@ -41,7 +41,7 @@ _SIGNATURES = {  # every extern "C" function of the sources: (restype, argtypes)
     "repro_tree_hist": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # L, B1, K, dblk, cs, threads, &clusters
     "repro_tree_hist_max_clusters": (_I, [_I, _I, _I, _I, _I, _I, _P]),
-    # preds, y, w, out, C, H, n, cs, threads, stream
+    # preds, y, w, out, C, H, n, cs, rows per CTA, stream
     "repro_weighted_errors": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # w, mis, mask, alpha, out, N, cs, threads, stream
     "repro_weight_update": (_I, [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P]),

@@ -1,9 +1,10 @@
 """The AdaBoost.F inner-loop kernels (paper steps 3-4):
 
 * ``weighted_errors`` — eps[c, h] = sum_n w[c, n] * 1[preds[c, h, n] != y[c, n]],
-  one launch over the round's whole ``[C, H, n]`` prediction tensor, a
-  thread-block cluster per collaborator reduced through distributed
-  shared memory;
+  one launch over the round's whole ``[C, H, n]`` prediction tensor (AdaBoost.F's
+  H = C rows, PreWeak.F's C*T): a warp per (row, sample slice), the rows
+  split over the grid and each row's slices over a thread-block cluster,
+  reduced through distributed shared memory;
 * ``weight_update`` — w * exp(alpha * mis) * mask, renormalised to sum 1
   (its total clamped at 1e-30), one thread-block cluster over the whole
   vector reduced through distributed shared memory, with ``alpha`` read
@@ -22,12 +23,14 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.tree_hist import SMS, blocks_per_sm
+from repro_torch.kernels.tree_hist import SMS
 
 UPDATE_CLUSTER = 16  # weight_update: CTAs of its one cluster (the non-portable size)
 UPDATE_REGISTERS = 8  # products a thread keeps in registers (csrc: UPDATE_REGS)
-ERRORS_CLUSTER = 8  # CTAs per collaborator, unless a wave cannot hold the grid
-MIN_THREADS, MAX_THREADS = 64, 1024  # per CTA, both kernels
+ERRORS_CLUSTER = 8  # weighted_errors: CTAs per cluster at most (the portable size)
+ERRORS_ROWS = 8  # rows per CTA, a warp each
+ERRORS_WARPS = SMS * 32  # the sample slices grow until the grid holds this many warps
+MIN_THREADS, MAX_THREADS = 64, 1024  # per CTA of weight_update
 
 
 def _cta_threads(n: int, cs: int) -> int:
@@ -37,20 +40,21 @@ def _cta_threads(n: int, cs: int) -> int:
 
 
 class ErrorsPlan(NamedTuple):
-    cs: int  # CTAs per cluster, splitting one collaborator's n samples
-    threads: int  # threads per CTA
+    cs: int  # CTAs per cluster, splitting each row's n samples into cs slices
+    rows: int  # rows per CTA, a warp each (32 * rows threads)
 
 
 def errors_plan(C: int, H: int, n: int) -> ErrorsPlan:
-    """One cluster per collaborator: the largest cluster (up to 8) whose
-    grid fits in one wave (every CTA resident at once), and enough threads
-    that each takes one sample of its CTA's range (whole warps, up to
-    1024).  The cluster does not shrink with n, so a CTA's range is empty
-    where n < cs."""
-    cs = ERRORS_CLUSTER
-    while cs > 1 and C * cs > SMS * blocks_per_sm(_cta_threads(n, cs), 0):
-        cs //= 2
-    return ErrorsPlan(cs, _cta_threads(n, cs))
+    """A warp per (row, sample slice), CTAs of 8 rows, and clusters that
+    split each row's samples into the fewest slices (1 to 8) that give the
+    grid 32 warps an SM, so that a warp reads as long a slice as the
+    card's occupancy allows: AdaBoost.F's 64 rows at adult take 8 slices a
+    row, PreWeak.F's 6 400 at T = 100 one.  Shared memory holds one float
+    a warp, so H has no cap."""
+    cs = 1
+    while cs < ERRORS_CLUSTER and C * H * cs < ERRORS_WARPS:
+        cs *= 2
+    return ErrorsPlan(cs, ERRORS_ROWS)
 
 
 class UpdatePlan(NamedTuple):
@@ -105,7 +109,7 @@ def weighted_errors(
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.repro_weighted_errors(
                 preds.data_ptr(), y.data_ptr(), w.data_ptr(), out.data_ptr(),
-                C, H, n, plan.cs, plan.threads, stream,
+                C, H, n, plan.cs, plan.rows, stream,
             )
         _build.check(rc, "weighted_errors")
         weighted_errors.launches += 1

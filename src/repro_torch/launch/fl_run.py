@@ -4,9 +4,11 @@
   PYTHONPATH=src python -m repro_torch.launch.fl_run --dataset adult \
       --collaborators 8 --rounds 10 --depth 4 --eval-every 5 --seed 0
 
-Runs AdaBoost.F over oblivious ``decision_tree`` learners on an IID split,
-on the card by default (``--device cpu`` runs the kernels' plain versions
-on the CPU).  Prints one ``round ... f1 ... alpha ...`` line per
+Runs AdaBoost.F (``--algorithm``: also ``distboost_f``, ``preweak_f`` and
+``bagging``) over oblivious ``decision_tree`` learners (``--learner
+extra_tree``: random split candidates) on an IID split, on the card by
+default (``--device cpu`` runs the kernels' plain versions on the CPU).
+``--seed`` seeds the data, the split and the run's random draws.  Prints one ``round ... f1 ... alpha ...`` line per
 evaluation and a ``total ...s  comm ... MB  final F1 ...`` summary.
 ``--publish-every K --publish-dir DIR`` writes a rolling serving
 artifact every K rounds (``serve/artifact.py``); ``--trace`` and
@@ -20,7 +22,7 @@ import time
 
 import torch
 
-from repro_torch.core.plan import adaboost_plan
+from repro_torch.core.plan import ALGORITHMS, UNPORTED, adaboost_plan, bagging_plan
 from repro_torch.data import PAPER_DATASETS, get_dataset
 from repro_torch.device import resolve_device
 from repro_torch.fl.federation import Federation, history_summary
@@ -29,27 +31,39 @@ from repro_torch.learners import LearnerSpec
 from repro_torch.obs import metrics as obs_metrics, trace
 
 
+LEARNERS = ("decision_tree", "extra_tree")
+# the JAX package's other learners, and the ROADMAP item that ports them
+UNPORTED_LEARNERS = {name: "ROADMAP Queue 1 item 8"
+                     for name in ("ridge", "gaussian_nb", "nearest_centroid", "mlp")}
+
+
 def default_hparams(depth: int = 4) -> dict:
     return {"depth": depth, "n_bins": 16}
 
 
 def build_federation(dataset: str, collaborators: int, rounds: int, depth: int,
-                     seed: int, device) -> Federation:
+                     seed: int, device, *, algorithm: str = "adaboost_f",
+                     learner: str = "decision_tree") -> Federation:
     """Data, IID split and ``Federation`` for one run; the data are drawn
-    on the CPU from ``seed`` and moved to ``device``."""
+    on the CPU from ``seed`` and moved to ``device``, and the run's own
+    draws come from a generator seeded with ``seed``."""
     device = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
     dspec, (Xtr, ytr, Xte, yte) = get_dataset(dataset, g)
     Xs, ys, masks = iid_partition(Xtr, ytr, collaborators, g)
-    lspec = LearnerSpec("decision_tree", dspec.n_features, dspec.n_classes,
-                        default_hparams(depth))
-    return Federation(adaboost_plan(rounds=rounds), Xs, ys, masks, Xte, yte, lspec,
-                      device=device)
+    lspec = LearnerSpec(learner, dspec.n_features, dspec.n_classes, default_hparams(depth))
+    plan = (bagging_plan(rounds=rounds) if algorithm == "bagging"
+            else adaboost_plan(rounds=rounds, algorithm=algorithm))
+    return Federation(plan, Xs, ys, masks, Xte, yte, lspec, device=device, seed=seed)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="repro_torch.launch.fl_run")
     ap.add_argument("--dataset", default="adult", choices=sorted(PAPER_DATASETS))
+    ap.add_argument("--algorithm", default="adaboost_f",
+                    help=f"one of {', '.join(ALGORITHMS)} (fedavg: {UNPORTED['fedavg']})")
+    ap.add_argument("--learner", default="decision_tree",
+                    help=f"one of {', '.join(LEARNERS)}")
     ap.add_argument("--collaborators", type=int, default=8)
     ap.add_argument("--rounds", type=int, default=100)
     ap.add_argument("--depth", type=int, default=4)
@@ -72,12 +86,20 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.publish_every is not None and not args.publish_dir:
         ap.error("--publish-every requires --publish-dir")
+    if args.algorithm not in ALGORITHMS:
+        ap.error(f"--algorithm {args.algorithm}: "
+                 + (f"not ported yet ({UNPORTED[args.algorithm]})" if args.algorithm in UNPORTED
+                    else f"choose from {', '.join(ALGORITHMS)}"))
+    if args.learner not in LEARNERS:
+        ap.error(f"--learner {args.learner}: "
+                 + (f"not ported yet ({UNPORTED_LEARNERS[args.learner]})"
+                    if args.learner in UNPORTED_LEARNERS else f"choose from {', '.join(LEARNERS)}"))
     device = resolve_device(args.device)
     if args.trace:
         trace.enable()
 
     fed = build_federation(args.dataset, args.collaborators, args.rounds, args.depth,
-                           args.seed, device)
+                           args.seed, device, algorithm=args.algorithm, learner=args.learner)
     t0 = time.perf_counter()
     history = fed.run(eval_every=args.eval_every, publish_every=args.publish_every,
                       publish_dir=args.publish_dir)

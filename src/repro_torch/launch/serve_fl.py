@@ -6,7 +6,9 @@ or the continuous train→publish→serve loop (answers to
   PYTHONPATH=src python -m repro_torch.launch.serve_fl --dataset pendigits \\
       --rounds 10 --artifact /tmp/pendigits.mafl
 
-  # serve an existing artifact (one the JAX package wrote serves too):
+  # serve an existing artifact (one the JAX package wrote serves too, and
+  # a DistBoost.F committee artifact that fl_run --algorithm distboost_f
+  # --publish-every published):
   PYTHONPATH=src python -m repro_torch.launch.serve_fl --dataset pendigits \\
       --artifact /tmp/pendigits.mafl --load
 
@@ -89,8 +91,9 @@ def _drive_engine(args, engine: ServeEngine, Xte: np.ndarray, min_seconds: float
     return (*passes(engine.submit, answers), None)
 
 
-def serve(args, learner, lspec, ensemble, Xte: np.ndarray, yte: np.ndarray) -> dict:
-    engine = ServeEngine(learner, lspec, ensemble, batch_size=args.batch)
+def serve(args, learner, lspec, ensemble, Xte: np.ndarray, yte: np.ndarray, *,
+          committee: bool = False) -> dict:
+    engine = ServeEngine(learner, lspec, ensemble, batch_size=args.batch, committee=committee)
     engine.warmup()  # the kernel library loaded before traffic arrives
 
     pred, served, dt, queue_wait = _drive_engine(args, engine, Xte, args.serve_seconds)
@@ -114,7 +117,7 @@ def serve(args, learner, lspec, ensemble, Xte: np.ndarray, yte: np.ndarray) -> d
     )
 
     # repeat traffic: the shard-resident vote cache answers from the tally
-    cache = ShardVoteCache(learner, lspec, ensemble)
+    cache = ShardVoteCache(learner, lspec, ensemble, committee=committee)
     cache.predict("test_split", Xte)  # first contact builds the tally
     repeats = max(args.cache_repeats, 1)
     t0 = time.perf_counter()
@@ -242,14 +245,15 @@ def main(argv=None) -> dict:
         if not args.artifact:
             ap.error("--load requires --artifact")
         art = load_artifact(args.artifact, device)
-        learner, lspec, ensemble = art.learner, art.spec, art.ensemble
+        learner, lspec, ensemble, committee = art.learner, art.spec, art.ensemble, art.committee
         print(f"loaded {args.artifact}: {art.manifest['learner']} x "
-              f"{art.manifest['ensemble_count']} members")
+              f"{art.manifest['ensemble_count']} members"
+              + (f", committees of {art.committee_size}" if committee else ""))
         # the served split: the dataset's test rows, drawn from --seed
         _, (_, _, X_test, y_test) = get_dataset(args.dataset, torch.Generator().manual_seed(args.seed))
     else:
         fed = train_ensemble(args, device)
-        learner, lspec, ensemble = fed.learner, fed.spec, fed.state.ensemble
+        learner, lspec, ensemble, committee = fed.learner, fed.spec, fed.state.ensemble, False
         X_test, y_test = fed.X_test, fed.y_test
     Xte, yte = X_test.cpu().numpy(), y_test.cpu().numpy()
     if not args.load and args.artifact:
@@ -264,7 +268,7 @@ def main(argv=None) -> dict:
             # calibrated for — reload and serve the reloaded ensemble
             ensemble = load_artifact(p, device).ensemble
 
-    out = serve(args, learner, lspec, ensemble, Xte, yte)
+    out = serve(args, learner, lspec, ensemble, Xte, yte, committee=committee)
     finish_obs(args)
     return out
 

@@ -1,5 +1,5 @@
 """Fixed-shape weak learners behind a string registry (``decision_tree``
-so far)."""
+and ``extra_tree`` so far)."""
 from repro_torch.learners import tree  # noqa: F401  (registration)
 from repro_torch.learners.base import (
     LearnerSpec,

@@ -15,11 +15,20 @@ the batch axis out:
 ``precompute(spec, X) -> cache``
     The X-only fit scaffold, computed once per shard (``X`` may carry a
     leading collaborator axis).
-``fit_batched(spec, X, y, w, cache) -> params``
+``fit_batched(spec, X, y, w, cache, *, generator=None) -> params``
     One tensor program fitting all C collaborators' hypotheses from
-    ``[C, ...]`` inputs; rows with ``w == 0`` are padding.
+    ``[C, ...]`` inputs; rows with ``w == 0`` are padding.  A randomised
+    learner draws each collaborator's random choices from ``generator``, an
+    explicit CPU ``torch.Generator`` (drawn on the host in a fixed order,
+    then moved to the device, so the card and the CPU draw the same numbers
+    and no draw waits for the card); its own keyword arguments take the
+    draws injected instead (``extra_tree``'s ``candidates``), which is how
+    the tests feed it the JAX package's draws.  Nothing is key-shaped: the
+    JAX package's per-collaborator keys have no counterpart.  A
+    deterministic learner (``decision_tree``) ignores the generator.
 
-``fit(spec, params, X, y, w)`` fits one hypothesis from ``[n, ...]`` inputs.
+``fit(spec, params, X, y, w, *, generator=None)`` fits one hypothesis
+from ``[n, ...]`` inputs.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Oblivious decision trees (answers to ``repro/learners/tree.py``,
-``decision_tree`` only).
+"""Oblivious decision trees (answers to ``repro/learners/tree.py``):
+``decision_tree`` and ``extra_tree``.
 
 An oblivious tree applies one (feature, threshold) test per level, shared
 by every node of the level, so a depth-``D`` tree has ``2**D`` leaves and
@@ -10,7 +10,10 @@ its fit is a fixed-shape tensor program.  The fit is staged:
              class] — one ``tree_hist`` launch for all C collaborators;
   select     split scores from a reverse cumulative sum over bins; the
              best candidate maximises sum_leaf sum_side sum_k c_k^2 / c_tot
-             (the same as minimising weighted Gini);
+             (the same as minimising weighted Gini).  ``extra_tree`` scores
+             only ``max_candidates`` (default 8) random candidates per
+             collaborator and level, drawn without replacement from the
+             d*B candidates (ExtraTrees-style);
   descend    every sample moves one level down;
   leaf       leaf log class distributions from a weighted segment sum.
 
@@ -18,6 +21,7 @@ Every stage takes the collaborator axis C as its leading dimension.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -61,11 +65,17 @@ def _split_scores(C: torch.Tensor) -> torch.Tensor:
     return torch.sum(purity(left) + purity(right), dim=-3)  # over leaves
 
 
-def _select_stage(C: torch.Tensor, edges: torch.Tensor, n_bins: int):
+def _select_stage(C: torch.Tensor, edges: torch.Tensor, n_bins: int,
+                  candidates: torch.Tensor | None = None):
     """Each collaborator's split: (f, b, threshold), each [C].
 
-    ``argmax`` returns the first maximum, as ``jnp.argmax`` does."""
+    ``candidates`` [C, d, B] bool restricts each collaborator to its random
+    candidates: the others score ``-inf``, as ``repro/learners/tree.py``
+    masks them.  ``argmax`` returns the first maximum, as ``jnp.argmax``
+    does."""
     scores = _split_scores(C)  # [C, d, B]
+    if candidates is not None:
+        scores = scores.masked_fill(~candidates, float("-inf"))
     flat = torch.argmax(scores.flatten(1), dim=1)  # [C]
     f, b = flat // n_bins, flat % n_bins
     thr = torch.gather(edges.flatten(1), 1, flat.unsqueeze(1)).squeeze(1)
@@ -96,27 +106,55 @@ def _leaf_stage(wy: torch.Tensor, leaf: torch.Tensor, depth: int) -> torch.Tenso
 # ---------------------------------------------------------------------------
 
 
+def draw_candidates(spec: LearnerSpec, C: int, d: int, generator: torch.Generator,
+                    device) -> torch.Tensor:
+    """``extra_tree``'s split candidates: [C, depth, d, B] bool, for each
+    collaborator and level ``max_candidates`` distinct entries of the d*B,
+    uniformly without replacement (the first ``max_candidates`` of a random
+    permutation).  Drawn on the host from ``generator`` in one call, then
+    moved to ``device``: the card and the CPU draw the same masks."""
+    depth, n_bins = spec.hp("depth", 4), spec.hp("n_bins", 16)
+    m = min(spec.hp("max_candidates", 8), d * n_bins)
+    keys = torch.rand(C, depth, d * n_bins, generator=generator)
+    picked = torch.argsort(keys, dim=-1)[..., :m]
+    mask = torch.zeros(C, depth, d * n_bins, dtype=torch.bool).scatter_(-1, picked, True)
+    return mask.view(C, depth, d, n_bins).to(device)
+
+
 def fit_tree_batched(
     spec: LearnerSpec,
     X: torch.Tensor,  # [C, n, d]
     y: torch.Tensor,  # [C, n]
     w: torch.Tensor,  # [C, n]
     cache: BinnedDataset | None = None,  # [C, ...]-batched
+    *,
+    generator: torch.Generator | None = None,
+    candidates: torch.Tensor | None = None,  # [C, depth, d, B] bool, injected
+    random_splits: bool = False,
 ) -> TreeParams:
     """Fit all C collaborators' trees as one tensor program: per level,
-    one ``tree_hist`` launch builds every collaborator's histogram."""
+    one ``tree_hist`` launch builds every collaborator's histogram.
+
+    ``random_splits`` (``extra_tree``) restricts each level's split to the
+    ``candidates`` given, or else to ones drawn from ``generator``
+    (:func:`draw_candidates`); without it the generator is not read."""
     depth = spec.hp("depth", 4)
     n_bins = spec.hp("n_bins", 16)
     if cache is None:
         cache = bin_dataset(X, n_bins)
     bin_idx, edges = cache.bin_idx, cache.edges  # [C, n, d], [C, d, B]
     wy = weighted_onehot(y, w, spec.n_classes)  # [C, n, K]
+    if random_splits and candidates is None:
+        if generator is None:
+            raise ValueError("extra_tree draws its split candidates: pass a generator or candidates")
+        candidates = draw_candidates(spec, y.shape[0], X.shape[-1], generator, y.device)
 
     leaf = torch.zeros(y.shape, dtype=torch.int32, device=y.device)
     feats, thrs = [], []
     for level in range(depth):
         hist = _histogram_stage(bin_idx, leaf, wy, 2**level, n_bins)  # [C, L, d, B+1, K]
-        f, b, thr = _select_stage(hist, edges, n_bins)
+        f, b, thr = _select_stage(hist, edges, n_bins,
+                                  None if candidates is None else candidates[:, level])
         feats.append(f)
         thrs.append(thr)
         leaf = _descend_stage(bin_idx, leaf, f, b)
@@ -128,13 +166,15 @@ def fit_tree_batched(
     )
 
 
-def fit_tree(spec, params, X, y, w, *, cache: BinnedDataset | None = None) -> TreeParams:
+def fit_tree(spec, params, X, y, w, *, cache: BinnedDataset | None = None,
+             generator: torch.Generator | None = None, random_splits: bool = False) -> TreeParams:
     """Fit one tree from [n, ...] inputs (trees fit from scratch: ``params``
     is ignored)."""
     del params
     if cache is not None:
         cache = BinnedDataset(cache.edges[None], cache.bin_idx[None])
-    out = fit_tree_batched(spec, X[None], y[None], w[None], cache)
+    out = fit_tree_batched(spec, X[None], y[None], w[None], cache, generator=generator,
+                           random_splits=random_splits)
     return TreeParams(*(t[0] for t in out))
 
 
@@ -174,5 +214,15 @@ decision_tree = register(
     WeakLearner(
         "decision_tree", init_tree, fit_tree, tree_predict_logits,
         precompute=tree_precompute, fit_batched=fit_tree_batched,
+    )
+)
+
+# the same tree, its split scored over random candidates only; prediction
+# is decision_tree's
+extra_tree = register(
+    WeakLearner(
+        "extra_tree", init_tree, functools.partial(fit_tree, random_splits=True),
+        tree_predict_logits, precompute=tree_precompute,
+        fit_batched=functools.partial(fit_tree_batched, random_splits=True),
     )
 )

@@ -11,14 +11,17 @@ writes, with ``count`` as a 0-dim int32 — so the port and the JAX package
 write the same bytes for the same ensemble and read each other's files.
 The manifest names the learner (registry key), the learning problem
 (n_features/n_classes/hparams) and the ensemble geometry (capacity T,
-used count), which is exactly enough to rebuild the structure via
-``init_ensemble`` and pour the payload back into it.
+used count, committee size), which is exactly enough to rebuild the
+structure via ``init_ensemble`` and pour the payload back into it.  A
+DistBoost.F ensemble stores a committee of C hypotheses per slot
+(``committee_size`` C, slots ``[T, C, ...]``); it votes within each slot
+first (``core/scoring.member_prediction(committee=True)``).
 
 Quantized artifacts (format v3) encode each leaf with its own codec
 (``core/serialization.py``) and record the per-leaf plans in the
 manifest.  Not ported: heterogeneous (v2) artifacts (ROADMAP Queue 1
-item 10) and committee (DistBoost.F) artifacts (item 7); ``load_artifact``
-rejects both with a ``ValueError`` naming the item.
+item 10); ``load_artifact`` rejects them with a ``ValueError`` naming the
+item.
 
 A still-training federation publishes a ROLLING artifact stream with
 ``publish_artifact``: each checkpoint is a fresh versioned file plus an
@@ -76,7 +79,12 @@ class LoadedArtifact(NamedTuple):
     learner: WeakLearner
     spec: LearnerSpec
     ensemble: Ensemble  # on the device load_artifact was given
+    committee_size: int | None  # DistBoost.F stores a committee per slot
     manifest: dict
+
+    @property
+    def committee(self) -> bool:
+        return self.committee_size is not None
 
 
 def ensemble_signature(ensemble: Ensemble) -> tuple:
@@ -100,12 +108,13 @@ def _require_learner(name: str, context: str) -> WeakLearner:
         ) from None
 
 
-def _ensemble_template(spec: LearnerSpec, T: int, *, context: str = "artifact") -> Ensemble:
+def _ensemble_template(spec: LearnerSpec, T: int, committee_size: int | None = None, *,
+                       context: str = "artifact") -> Ensemble:
     """The structure an artifact's payload pours back into.
     ``init_ensemble`` is shape-deterministic, so saver and loader derive
     the same leaf shapes from the manifest alone."""
     learner = _require_learner(spec.name, context)
-    return boosting.init_ensemble(learner, spec, T, "cpu")
+    return boosting.init_ensemble(learner, spec, T, "cpu", committee_size=committee_size)
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +162,8 @@ def _quantize_roundtrip(ensemble: Ensemble, plans: list) -> Ensemble:
     return boosting.ensemble_to(unflatten(structure, out), ensemble.alpha.device)
 
 
-def _calibrate_plans(spec: LearnerSpec, ensemble: Ensemble, plans: list, calibrate) -> list:
+def _calibrate_plans(spec: LearnerSpec, ensemble: Ensemble, plans: list, calibrate,
+                     committee: bool) -> list:
     """Greedy vote-preserving promotion: serve the quantized ensemble on
     the calibration rows and, while any vote differs from the f32
     ensemble's, promote the member slot whose raw restoration fixes the
@@ -165,9 +175,10 @@ def _calibrate_plans(spec: LearnerSpec, ensemble: Ensemble, plans: list, calibra
     def flips(ens) -> int:
         # calibration is offline; each trial's flip count gates the next
         # greedy step, so the sync is inherent
-        return int((boosting.strong_predict(learner, spec, ens, X) != want).sum())  # mafl: allow[host-sync]
+        return int((boosting.strong_predict(learner, spec, ens, X, committee=committee)  # mafl: allow[host-sync]
+                    != want).sum())
 
-    want = boosting.strong_predict(learner, spec, ensemble, X)
+    want = boosting.strong_predict(learner, spec, ensemble, X, committee=committee)
     n_flips = flips(_quantize_roundtrip(ensemble, plans))
     if n_flips == 0:
         return plans
@@ -218,13 +229,14 @@ def _demote_uneconomic(ensemble: Ensemble, plans: list) -> list:
     return out
 
 
-def _maybe_quantize(spec: LearnerSpec, ensemble: Ensemble, quantize: Optional[str], calibrate):
+def _maybe_quantize(spec: LearnerSpec, ensemble: Ensemble, quantize: Optional[str], calibrate,
+                    committee: bool):
     """Returns (payload, leaf_codecs) — leaf_codecs is None unquantized."""
     if quantize is None:
         return serialize(ensemble, packed=True)[0], None
     plans = _plan_ensemble(ensemble, quantize)
     if calibrate is not None:
-        plans = _calibrate_plans(spec, ensemble, plans, calibrate)
+        plans = _calibrate_plans(spec, ensemble, plans, calibrate, committee)
     plans = _demote_uneconomic(ensemble, plans)
     leaves = flatten(ensemble)[0]
     return b"".join(encode_leaf(l, p) for l, p in zip(leaves, plans)), plans
@@ -235,11 +247,13 @@ def save_artifact(
     spec: LearnerSpec,
     ensemble: Ensemble,
     *,
+    committee_size: int | None = None,
     extra: dict | None = None,
     quantize: str | None = None,
     calibrate: Any = None,
 ) -> Path:
-    """Write a single-file serving artifact; returns the path.
+    """Write a single-file serving artifact; returns the path.  A DistBoost.F
+    ensemble passes its ``committee_size`` (slots ``[T, C, ...]``).
 
     ``quantize`` ("bf16" or "int8") writes a v3 artifact whose payload
     leaves are individually encoded.  With ``calibrate`` (an [n, d] row
@@ -247,13 +261,14 @@ def save_artifact(
     the f32 ensemble's on those rows and stores raw any member slot whose
     votes quantization would flip."""
     path = Path(path)
-    template = _ensemble_template(spec, ensemble.alpha.shape[0])
+    template = _ensemble_template(spec, ensemble.alpha.shape[0], committee_size)
     got, want = ensemble_signature(ensemble), ensemble_signature(template)
     if got != want:
         raise ValueError(
             f"ensemble does not match the {spec.name!r} template: {got} != {want}"
         )
-    payload, plans = _maybe_quantize(spec, ensemble, quantize, calibrate)
+    payload, plans = _maybe_quantize(spec, ensemble, quantize, calibrate,
+                                     committee_size is not None)
     manifest = {
         "format_version": HOMOGENEOUS_VERSION if plans is None else QUANTIZED_VERSION,
         "learner": spec.name,
@@ -262,7 +277,7 @@ def save_artifact(
         "hparams": dict(spec.hparams),
         "ensemble_capacity": int(ensemble.alpha.shape[0]),
         "ensemble_count": int(ensemble.count),
-        "committee_size": None,
+        "committee_size": committee_size,
         "payload_bytes": len(payload),
         "payload_crc32": zlib.crc32(payload),
     }
@@ -363,23 +378,20 @@ def load_artifact(path: str | Path, device: str | torch.device = "cuda") -> Load
             f"{path}: heterogeneous (format v2) artifacts are not ported yet "
             "(ROADMAP Queue 1 item 10)"
         )
-    if manifest["committee_size"] is not None:
-        raise ValueError(
-            f"{path}: committee (DistBoost.F) artifacts are not ported yet "
-            "(ROADMAP Queue 1 item 7)"
-        )
     spec = LearnerSpec(
         manifest["learner"],
         manifest["n_features"],
         manifest["n_classes"],
         dict(manifest["hparams"]),
     )
-    template = _ensemble_template(spec, manifest["ensemble_capacity"], context=str(path))
+    template = _ensemble_template(spec, manifest["ensemble_capacity"],
+                                  manifest["committee_size"], context=str(path))
     ensemble = _decode_payload(payload, template, manifest, path)
     return LoadedArtifact(
         learner=get_learner(spec.name),
         spec=spec,
         ensemble=boosting.ensemble_to(ensemble, dev),
+        committee_size=manifest["committee_size"],
         manifest=manifest,
     )
 
@@ -397,6 +409,7 @@ def publish_artifact(
     ensemble: Ensemble,
     *,
     version: int,
+    committee_size: int | None = None,
     extra: dict | None = None,
 ) -> Path:
     """One checkpoint of a still-training federation: write a fresh
@@ -408,7 +421,7 @@ def publish_artifact(
     publish_dir = Path(publish_dir)
     path = publish_dir / f"ensemble_v{version:06d}.mafl"
     save_artifact(
-        path, spec, ensemble,
+        path, spec, ensemble, committee_size=committee_size,
         extra={"publish_version": int(version), **(extra or {})},
     )
     tmp = publish_dir / (LATEST + ".tmp")

@@ -1,5 +1,6 @@
 """Shard-resident incremental vote cache (answers to
-``repro/serve/cache.py``, homogeneous ensembles).
+``repro/serve/cache.py``, homogeneous ensembles, DistBoost.F committees
+included).
 
 ``ShardVoteCache`` extends ``core/scoring.VoteTally`` into serving: a
 registered shard keeps its ``[n, K]`` alpha-weighted vote tally resident
@@ -67,9 +68,11 @@ def _alpha_prefix_crc(ensemble: Ensemble, count: int) -> int:
 
 
 class ShardVoteCache:
-    def __init__(self, learner: WeakLearner, spec: LearnerSpec, ensemble: Ensemble):
+    def __init__(self, learner: WeakLearner, spec: LearnerSpec, ensemble: Ensemble, *,
+                 committee: bool = False):
         self.learner = learner
         self.spec = spec
+        self.committee = committee
         self.ensemble = ensemble
         self.device = ensemble.alpha.device
         self._alpha_crc = _alpha_prefix_crc(ensemble, ensemble.count)
@@ -83,7 +86,7 @@ class ShardVoteCache:
     @classmethod
     def from_artifact(cls, art) -> "ShardVoteCache":
         """The cache counterpart of ``ServeEngine.from_artifact``."""
-        return cls(art.learner, art.spec, art.ensemble)
+        return cls(art.learner, art.spec, art.ensemble, committee=art.committee)
 
     def register(self, key: Hashable, X) -> None:
         """Pin a shard resident with an empty tally (no predicts yet)."""
@@ -123,7 +126,8 @@ class ShardVoteCache:
                 _M_PARTIAL.inc()
             with trace.span("vote_cache.refresh", new_members=new):
                 shard.tally = scoring.tally_new_votes(
-                    self.learner, self.spec, self.ensemble, shard.tally, shard.X
+                    self.learner, self.spec, self.ensemble, shard.tally, shard.X,
+                    committee=self.committee,
                 )
             self.members_folded += new
             _M_FOLDED.inc(new)

@@ -6,7 +6,8 @@ rows into static ``[B, d]`` batches (padding the ragged tail) and runs
 one ensemble predict per batch on the ensemble's device:
 
   * one ``member_prediction`` over the stacked ``[T, ...]`` slot params
-    gives every member's vote, ``[T, B]``;
+    gives every member's vote, ``[T, B]`` (a DistBoost.F committee slot
+    ``[T, C, ...]`` folds its C votes into the member's first);
   * ``used = (arange(T) < count) * alpha`` weighs them (computed once per
     published ensemble, not per batch);
   * one ``ops.vote_argmax`` reduces them: the hand-written kernel on the
@@ -30,8 +31,8 @@ leaf's shape/dtype): an ensemble of another learner or spec that merely
 matches ``alpha``'s capacity must not be served.
 
 Not ported: the process-wide compile cache (its counterpart here would be
-a CUDA graph per batch size), the mesh backend, heterogeneous engines and
-committees.  There is no kernel switch: ``ops`` dispatches on the
+a CUDA graph per batch size), the mesh backend and heterogeneous
+engines.  There is no kernel switch: ``ops`` dispatches on the
 tensors' device.
 """
 from __future__ import annotations
@@ -105,12 +106,15 @@ class ServeEngine:
         ensemble: Ensemble,
         *,
         batch_size: int = 256,
+        committee: bool = False,
     ):
-        """Serve ``ensemble`` on the device its tensors lie on."""
+        """Serve ``ensemble`` on the device its tensors lie on; ``committee``
+        for a DistBoost.F ensemble."""
         if batch_size < 1:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
         self.learner = learner
         self.spec = spec
+        self.committee = committee
         self.batch_size = int(batch_size)
         self.device = ensemble.alpha.device
         # ONE publication point for everything a hot swap changes: readers
@@ -132,7 +136,8 @@ class ServeEngine:
         batch_size: int = 256,
     ) -> "ServeEngine":
         """An engine for a loaded artifact, on the device it was loaded to."""
-        return cls(art.learner, art.spec, art.ensemble, batch_size=batch_size)
+        return cls(art.learner, art.spec, art.ensemble, batch_size=batch_size,
+                   committee=art.committee)
 
     @property
     def ensemble(self) -> Ensemble:
@@ -140,7 +145,8 @@ class ServeEngine:
 
     def _predict(self, ensemble: Ensemble, used: torch.Tensor, Xb: torch.Tensor) -> torch.Tensor:
         """[B, d] rows -> [B] int32 classes, on the device."""
-        preds = scoring.member_prediction(self.learner, self.spec, ensemble.params, Xb)  # [T, B]
+        preds = scoring.member_prediction(self.learner, self.spec, ensemble.params, Xb,
+                                          committee=self.committee)  # [T, B]
         return ops.vote_argmax(preds, used, n_classes=self.spec.n_classes)
 
     def warmup(self) -> None:

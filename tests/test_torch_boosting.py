@@ -155,5 +155,20 @@ def test_strong_predict_matches_tally():
 
 
 def test_federation_rejects_unported_algorithm():
-    with pytest.raises(ValueError, match="not ported"):
-        adaboost_plan(algorithm="distboost_f")
+    """FedAvg is the one algorithm the port still refuses, naming the
+    ROADMAP item that brings it (DistBoost.F, refused here until item 7,
+    now runs: tests/test_torch_algorithms.py)."""
+    with pytest.raises(ValueError, match=r"not ported yet \(ROADMAP Queue 1 item 11\)"):
+        adaboost_plan(algorithm="fedavg")
+    Xs, ys, masks, Xte, yte, K = _shards(seed=3)
+    with pytest.raises(ValueError, match="item 11"):
+        Federation(_unvalidated_fedavg_plan(), Xs, ys, masks, Xte, yte,
+                   LearnerSpec("decision_tree", Xs.shape[2], K, HP), device="cpu")
+
+
+def _unvalidated_fedavg_plan():
+    """A plan naming fedavg, built without validation (as a YAML plan
+    would arrive): the federation validates it on entry."""
+    from repro_torch.core.plan import Plan
+
+    return Plan(rounds=2, algorithm="fedavg")

@@ -114,6 +114,31 @@ def test_weighted_errors_kernel_writes_every_element_the_same_bits_twice(dev, C,
     assert float(got[0].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("C,H,n", [
+    (8, 8, 4070), (8, 80, 4070), (8, 800, 4070), (64, 6400, 509),  # AdaBoost.F's and PreWeak.F's
+    (4, 12800, 2000),  # past the 11 776 rows a per-row shared-memory total could hold
+    (2, 17, 1), (3, 33, 7), (5, 41, 1001),  # empty slices, a ragged last chunk, odd n
+])
+def test_weighted_errors_kernel_at_preweak_shapes(dev, C, H, n):
+    """PreWeak.F's C*T rows: each shape against the plain version (rtol
+    1e-4), its output on a NaN-filled block, the same bits from two calls,
+    exactly 0 on a zero-weight shard and one launch a call."""
+    g = torch.Generator().manual_seed(H)
+    preds = torch.randint(0, 3, (C, H, n), generator=g, dtype=torch.int32).to(dev)
+    y = torch.randint(0, 3, (C, n), generator=g, dtype=torch.int32).to(dev)
+    w = torch.rand(C, n, generator=g)
+    w[0] = 0.0
+    w = (w / w.sum().clamp_min(1e-30)).to(dev)
+    before = ops.launch_counts()["weighted_errors"]
+    got = _poisoned(dev, (C, H), lambda: ops.weighted_errors(preds, y, w))
+    again = ops.weighted_errors(preds, y, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["weighted_errors"] == before + 2
+    torch.testing.assert_close(got, ref.weighted_errors_ref(preds, y, w), rtol=1e-4, atol=0)
+    assert torch.equal(got, again)
+    assert float(got[0].abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_tree_hist_kernel_skewed_weights_pick_the_same_split(dev, seed):
     """AdaBoost's skewed weights (log-normal, sigma 4, summing to 1) at
@@ -232,6 +257,36 @@ def test_federation_on_the_card_goes_through_the_kernels(dev):
                                    "vote_argmax": 0, "flash_attention": 0}
     assert ref.device_calls == calls
     assert 0.0 < hist[-1]["f1"] <= 1.0
+
+
+@pytest.mark.parametrize("algorithm,learner,want", [
+    ("distboost_f", "decision_tree", {"tree_hist": 12, "weighted_errors": 0, "weight_update": 3}),
+    ("preweak_f", "decision_tree", {"tree_hist": 12, "weighted_errors": 3, "weight_update": 3}),
+    ("bagging", "decision_tree", {"tree_hist": 12, "weighted_errors": 0, "weight_update": 0}),
+    ("adaboost_f", "extra_tree", {"tree_hist": 12, "weighted_errors": 3, "weight_update": 3}),
+])
+def test_new_federations_on_the_card_go_through_the_kernels(dev, algorithm, learner, want):
+    """DistBoost.F, PreWeak.F (its T local rounds at set-up), bagging and
+    extra_tree: each level one tree_hist, PreWeak.F's rounds one
+    weighted_errors over the C*T cache, no plain version on the card, and
+    the card's round-0 choice, epsilon and F1 are the CPU's (the same draws)."""
+    from repro_torch.launch import fl_run
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        ops.reset_launches()
+        calls = dict(ref.device_calls)
+        fed = fl_run.build_federation("vehicle", 4, 3, 4, 0, device, algorithm=algorithm,
+                                      learner=learner)
+        hist = fed.run(eval_every=3)
+        if device == "cuda":
+            assert ops.launch_counts() == {**want, "vote_argmax": 0, "flash_attention": 0}
+            assert ref.device_calls == calls
+        runs[device] = (fed.per_round()[0], hist[-1]["f1"])
+    (card, f1_card), (cpu, f1_cpu) = runs["cuda"], runs["cpu"]
+    assert card["chosen"] == cpu["chosen"]
+    assert abs(card["epsilon"] - cpu["epsilon"]) <= 1e-4 * abs(cpu["epsilon"])
+    assert 0.0 < f1_card <= 1.0 and abs(f1_card - f1_cpu) <= 0.02
 
 
 @pytest.mark.parametrize("T,n,K", [(10, 256, 10), (100, 256, 26), (100, 4096, 26),

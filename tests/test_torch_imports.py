@@ -61,6 +61,16 @@ def test_fl_run_defaults_to_cuda_and_raises_without_a_card():
         fl_run.main(["--dataset", "vehicle", "--rounds", "1"])
 
 
+@pytest.mark.parametrize("argv", [["--algorithm", "distboost_f"], ["--algorithm", "preweak_f"],
+                                  ["--algorithm", "bagging"], ["--learner", "extra_tree"]])
+def test_fl_run_new_paths_default_to_cuda_and_raise_without_a_card(argv):
+    _no_card()
+    from repro_torch.launch import fl_run
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        fl_run.main(["--dataset", "vehicle", "--rounds", "1", *argv])
+
+
 def test_federation_defaults_to_cuda_and_raises_without_a_card():
     _no_card()
     from repro_torch.core.plan import adaboost_plan

@@ -273,15 +273,37 @@ def test_weight_update_plan(N, threads, per_thread):
     (4, 33, 4097), (8, 8, 1), (8, 8, 5), (3, 8, 1001), (2, 3, 100), (300, 8, 4070), (8, 8, 100000),
 ])
 def test_weighted_errors_plan_fits_the_card(C, H, n):
-    """One cluster of 1, 2, 4 or 8 CTAs per collaborator, sample ranges
-    that tile [0, n) (empty CTAs only where n < cs), whole warps with one
-    sample a thread up to 1024 threads, and at most one wave."""
+    """A cluster of 1, 2, 4 or 8 CTAs per chunk of 8 rows, a warp a row,
+    sample slices that tile [0, n) (empty slices only where n < cs), and
+    the fewest slices that give the grid 32 warps an SM."""
     plan = errors_plan(C, H, n)
     assert plan.cs in (1, 2, 4, 8)
     _assert_ranges_tile(n, plan.cs)
-    assert plan.threads % 32 == 0 and 64 <= plan.threads <= 1024
-    assert plan.threads * plan.cs >= n or plan.threads == 1024
-    assert C * plan.cs <= SMS * blocks_per_sm(plan.threads, 0) or plan.cs == 1
+    assert plan.rows == 8  # a warp a row: 256 threads
+    assert C * H * plan.cs >= SMS * 32 or plan.cs == 8
+    assert plan.cs == 1 or C * H * (plan.cs // 2) < SMS * 32
+
+
+@pytest.mark.parametrize("C,H,n", [
+    (8, 8, 4070),  # AdaBoost.F, adult
+    (8, 80, 4070), (8, 800, 4070),  # PreWeak.F, adult, T = 10 and 100
+    (64, 6400, 509),  # adult over 64 collaborators, T = 100
+    (4, 12800, 2000), (1, 20000, 64),  # past 11 776 rows
+])
+def test_weighted_errors_plan_fills_a_wave_and_fits_its_shared_memory(C, H, n):
+    """The grid covers every row and has a CTA for every SM wherever the
+    rows allow it (AdaBoost.F's 64 rows at adult take the most slices, 8 a
+    row, in 64 CTAs; smaller CTAs measured slower there); shared memory is
+    one float a warp, whatever H."""
+    plan = errors_plan(C, H, n)
+    grid = (plan.cs, -(-H // plan.rows), C)  # csrc: the launch's gridDim; every row covered
+    ctas = plan.cs * grid[1] * C
+    assert ctas >= SMS or plan.cs == 8
+    if H >= 800:
+        assert ctas >= SMS
+    assert grid[1] <= 65535 and C <= 65535  # the grid's y and z limits
+    shared = 4 * plan.rows  # one float a warp, whatever H: no cap on H
+    assert shared * blocks_per_sm(32 * plan.rows, 0) <= 227 * 1024
 
 
 # -- dispatch ----------------------------------------------------------------------

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import boosting as jboost
 from repro.core.hetero import HeterogeneousSpec, init_hetero_ensemble
@@ -46,16 +47,18 @@ HP = {"depth": DEPTH, "n_bins": 16}
 B = 32
 
 
-def random_ensemble_arrays(seed=0, T=6, count=4, depth=3, d=5, K=4):
+def random_ensemble_arrays(seed=0, T=6, count=4, depth=3, d=5, K=4, committee=None):
     """Numpy random trees: ``feature`` in [0, d), Gaussian thresholds and
-    leaf logits, alpha on the used slots, zeros beyond ``count``."""
+    leaf logits, alpha on the used slots, zeros beyond ``count``; with
+    ``committee`` C, each slot is a DistBoost.F committee of C trees."""
     rng = np.random.default_rng(seed)
-    live = (np.arange(T) < count)
+    lead = (T,) if committee is None else (T, committee)
+    live = (np.arange(T) < count).reshape((T,) + (1,) * (len(lead) - 1))
     return {
-        "feature": (rng.integers(0, d, size=(T, depth)) * live[:, None]).astype(np.int32),
-        "threshold": (rng.normal(size=(T, depth)) * live[:, None]).astype(np.float32),
-        "leaf_logits": (rng.normal(size=(T, 2**depth, K)) * live[:, None, None]).astype(np.float32),
-        "alpha": (rng.uniform(0.2, 2.0, size=T) * live).astype(np.float32),
+        "feature": (rng.integers(0, d, size=lead + (depth,)) * live[..., None]).astype(np.int32),
+        "threshold": (rng.normal(size=lead + (depth,)) * live[..., None]).astype(np.float32),
+        "leaf_logits": (rng.normal(size=lead + (2**depth, K)) * live[..., None, None]).astype(np.float32),
+        "alpha": (rng.uniform(0.2, 2.0, size=T) * (np.arange(T) < count)).astype(np.float32),
         "count": np.asarray(count, np.int32),
     }
 
@@ -127,6 +130,45 @@ def test_port_artifact_is_byte_identical_and_serves_in_jax(model, tmp_path, quan
     np.testing.assert_array_equal(got, _port_engine(load_artifact(p, "cpu")).predict(model["X"]))
 
 
+@pytest.mark.parametrize("quantize,calibrate", QUANT, ids=["v1", "int8", "bf16"])
+def test_committee_artifacts_are_byte_identical_both_ways(model, tmp_path, quantize, calibrate):
+    """DistBoost.F committee artifacts (slots of C = 3 trees) in v1 and v3:
+    the port writes the JAX package's bytes; each package loads the other's
+    file, and the port's engine and vote cache answer what the JAX engine
+    and ``strong_predict(committee=True)`` answer."""
+    a = random_ensemble_arrays(12, T=T, count=COUNT, depth=DEPTH, d=D, K=K, committee=3)
+    cal = model["X"] if calibrate else None
+    ens = convert.ensemble_from_numpy(a, device="cpu")
+    p = save_artifact(tmp_path / "t.mafl", model["spec"], ens, committee_size=3,
+                      extra={"dataset": "test"}, quantize=quantize, calibrate=cal)
+    j = jax_save(tmp_path / "j.mafl", model["jspec"], jax_ensemble(a), committee_size=3,
+                 extra={"dataset": "test"}, quantize=quantize, calibrate=cal)
+    assert p.read_bytes() == j.read_bytes()
+    jart, art = jax_load(p), load_artifact(j, "cpu")
+    assert jart.committee_size == art.committee_size == 3 and art.manifest == jart.manifest
+    want = np.asarray(JaxEngine.from_artifact(jart, batch_size=B).predict(model["X"]))
+    if quantize is None:
+        np.testing.assert_array_equal(want, np.asarray(jboost.strong_predict(
+            jax_learner("decision_tree"), model["jspec"], jax_ensemble(a), jnp.asarray(model["X"]),
+            committee=True)))
+    np.testing.assert_array_equal(_port_engine(art).predict(model["X"]), want)
+    np.testing.assert_array_equal(ShardVoteCache.from_artifact(art).predict("s", model["X"]), want)
+    from repro_torch.core import boosting as tboost
+
+    np.testing.assert_array_equal(
+        tboost.strong_predict(art.learner, art.spec, art.ensemble, torch.from_numpy(model["X"]),
+                              committee=True).numpy(), want)
+
+
+def test_committee_save_checks_the_committee_size(model, tmp_path):
+    a = random_ensemble_arrays(13, T=T, count=COUNT, depth=DEPTH, d=D, K=K, committee=3)
+    with pytest.raises(ValueError, match="template"):
+        save_artifact(tmp_path / "x.mafl", model["spec"], convert.ensemble_from_numpy(a, device="cpu"),
+                      committee_size=2)
+    with pytest.raises(ValueError, match="template"):
+        save_artifact(tmp_path / "y.mafl", model["spec"], convert.ensemble_from_numpy(a, device="cpu"))
+
+
 def test_port_calibration_promotes_the_same_slots_as_jax(model, tmp_path):
     """bf16 leaf logits can flip near-tied leaves: the calibration falls
     back to the same plans on both sides."""
@@ -183,20 +225,26 @@ def test_artifact_errors_match_jax(model, tmp_path, how):
 
 
 @pytest.mark.parametrize("flavour", ["heterogeneous", "committee"])
-def test_artifact_rejects_unported_flavours_naming_the_item(tmp_path, flavour):
+def test_artifact_rejects_unported_flavours_naming_the_item(model, tmp_path, flavour):
+    """Heterogeneous (v2) artifacts are still refused, naming their item;
+    committee (DistBoost.F) artifacts, refused until item 7 came, now load
+    and predict what the JAX package's ``strong_predict(committee=True)``
+    predicts."""
     key = jax.random.PRNGKey(0)
     if flavour == "heterogeneous":
         hspec = HeterogeneousSpec.cycle(["decision_tree", "ridge"], 2, D, K,
                                         hparams={"decision_tree": HP, "ridge": {}})
         path = jax_save(tmp_path / "h.mafl", hspec, init_hetero_ensemble(hspec, 3, key))
-        item = "item 10"
-    else:
-        jspec = JaxSpec("decision_tree", D, K, HP)
-        ens = jboost.init_ensemble(jax_learner("decision_tree"), jspec, 3, key, committee_size=2)
-        path = jax_save(tmp_path / "c.mafl", jspec, ens, committee_size=2)
-        item = "item 7"
-    with pytest.raises(ValueError, match=item):
-        load_artifact(path, "cpu")
+        with pytest.raises(ValueError, match="item 10"):
+            load_artifact(path, "cpu")
+        return
+    a = random_ensemble_arrays(11, T=T, count=COUNT, depth=DEPTH, d=D, K=K, committee=3)
+    path = jax_save(tmp_path / "c.mafl", model["jspec"], jax_ensemble(a), committee_size=3)
+    art = load_artifact(path, "cpu")
+    assert art.committee and art.committee_size == 3
+    want = np.asarray(jboost.strong_predict(jax_learner("decision_tree"), model["jspec"],
+                                            jax_ensemble(a), jnp.asarray(model["X"]), committee=True))
+    np.testing.assert_array_equal(_port_engine(art).predict(model["X"]), want)
 
 
 def test_save_artifact_rejects_a_foreign_structure(model, tmp_path):
@@ -340,6 +388,30 @@ def test_federation_publishes_a_stream_jax_reads(model, tmp_path):
     h = jax_wire_size(jtemplate.params) // 5
     per_round = C * h + C * h * (C - 1) + (h + 8) * C
     assert fed.comm_bytes == 5 * per_round and hist[-1]["comm_bytes"] == 5 * per_round
+
+
+def test_distboost_publishes_committee_artifacts_that_serve_fl_serves(tmp_path):
+    """``fl_run --algorithm distboost_f --publish-every`` writes committee
+    artifacts (``committee_size`` C) that the JAX package reads and serves
+    as the port does, and ``serve_fl --artifact ... --load`` serves them:
+    the engine, the vote cache and the federation's own last F1 agree."""
+    from repro_torch.data import get_dataset
+    from repro_torch.launch import fl_run, serve_fl
+
+    pub = tmp_path / "pub"
+    hist = fl_run.main(["--dataset", "vehicle", "--collaborators", "3", "--rounds", "4",
+                        "--eval-every", "4", "--depth", "3", "--algorithm", "distboost_f",
+                        "--publish-every", "4", "--publish-dir", str(pub), "--device", "cpu"])
+    path = latest_artifact(pub)
+    jart = jax_load(path)
+    assert jart.committee_size == 3 and jart.manifest["algorithm"] == "distboost_f"
+    assert tuple(jart.ensemble.params.feature.shape) == (4, 3, 3)
+    out = serve_fl.main(["--dataset", "vehicle", "--artifact", str(path), "--load", "--batch", "64",
+                         "--cache-repeats", "2", "--device", "cpu"])
+    _, (_, _, X_test, _) = get_dataset("vehicle", torch.Generator().manual_seed(0))
+    want = np.asarray(JaxEngine.from_artifact(jart, batch_size=64).predict(X_test.numpy()))
+    np.testing.assert_array_equal(out["pred"], want)
+    assert out["f1"] == hist[-1]["f1"]
 
 
 def test_publish_every_needs_a_directory(model):
