@@ -28,7 +28,13 @@ Phases, each of which raises (non-zero exit) on failure:
    the launch floor (a 1-element ``fill_`` replayed the same way), and the
    kernel wrapper's eager time per call; ``weighted_errors`` also at
    PreWeak.F's C*T rows (adult, T = 10 and 100) and past the 11 776 rows
-   a per-row shared-memory total could hold;
+   a per-row shared-memory total could hold; and phase 10's new shapes:
+   ``weight_update`` under adult's Dirichlet mask (``[8, n_max]``, most of
+   each row's tail 0: the same bits twice, the padding exactly 0 after
+   the renormalisation), ``weighted_errors`` at ``[8, 8, n_max]`` with
+   zero-weight tails, ``vote_argmax`` at the heterogeneous engine's
+   ``[30, 256]`` (pendigits, 3 groups of T = 10, K = 10) equal to a
+   member-by-member ``VoteTally``;
 4. run the port's federation through ``repro_torch.launch.fl_run`` on the
    card — adult 10 rounds with the default flags (the main path, with every
    kernel's launch count set to 0 just before), letter and forestcover 5
@@ -69,9 +75,26 @@ Phases, each of which raises (non-zero exit) on failure:
    artifact from a pendigits run and serve it through ``serve_fl
    --artifact ... --load`` (one ``vote_argmax`` launch a batch and a
    warm-up, the vote cache answering what the engine answers, the card's
-   votes the CPU's outside the near-tie gap).
+   votes the CPU's outside the near-tie gap);
+10. run the other learners, the Dirichlet split and heterogeneous
+   federations through ``repro_torch.launch.fl_run`` on the card (adult,
+   C = 8, depth 4, 16 bins, 10 rounds, seed 0; every launch count set to
+   0 just before each run): ``--learner ridge``, ``gaussian_nb``,
+   ``nearest_centroid`` and ``mlp``; ``--split dirichlet``; ``--learners``
+   over all six families with ``--split dirichlet``; ``--learners
+   decision_tree,ridge,gaussian_nb`` under DistBoost.F, PreWeak.F and
+   bagging — checking each run's launch counts, that no plain version ran
+   on the card, and, against the same run on the CPU, round 0's member,
+   the agreeing rounds and F1 within 0.02; ms/round of each and the host
+   operations of a mixed adult round (its one winner read included); then
+   serve: ``serve_fl --learners decision_tree,ridge,gaussian_nb`` on
+   pendigits (C = 6, publish every 2), its last v2 artifact with
+   ``--load``, a heterogeneous DistBoost.F committee artifact and
+   ``serve_fl --learner ridge`` — one ``vote_argmax`` a batch and a
+   warm-up, the cache answering what the engine answers, the card's votes
+   the CPU's outside the near-tie gap.
 
-The second-to-last line is the ``{"kernels": [...]}`` record; the last is
+Each phase's seconds are printed at the end.  The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Without a card, or beside no copy of
 the repo, the script exits non-zero and prints no result.
 """
@@ -134,6 +157,8 @@ VOTE_SHAPES = {
     "letter_4096": (100, 4096, 26),
     "letter_1000": (1000, 256, 26),  # eight member tiles, double-buffered
 }
+# the heterogeneous engine's vote on pendigits: 3 groups of T = 10, batch 256
+HETERO_VOTE = (30, 256, 10)
 SERVE = OUT / "serve"  # serving artifacts and the rolling checkpoint stream
 WINDOW_S = 1.0  # seconds each policy serves pendigits' test split for
 # flash_attention [B, H, Hkv, S, T, D, causal, window, softcap, bf16]:
@@ -702,6 +727,89 @@ def check_vote_argmax(torch, ops, ref, g):
     return results, float(worst)
 
 
+def dirichlet_mask(fl_run):
+    """The ``[8, n_max]`` padding mask of phase 10's adult Dirichlet split
+    (alpha 0.5, seed 0), drawn on the CPU as ``fl_run`` draws it."""
+    return fl_run.build_federation("adult", C, 1, DEPTH, 0, "cpu", split="dirichlet").masks
+
+
+def check_dirichlet_shapes(torch, ops, ref, g, mask) -> dict:
+    """Phase 10's new kernel shapes against the plain versions:
+    ``weight_update`` over the flattened Dirichlet mask (three alphas, rtol
+    1e-5, each output written over a NaN-filled block, the same bits from a
+    second call, every padding slot exactly 0 and the total 1 after the
+    renormalisation); ``weighted_errors`` at ``[8, 8, n_max]`` with
+    zero-weight tails (rtol 1e-4, the same bits twice); ``vote_argmax`` at
+    ``[30, 256]``, K = 10, equal to the plain version outside the near-tie
+    gap and to a member-by-member ``VoteTally`` bit for bit.  Returns
+    {kernel: {shape name: record}}."""
+    Cm, n = mask.shape
+    pad_share = 1.0 - float(mask.mean())
+    m = mask.reshape(-1).to(DEV)
+    N = m.numel()
+    pad = m == 0
+    w = torch.rand(N, generator=g) * mask.reshape(-1)
+    w = (w / w.sum()).to(DEV)
+    mis = (torch.rand(N, generator=g) < 0.3).float().to(DEV)
+    worst = 0.0
+    for a in (0.37, -2.0, 10.0):
+        alpha = torch.tensor(a, device=DEV)
+        got = poisoned(torch, (N,), lambda: ops.weight_update(w, mis, m, alpha))
+        want = ref.renormalised_weight_update_ref(w, mis, m, alpha)
+        worst = max(worst, assert_close(torch, "weight_update", got, want,
+                                        f"Dirichlet [{Cm}, {n}] alpha={a}"))
+        check(torch.equal(got, ops.weight_update(w, mis, m, alpha)),
+              f"weight_update Dirichlet alpha={a}: two calls differ")
+        check(bool((got[pad] == 0).all()), f"weight_update Dirichlet alpha={a}: "
+              f"{int((got[pad] != 0).sum())} padding slots are not 0")
+        check(abs(float(got.double().sum()) - 1.0) < 1e-5,
+              f"weight_update Dirichlet alpha={a}: the total is {float(got.double().sum())}")
+    alpha = torch.tensor(0.37, device=DEV)
+    bms, by = bound_ms(4 * (4 * N + 1), 6 * N)
+    update = {"shape": f"w [{N}] = [{Cm}, {n}], {100 * pad_share:.1f}% padding",
+              "max_abs_err": worst, "bound_ms": bms, "bound_by": by,
+              **timings(torch, lambda: ops.weight_update(w, mis, m, alpha),
+                        lambda: ref.renormalised_weight_update_ref(w, mis, m, alpha))}
+
+    wc = w.view(Cm, n)
+    preds = torch.randint(0, 2, (Cm, Cm, n), generator=g, dtype=torch.int32).to(DEV)
+    y = torch.randint(0, 2, (Cm, n), generator=g, dtype=torch.int32).to(DEV)
+    got = poisoned(torch, (Cm, Cm), lambda: ops.weighted_errors(preds, y, wc))
+    err = assert_close(torch, "weighted_errors", got, ref.weighted_errors_ref(preds, y, wc),
+                       f"Dirichlet [{Cm}, {Cm}, {n}]")
+    check(torch.equal(got, ops.weighted_errors(preds, y, wc)), "weighted_errors Dirichlet: two calls differ")
+    bms, by = bound_ms(4 * (Cm * Cm * n + 2 * Cm * n + Cm * Cm), 2 * Cm * Cm * n)
+    errors = {"shape": f"preds [{Cm}, {Cm}, {n}], {100 * pad_share:.1f}% zero-weight",
+              "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+              **timings(torch, lambda: ops.weighted_errors(preds, y, wc),
+                        lambda: ref.weighted_errors_ref(preds, y, wc))}
+
+    T, nb, K = HETERO_VOTE
+    vp = torch.randint(0, K, (T, nb), generator=g, dtype=torch.int32).to(DEV)
+    va = (torch.rand(T, generator=g) * 3.0).to(DEV)
+    got = poisoned(torch, (nb,), lambda: ops.vote_argmax(vp, va, n_classes=K))
+    plain = ref.vote_argmax_ref(vp, va, K)
+    tally = tally_classes(torch, vp, va, K)
+    votes = torch.einsum("t,tnk->nk", va, (vp.unsqueeze(-1) == torch.arange(K, device=DEV)).float())
+    differ, near, _ = vote_gap_agree(votes, got, plain, va)
+    check(differ == 0, f"vote_argmax hetero [{T}, {nb}]: {differ} rows differ outside the near-tie gap")
+    check(torch.equal(got, tally), f"vote_argmax hetero [{T}, {nb}]: {int((got != tally).sum())} rows "
+          "differ from a member-by-member VoteTally")
+    bms, by = bound_ms(4 * (T * nb + T + nb), 2 * T * nb)
+    vote = {"shape": f"preds [{T}, {nb}], K={K} (3 groups x T = 10)", "max_abs_err": 0,
+            "bound_ms": bms, "bound_by": by, "near_tie_rows": near,
+            **timings(torch, lambda: ops.vote_argmax(vp, va, n_classes=K),
+                      lambda: ref.vote_argmax_ref(vp, va, K))}
+    log(f"phase 10 shapes: weight_update Dirichlet [{Cm}, {n}] ({100 * pad_share:.1f}% padding) agrees "
+        f"(worst {worst:.3g}), padding exactly 0, {update['ms']:.5f} ms (bound {update['bound_ms']:.6f}, "
+        f"plain {update['plain_ms']:.5f}); weighted_errors [{Cm}, {Cm}, {n}] {errors['ms']:.5f} ms "
+        f"(bound {errors['bound_ms']:.6f}, plain {errors['plain_ms']:.5f}); vote_argmax [{T}, {nb}] "
+        f"= a member-by-member VoteTally, {vote['ms']:.5f} ms (plain {vote['plain_ms']:.5f})")
+    return {"weight_update": {"adult_dirichlet": update},
+            "weighted_errors": {"adult_dirichlet": errors},
+            "vote_argmax": {"hetero_pendigits": vote}}
+
+
 def visible_pairs(S: int, T: int, causal: bool, window) -> int:
     """(query, key) pairs the mask lets through for one (b, h): the work
     a flash kernel must do on these shapes."""
@@ -817,6 +925,7 @@ def host_ops(torch, ops, fn) -> dict:
     kernels = sum(ops.launch_counts().values()) - sum(before.values())
     torch_ops = sum(count.ops.values())
     return {"host_ops": torch_ops + kernels, "torch_ops": torch_ops, "kernel_launches": kernels,
+            "scalar_reads": count.ops.get("_local_scalar_dense", 0),
             "top": dict(count.ops.most_common(8))}
 
 
@@ -866,13 +975,15 @@ def stage_breakdown(torch, fl_run, card: str) -> None:
         + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
 
 
-def profile_round(torch, fl_run, card: str) -> None:
-    """Device time by kernel and the device's busy share over the adult
-    main path's rounds (set-up excluded), from torch.profiler."""
+def profile_round(torch, fl_run, card: str, rounds: int = MAIN["rounds"], label: str = "adult",
+                  **build) -> None:
+    """Device time by kernel and the device's busy share over an adult
+    run's rounds (set-up excluded; the main path's by default, ``build``
+    gives ``build_federation`` other flags), from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fed = fl_run.build_federation("adult", C, MAIN["rounds"], DEPTH, 0, DEV)
+    fed = fl_run.build_federation("adult", C, rounds, DEPTH, 0, DEV, **build)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -886,7 +997,8 @@ def profile_round(torch, fl_run, card: str) -> None:
     if not busy_us:
         log(f"profile: torch.profiler recorded no device time on {card}; busy share not measured")
         return
-    log(f"profile (adult, {MAIN['rounds']} rounds incl. binning and 2 evals, profiler on, {card}): "
+    evals = len(range(MAIN["eval_every"] - 1, rounds, MAIN["eval_every"])) + (rounds % MAIN["eval_every"] != 0)
+    log(f"profile ({label}, {rounds} rounds incl. set-up and {evals} eval(s), profiler on, {card}): "
         f"wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
         f"({100 * busy_us / wall_us:.1f}%), {sum(r[1] for r in rows)} device activities")
     for key, count, us in rows[:12]:
@@ -918,15 +1030,20 @@ def run_serve(torch, ops, ref, serve_fl, argv: list, what: str) -> tuple:
 def card_vs_cpu(torch, path: Path, dataset: str, card_pred, what: str) -> str:
     """Serve the card's artifact on the CPU (plain versions) over the same
     rows; the two must agree on every row outside the near-tie gap."""
-    from repro_torch.core import boosting
+    from repro_torch.core import boosting, hetero
     from repro_torch.data import get_dataset
     from repro_torch.serve import ServeEngine, load_artifact
 
     art = load_artifact(path, "cpu")
     _, (_, _, Xte, _) = get_dataset(dataset, torch.Generator().manual_seed(0))
     cpu_pred = ServeEngine.from_artifact(art).predict(Xte.numpy())
-    votes = boosting.ensemble_votes(art.learner, art.spec, art.ensemble, Xte, committee=art.committee)
-    used = art.ensemble.alpha[: art.ensemble.count]
+    if art.hetero:
+        votes = hetero.hetero_ensemble_votes(art.spec, art.ensemble, Xte, committee=art.committee)
+        used = hetero.hetero_used_weights(art.ensemble, committee=art.committee)
+    else:
+        votes = boosting.ensemble_votes(art.learner, art.spec, art.ensemble, Xte,
+                                        committee=art.committee)
+        used = art.ensemble.alpha[: art.ensemble.count]
     differ, near, _ = vote_gap_agree(votes, torch.from_numpy(cpu_pred), torch.from_numpy(card_pred),
                                      used)
     check(differ == 0, f"{what}: card and CPU differ on {differ} rows outside the near-tie gap")
@@ -1099,6 +1216,129 @@ def committee_serving(torch, ops, ref, fl_run, card: str) -> None:
     log(card_vs_cpu(torch, path, "pendigits", out["pred"], "pendigits committee"))
 
 
+# -- phase 10: the other learners, the Dirichlet split, heterogeneous federations ---
+
+MIX6 = "decision_tree,extra_tree,ridge,gaussian_nb,nearest_centroid,mlp"
+MIX3 = "decision_tree,ridge,gaussian_nb"
+# (tag, fl_run flags, launches over 10 rounds, hypotheses a round chooses
+# from); adult, C = 8.  Six names over 8 collaborators put two in each tree
+# group: a level is one tree_hist a group, so 8 a round
+HETERO_RUNS = [
+    *[(name, ["--learner", name], {"tree_hist": 0, "weighted_errors": 10, "weight_update": 10}, C)
+      for name in ("ridge", "gaussian_nb", "nearest_centroid", "mlp")],
+    ("dirichlet", ["--split", "dirichlet"],
+     {"tree_hist": 40, "weighted_errors": 10, "weight_update": 10}, C),
+    ("mixed6_dirichlet", ["--learners", MIX6, "--split", "dirichlet"],
+     {"tree_hist": 80, "weighted_errors": 10, "weight_update": 10}, C),
+    ("mixed3_distboost_f", ["--learners", MIX3, "--algorithm", "distboost_f"],
+     {"tree_hist": 40, "weighted_errors": 0, "weight_update": 10}, C),
+    ("mixed3_preweak_f", ["--learners", MIX3, "--algorithm", "preweak_f"],
+     {"tree_hist": 40, "weighted_errors": 10, "weight_update": 10}, 10 * C),
+    ("mixed3_bagging", ["--learners", MIX3, "--algorithm", "bagging"],
+     {"tree_hist": 40, "weighted_errors": 0, "weight_update": 0}, C),
+]
+
+
+def mixed_round_host_ops(torch, ops, fl_run) -> dict:
+    """Host operations of one steady mixed adult round (the sixth of ten):
+    the six families over 8 collaborators on the Dirichlet split, the
+    winner's one read on the host among them."""
+    from repro_torch.core import boosting, hetero
+
+    fed = fl_run.build_federation("adult", C, MAIN["rounds"], DEPTH, 0, DEV,
+                                  learners=tuple(MIX6.split(",")), split="dirichlet")
+    state = hetero.init_hetero_boost_state(fed.spec, MAIN["rounds"], fed.masks, X=fed.Xs)
+    stages = hetero.hetero_adaboost_f_stages(fed.spec, generator=fed.generator)
+    for _ in range(MAIN["rounds"] // 2):
+        state, _ = boosting.run_stages(stages, state, fed.Xs, fed.ys, fed.masks)
+    out = host_ops(torch, ops, lambda: boosting.run_stages(stages, state, fed.Xs, fed.ys, fed.masks))
+    torch.cuda.synchronize()
+    return out
+
+
+def hetero_phase(torch, ops, ref, fl_run, card: str) -> None:
+    ms_round = {}
+    for tag, extra, want, space in HETERO_RUNS:
+        ops.reset_launches()
+        calls = dict(ref.device_calls)
+        run = run_fl(fl_run, "adult", MAIN["rounds"], "cuda", f"{tag}_cuda", extra)
+        got = ops.launch_counts()
+        check(got == {**want, "vote_argmax": 0, "flash_attention": 0}, f"{tag}: launches {got} != {want}")
+        check(ref.device_calls == calls, f"{tag}: a plain version ran on CUDA tensors: {ref.device_calls}")
+        check_run(run, MAIN["rounds"], f"{tag} on the card", space)
+        ms_round[tag] = 1e3 * run["history"][-1]["round_seconds"]
+        cpu = run_fl(fl_run, "adult", MAIN["rounds"], "cpu", f"{tag}_cpu", extra)
+        check_run(cpu, MAIN["rounds"], f"{tag} on the CPU", space)
+        g0, c0 = run["rounds"][0], cpu["rounds"][0]
+        check(g0["chosen"] == c0["chosen"], f"{tag} round 0 chosen: card {g0['chosen']} vs CPU {c0['chosen']}")
+        f1_gpu, f1_cpu = run["history"][-1]["f1"], cpu["history"][-1]["f1"]
+        check(abs(f1_gpu - f1_cpu) <= 0.02, f"{tag} final F1: card {f1_gpu} vs CPU {f1_cpu}")
+        agree = sum(a["chosen"] == b["chosen"] for a, b in zip(run["rounds"], cpu["rounds"]))
+        log(f"{tag}: launches {got}; card vs CPU: chosen agrees in {agree}/{MAIN['rounds']} rounds, "
+            f"round 0 epsilon {g0['epsilon']:.7g} vs {c0['epsilon']:.7g}, final F1 {f1_gpu:.4f} vs "
+            f"{f1_cpu:.4f}")
+    log(f"ms/round (the last history row: rounds 5-9 of 10, one eval) on {card}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms_round.items()))
+    profile_round(torch, fl_run, card, rounds=3, label="adult, six families, Dirichlet",
+                  learners=tuple(MIX6.split(",")), split="dirichlet")
+    counted = mixed_round_host_ops(torch, ops, fl_run)
+    log(f"host operations (adult, six families over 8 collaborators, Dirichlet, round 6 of 10; "
+        f"PyTorch operators + kernel launches): {counted['host_ops']} ({counted['torch_ops']} + "
+        f"{counted['kernel_launches']}), {counted['scalar_reads']} read(s) of a device scalar on the "
+        f"host; most frequent {counted['top']}")
+
+
+def hetero_serving(torch, ops, ref, fl_run, card: str) -> None:
+    """``serve_fl --learners`` on pendigits (C = 6): the publish loop, its
+    last v2 artifact served with ``--load``, a heterogeneous DistBoost.F
+    committee artifact, and ``--learner ridge``; each against the CPU."""
+    from repro_torch.launch import serve_fl
+    from repro_torch.serve import latest_artifact
+
+    pub = SERVE / "pendigits_hetero"
+    shutil.rmtree(pub, ignore_errors=True)
+    loop, _ = run_serve(torch, ops, ref, serve_fl,
+                        ["--dataset", "pendigits", "--learners", MIX3, "--collaborators", "6",
+                         "--rounds", "10", "--publish-every", "2", "--publish-dir", str(pub)],
+                        "pendigits --learners, publish every 2")
+    check(len(loop["published"]) == 5, f"{len(loop['published'])} checkpoints published, not 5")
+    final = loop["published"][-1]
+    loaded, launches = run_serve(torch, ops, ref, serve_fl,
+                                 ["--dataset", "pendigits", "--artifact", str(final), "--load",
+                                  "--policy", "sync"], "pendigits heterogeneous v2 (--load)")
+    check(bool((loaded["pred"] == loop["pred"]).all()), "the loaded v2 artifact served other votes")
+    st = loaded["stats"]
+    log(f"heterogeneous serving on {card}: {launches['vote_argmax']} vote_argmax launches for "
+        f"{st.batches} batches and {st.warmup_batches} warm-up, F1 {loaded['f1']:.4f}, batch p50 "
+        f"{1e3 * st.batch_seconds.percentile(50):.3f} ms; vote cache {loaded['cache']}")
+    log(card_vs_cpu(torch, final, "pendigits", loaded["pred"], "pendigits heterogeneous"))
+
+    pubc = SERVE / "pendigits_hetero_distboost"
+    shutil.rmtree(pubc, ignore_errors=True)
+    argv = ["--dataset", "pendigits", "--collaborators", "6", "--rounds", "10", "--depth", str(DEPTH),
+            "--eval-every", "10", "--algorithm", "distboost_f", "--learners", MIX3,
+            "--publish-every", "10", "--publish-dir", str(pubc)]
+    log(f"$ python -m repro_torch.launch.fl_run {' '.join(argv)}")
+    fl_run.main(argv)
+    path = latest_artifact(pubc)
+    committee, launches = run_serve(torch, ops, ref, serve_fl,
+                                    ["--dataset", "pendigits", "--artifact", str(path), "--load"],
+                                    "pendigits heterogeneous DistBoost.F committee (--load)")
+    st = committee["stats"]
+    log(f"heterogeneous committee serving on {card}: {launches['vote_argmax']} vote_argmax launches "
+        f"for {st.batches} batches and {st.warmup_batches} warm-up, F1 {committee['f1']:.4f}")
+    log(card_vs_cpu(torch, path, "pendigits", committee["pred"], "pendigits heterogeneous committee"))
+
+    ridge_art = SERVE / "pendigits_ridge.mafl"
+    ridge, launches = run_serve(torch, ops, ref, serve_fl,
+                                ["--dataset", "pendigits", "--learner", "ridge", "--artifact",
+                                 str(ridge_art)], "pendigits --learner ridge")
+    log(f"ridge serving on {card}: {launches['vote_argmax']} vote_argmax launches for "
+        f"{ridge['stats'].batches} batches and {ridge['stats'].warmup_batches} warm-up, "
+        f"F1 {ridge['f1']:.4f}")
+    log(card_vs_cpu(torch, ridge_art, "pendigits", ridge["pred"], "pendigits ridge"))
+
+
 # -- phase 8: LLM serving -----------------------------------------------------------
 
 
@@ -1233,6 +1473,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    phase_s, t_phase = {}, [t_start]
+
+    def phase_done(k: int) -> None:
+        now = time.perf_counter()
+        phase_s[k] = now - t_phase[0]
+        t_phase[0] = now
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1243,6 +1489,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__}  cuda {torch.version.cuda}  device {kind}  "
         f"count {torch.cuda.device_count()}  python {sys.version.split()[0]}")
+    phase_done(1)
 
     # 2. build
     t0 = time.perf_counter()
@@ -1282,6 +1529,8 @@ def main() -> int:
     check("ATOMS.ADD" in atoms and not any("CAS" in a for a in atoms),
           f"tree_hist's shared atomics are not single integer adds: {sorted(atoms)}")
 
+    phase_done(2)
+
     # 3. kernels against their plain versions
     g = torch.Generator().manual_seed(0)
     floor = launch_floor_ms(torch)
@@ -1292,6 +1541,8 @@ def main() -> int:
         "vote_argmax": check_vote_argmax(torch, ops, ref, g),
         "flash_attention": check_flash_attention(torch, ops, ref, g),
     }
+    for name, rows in check_dirichlet_shapes(torch, ops, ref, g, dirichlet_mask(fl_run)).items():
+        per_kernel[name][0].update(rows)
     detail = {k: v[0] for k, v in per_kernel.items()}
     log("kernel_detail " + json.dumps({"card": card, "launch_floor_ms": floor, "kernels": detail}))
     log(f"kernel ms / bound ms / launch floor ms at the main paths' shapes ({card}): " + "; ".join(
@@ -1301,6 +1552,8 @@ def main() -> int:
     log(f"weighted_errors ms / bound ms / launch floor ms / plain ms at PreWeak.F's rows ({card}): "
         + "; ".join(f"{ds} {errs[ds]['shape']} {errs[ds]['ms']:.5f} / {errs[ds]['bound_ms']:.5f} / "
                     f"{floor:.5f} / {errs[ds]['plain_ms']:.5f}" for ds in PREWEAK_SHAPES))
+
+    phase_done(3)
 
     # 4. the federation on the card; the adult run is the main path
     ops.reset_launches()
@@ -1328,6 +1581,8 @@ def main() -> int:
         check_run(run, 5, f"{ds} on the card")
         log(f"{ds}: final F1 {run['history'][-1]['f1']:.4f}, launches {got}")
 
+    phase_done(4)
+
     # 5. the same adult configuration on the CPU (the plain versions)
     cpu_run = run_fl(fl_run, "adult", MAIN["rounds"], "cpu", "adult_cpu")
     check_run(cpu_run, MAIN["rounds"], "adult on the CPU")
@@ -1340,6 +1595,8 @@ def main() -> int:
     agree = sum(a["chosen"] == b["chosen"] for a, b in zip(main_run["rounds"], cpu_run["rounds"]))
     log(f"card vs CPU: chosen agrees in {agree}/{MAIN['rounds']} rounds; "
         f"final F1 {f1_gpu:.4f} vs {f1_cpu:.4f}")
+
+    phase_done(5)
 
     # 6. ms/round on the card: rounds 5-9 of a 10-round run per dataset
     # (library loaded, allocator warm), host clock up to the eval's sync at
@@ -1361,17 +1618,29 @@ def main() -> int:
     stage_breakdown(torch, fl_run, card)
     profile_round(torch, fl_run, card)
 
+    phase_done(6)
+
     # 7. serving; the pendigits sync run is the serving main path
     serve_launches, serve_dispatches = serve_phase(torch, ops, ref, card)
     launches["vote_argmax"] = serve_launches["vote_argmax"]
+    phase_done(7)
 
     # 8. LLM serving: gemma-2b at full width, the flash_attention path
     llm = llm_phase(torch, ops, ref, card)
     launches["flash_attention"] = llm["launches"]["flash_attention"]
+    phase_done(8)
 
     # 9. DistBoost.F, PreWeak.F, bagging, extra_tree; committee serving
     algorithms_phase(torch, ops, ref, fl_run, card)
     committee_serving(torch, ops, ref, fl_run, card)
+    phase_done(9)
+
+    # 10. the other learners, the Dirichlet split, heterogeneous federations
+    # and their serving
+    hetero_phase(torch, ops, ref, fl_run, card)
+    hetero_serving(torch, ops, ref, fl_run, card)
+    phase_done(10)
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
 
     kernels = []

@@ -7,7 +7,7 @@ bins and ensemble, and carries an ensemble back (``ensemble_to_numpy``).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -16,7 +16,17 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.boosting import BoostState, Ensemble
 from repro_torch.device import resolve_device
 from repro_torch.learners.binning import BinnedDataset
+from repro_torch.learners.centroid import CentroidParams
+from repro_torch.learners.linear import RidgeParams
+from repro_torch.learners.mlp import MLPParams
+from repro_torch.learners.naive_bayes import GNBParams
 from repro_torch.learners.tree import TreeParams
+
+# each learner's parameter type; its fields are the JAX NamedTuple's, in order
+PARAMS = {
+    "decision_tree": TreeParams, "extra_tree": TreeParams, "ridge": RidgeParams,
+    "gaussian_nb": GNBParams, "nearest_centroid": CentroidParams, "mlp": MLPParams,
+}
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -33,18 +43,44 @@ def tree_params_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> TreePa
     )
 
 
-def ensemble_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> Ensemble:
-    """A tree ensemble as numpy arrays -> the port's ``Ensemble``.
+def params_from_numpy(learner: str, d: Mapping[str, np.ndarray], device="cuda"):
+    """One learner's parameters as numpy arrays, keyed by field name (any
+    leading hypothesis or collaborator axes) -> its parameter type:
+    ``ridge`` ``W``; ``gaussian_nb`` ``log_prior``, ``mean``, ``var``;
+    ``nearest_centroid`` ``centroid``, ``log_prior``; ``mlp`` ``W1``,
+    ``b1``, ``W2``, ``b2``; the trees' fields as :func:`tree_params_from_numpy`
+    takes them.
+    Integer arrays become int32 tensors, the rest float32."""
+    cls = PARAMS[learner]
 
-    Keys: the tree slots ``feature [T, depth]``, ``threshold [T, depth]``,
-    ``leaf_logits [T, 2**depth, K]`` (a DistBoost.F committee ensemble:
-    ``[T, C, depth]`` and ``[T, C, 2**depth, K]``); ``alpha [T]`` and
-    ``count``."""
+    def leaf(a):
+        a = np.asarray(a)
+        return _t(a, torch.int32 if np.issubdtype(a.dtype, np.integer) else torch.float32, device)
+
+    return cls(*(leaf(d[f]) for f in cls._fields))
+
+
+def ensemble_from_numpy(d: Mapping[str, np.ndarray], device="cuda",
+                        learner: str = "decision_tree") -> Ensemble:
+    """An ensemble as numpy arrays -> the port's ``Ensemble``.
+
+    Keys: ``learner``'s parameter fields with a leading slot axis (the
+    trees: ``feature [T, depth]``, ``threshold [T, depth]``, ``leaf_logits
+    [T, 2**depth, K]``; a DistBoost.F committee ensemble adds a ``[T, C]``
+    lead), ``alpha [T]`` and ``count``."""
     return Ensemble(
-        params=tree_params_from_numpy(d, device),
+        params=params_from_numpy(learner, d, device),
         alpha=_t(d["alpha"], torch.float32, device),
         count=int(np.asarray(d["count"])),
     )
+
+
+def hetero_ensemble_from_numpy(groups: Sequence[Mapping[str, np.ndarray]], learners: Sequence[str],
+                               device="cuda") -> Tuple[Ensemble, ...]:
+    """A heterogeneous ensemble (the JAX package's tuple of per-group
+    ensembles) as numpy arrays, one mapping per group with its learner's
+    key in ``learners`` -> the port's group tuple."""
+    return tuple(ensemble_from_numpy(d, device, name) for d, name in zip(groups, learners))
 
 
 def ensemble_to_numpy(ens: Ensemble) -> Dict[str, np.ndarray]:

@@ -61,12 +61,18 @@ def ensemble_to(ens: Ensemble, device) -> Ensemble:
     return Ensemble(params, ens.alpha.to(device), ens.count)
 
 
+def used_weights(ens: Ensemble) -> torch.Tensor:
+    """alpha over the used slots, 0 beyond ``count``: [T] f32 on the device."""
+    T = ens.alpha.shape[0]
+    live = torch.arange(T, device=ens.alpha.device) < ens.count
+    return (live.to(torch.float32) * ens.alpha).contiguous()
+
+
 def ensemble_votes(learner: WeakLearner, spec: LearnerSpec, ens: Ensemble, X: torch.Tensor,
                    *, committee: bool = False) -> torch.Tensor:
     """alpha-weighted vote tally [n, K] over the used slots."""
-    T = ens.alpha.shape[0]
     preds = scoring.member_prediction(learner, spec, ens.params, X, committee=committee)  # [T, n]
-    used = (torch.arange(T, device=X.device) < ens.count).to(torch.float32) * ens.alpha
+    used = used_weights(ens)
     onehot = one_hot(preds, spec.n_classes, torch.float32)  # [T, n, K]; out of range: a zero row
     return torch.einsum("t,tnk->nk", used, onehot)
 
@@ -108,16 +114,16 @@ def init_boost_state(
     )
 
 
-def _local_fits(learner, spec, w, X, y, fit_cache, generator=None):
+def _local_fits(learner, spec, w, X, y, fit_cache, generator=None, **draws):
     """Train one weak hypothesis per collaborator (paper step 2): all C
-    fits as one batched tensor program over the shard-static fit cache;
-    a randomised learner draws from ``generator``."""
-    if learner.fit_batched is None or fit_cache is None:
-        raise NotImplementedError(
-            f"learner {learner.name!r} needs fit_batched and a fit cache; the "
-            "per-collaborator fit routes are not ported (ROADMAP Queue 1 item 8)"
-        )
-    return learner.fit_batched(spec, X, y, w, fit_cache, generator=generator)
+    fits as one tensor program.  A learner with ``fit_batched`` (the trees)
+    fits over the shard-static fit cache; the others fit ``[C, n, ...]``
+    inputs natively (the counterpart of the JAX package's ``vmap(fit)``).
+    A randomised learner draws from ``generator``, or takes ``draws``
+    injected (``learners/base.py``)."""
+    if learner.fit_batched is not None:
+        return learner.fit_batched(spec, X, y, w, fit_cache, generator=generator, **draws)
+    return learner.fit(spec, None, X, y, w, generator=generator, **draws)
 
 
 def _append(ens: Ensemble, member: Any, alpha) -> Ensemble:

@@ -1,27 +1,50 @@
 """The run-time configuration of a ported federation (answers to
 ``repro/core/plan.py``).
 
-Only what the fused homogeneous path reads is here: the round count and
-the algorithm name.  The path has one way to run each stage, so none of
-the JAX package's §5.1 toggles has a second value to choose here yet.
-FedAvg (OpenFL's DNN workflow) is not ported: it comes with the
-interpreted path, ROADMAP Queue 1 item 11.
+Only what the fused path reads is here: the round count, the algorithm,
+the learner groups of a heterogeneous federation and the split.  The path
+has one way to run each stage, so none of the JAX package's §5.1 toggles
+(``OptimizationFlags``) has a second value to choose here yet; they come
+back with the interpreted path, ROADMAP Queue 1 item 11, as does FedAvg
+(OpenFL's DNN workflow).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Dict
 
 ALGORITHMS = ("adaboost_f", "distboost_f", "preweak_f", "bagging")
 UNPORTED = {"fedavg": "ROADMAP Queue 1 item 11"}
+SPLITS = ("iid", "dirichlet")
+
+
+@dataclasses.dataclass(frozen=True)
+class LearnerPlan:
+    name: str = "decision_tree"
+    hparams: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataPlan:
+    split: str = "iid"  # iid | dirichlet
+    dirichlet_alpha: float = 0.5
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
     rounds: int = 100
     algorithm: str = "adaboost_f"
+    # a heterogeneous federation: collaborator i trains learners[i % len]
+    # (an empty tuple: homogeneous, the Federation's LearnerSpec)
+    learners: tuple = ()
+    data: DataPlan = dataclasses.field(default_factory=DataPlan)
 
     def validate(self) -> "Plan":
+        if self.learners and self.algorithm == "fedavg":
+            raise ValueError(
+                "heterogeneous learners require the model-agnostic workflow; "
+                "fedavg averages parameters and cannot mix model families"
+            )
         if self.algorithm in UNPORTED:
             raise ValueError(
                 f"algorithm {self.algorithm!r} is not ported yet ({UNPORTED[self.algorithm]})"
@@ -30,6 +53,12 @@ class Plan:
             raise ValueError(f"unknown algorithm {self.algorithm!r}; have {ALGORITHMS}")
         if self.rounds < 1:
             raise ValueError(f"rounds must be positive, got {self.rounds}")
+        if not all(isinstance(lp, LearnerPlan) for lp in self.learners):
+            raise ValueError("Plan.learners holds LearnerPlan entries")
+        if self.data.split not in SPLITS:
+            raise ValueError(f"unknown split {self.data.split!r}; have {SPLITS}")
+        if not self.data.dirichlet_alpha > 0:
+            raise ValueError(f"dirichlet_alpha must be positive, got {self.data.dirichlet_alpha}")
         return self
 
 

@@ -106,6 +106,21 @@ def init_tally(n: int, n_classes: int, device) -> VoteTally:
     return VoteTally(torch.zeros(n, n_classes, dtype=torch.float32, device=device), 0)
 
 
+def committee_tally(learner: WeakLearner, spec: LearnerSpec, params_t: Any,
+                    X: torch.Tensor) -> torch.Tensor:
+    """The seat vote tally ``[..., [T,] n, K]`` of a committee slot
+    (``[C, ...]``) or slot stack (``[T, C, ...]``): each seat's vote as a
+    one-hot (out of range: a zero row), summed over the seats.  A mixed
+    (heterogeneous) committee sums its groups' tallies
+    (``core/hetero.py``)."""
+    proto = learner.init(spec, X.device)
+    lead = params_t[0].shape[: params_t[0].dim() - proto[0].dim()]  # ([T,] C)
+    flat = type(params_t)(*(x.reshape((-1,) + p.shape) for x, p in zip(params_t, proto)))
+    batch = X.shape[:-2]  # a leading shard axis, when X is [C, n, d]
+    preds = learner.predict(spec, flat, X).view(batch + lead + X.shape[-2:-1])  # [.., [T,] C, n]
+    return one_hot(preds, spec.n_classes, torch.float32).sum(dim=len(batch) + len(lead) - 1)
+
+
 def member_prediction(learner: WeakLearner, spec: LearnerSpec, params_t: Any,
                       X: torch.Tensor, *, committee: bool = False) -> torch.Tensor:
     """A member's [n] class prediction (or [T, n] for a slot stack) — the
@@ -114,18 +129,12 @@ def member_prediction(learner: WeakLearner, spec: LearnerSpec, params_t: Any,
     evaluation and the serving engine.
 
     A DistBoost.F member is a committee of C hypotheses (slots ``[C, ...]``,
-    a stack ``[T, C, ...]``) that votes within itself first: its C votes
-    become one-hots (out of range: a zero row), are summed, and the first
-    argmax is the member's class, as ``repro/core/scoring.py`` rules."""
+    a stack ``[T, C, ...]``) that votes within itself first: the first
+    argmax of its :func:`committee_tally` is the member's class, as
+    ``repro/core/scoring.py`` rules."""
     if not committee:
         return learner.predict(spec, params_t, X)
-    proto = learner.init(spec, X.device)
-    lead = params_t[0].shape[: params_t[0].dim() - proto[0].dim()]  # ([T,] C)
-    flat = type(params_t)(*(x.reshape((-1,) + p.shape) for x, p in zip(params_t, proto)))
-    batch = X.shape[:-2]  # a leading shard axis, when X is [C, n, d]
-    preds = learner.predict(spec, flat, X).view(batch + lead + X.shape[-2:-1])  # [.., [T,] C, n]
-    tally = one_hot(preds, spec.n_classes, torch.float32).sum(dim=len(batch) + len(lead) - 1)
-    return torch.argmax(tally, dim=-1).to(torch.int32)
+    return torch.argmax(committee_tally(learner, spec, params_t, X), dim=-1).to(torch.int32)
 
 
 def tally_new_votes(

@@ -14,9 +14,14 @@ copied to the card, never read back.  Nothing in the round loop copies to
 the host: the round's metrics stay device tensors until an evaluation row
 reads them, all in one transfer, and a serving checkpoint
 (``publish_every``) copies the ensemble to the host once.  Communication
-is modelled from shapes, as the JAX package's fused path does.  The
-interpreted (OpenFL-style) path, heterogeneous and elastic federations
-are not ported yet.
+is modelled from shapes, as the JAX package's fused path does.
+
+A heterogeneous federation (a ``core/hetero.HeterogeneousSpec``, or a plan
+whose ``learners`` cycle learner families over the collaborators) runs the
+same loop over ``core/hetero.py``'s grouped stages; its winner's index is
+read on the host once a round, where the owner group's count moves.  The
+interpreted (OpenFL-style) path and elastic federations are not ported
+yet (ROADMAP Queue 1 items 11, 12).
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch.core import boosting, scoring
+from repro_torch.core import boosting, hetero, scoring
+from repro_torch.core.hetero import HeterogeneousSpec
 from repro_torch.core.metrics import f1_macro
 from repro_torch.core.plan import Plan
 from repro_torch.core.serialization import wire_size
@@ -55,14 +61,32 @@ _M_ROUND_SECONDS = obs_metrics.histogram(
 class Federation:
     """C collaborators' shards plus a held-out test set, on one device."""
 
-    def __init__(self, plan: Plan, Xs, ys, masks, X_test, y_test, spec: LearnerSpec,
+    def __init__(self, plan: Plan, Xs, ys, masks, X_test, y_test,
+                 spec: LearnerSpec | HeterogeneousSpec,
                  *, device: str | torch.device = "cuda", seed: int = 0):
+        """``spec`` is a ``LearnerSpec`` (homogeneous) or a
+        ``HeterogeneousSpec``; a plan with ``learners`` turns a LearnerSpec
+        into the spec that cycles them over the collaborators (the
+        LearnerSpec then gives only the problem's geometry)."""
         plan.validate()
         self.plan = plan
         self.generator = torch.Generator().manual_seed(seed)  # host draws, a fixed order
         self.device = resolve_device(device)
+        C = len(ys)
+        if plan.learners and isinstance(spec, LearnerSpec):
+            spec = HeterogeneousSpec.cycle(
+                [lp.name for lp in plan.learners], C, spec.n_features, spec.n_classes,
+                hparams={lp.name: dict(lp.hparams) for lp in plan.learners})
+        self.hetero = isinstance(spec, HeterogeneousSpec)
+        if self.hetero:
+            if spec.n_collaborators != C:
+                raise ValueError(f"HeterogeneousSpec assigns {spec.n_collaborators} collaborators "
+                                 f"but the partition has {C}")
+            hetero.resolve(spec)  # fail fast on unknown registry keys
+            self.learner = None  # per-group learners live in the spec
+        else:
+            self.learner = get_learner(spec.name)
         self.spec = spec
-        self.learner = get_learner(spec.name)
         dev = self.device
         self.Xs = torch.as_tensor(Xs, dtype=torch.float32).to(dev).contiguous()  # [C, n, d]
         self.ys = torch.as_tensor(ys, dtype=torch.int32).to(dev).contiguous()  # [C, n]
@@ -103,8 +127,9 @@ class Federation:
                 raise ValueError(f"publish_every must be positive, got {publish_every}")
             if publish_dir is None:
                 raise ValueError("publish_every requires a publish_dir")
-        return self._run_fused(rounds or self.plan.rounds, eval_every,
-                               publish_every, publish_dir, on_checkpoint)
+        run = self._run_fused_hetero if self.hetero else self._run_fused
+        return run(rounds or self.plan.rounds, eval_every, publish_every, publish_dir,
+                   on_checkpoint)
 
     def per_round(self) -> List[Dict[str, float]]:
         """epsilon / alpha / chosen of every round run so far, fetched from
@@ -141,8 +166,9 @@ class Federation:
         (the C uploads), re-broadcast to every collaborator; bagging only
         uploads."""
         C = self.n_collaborators
-        ens = state.ensemble
-        h = wire_size(ens.params) // max(ens.alpha.shape[0], 1)  # one slot
+        # a heterogeneous ensemble is a plain tuple of group Ensembles
+        parts = state.ensemble if self.hetero else (state.ensemble,)
+        h = sum(wire_size(e.params) // max(e.alpha.shape[0], 1) for e in parts)  # one slot
         alg = self.plan.algorithm
         if alg == "preweak_f":
             return wire_size(setup_tree) * C, 16 * C
@@ -167,7 +193,8 @@ class Federation:
         ensemble goes to the host once, then to disk."""
         from repro_torch.serve.artifact import publish_artifact  # serving is optional at train time
 
-        host = boosting.ensemble_to(state.ensemble, "cpu")
+        to_host = hetero.hetero_ensemble_to if self.hetero else boosting.ensemble_to
+        host = to_host(state.ensemble, "cpu")
         path = publish_artifact(
             publish_dir, self.spec, host, version=round_idx + 1,
             committee_size=self.committee_size,
@@ -240,6 +267,43 @@ class Federation:
             tally = scoring.tally_new_votes(learner, spec, s.ensemble, tally, self.X_test,
                                             committee=committee is not None)
             return f1_macro(self.y_test, scoring.tally_predict(tally), spec.n_classes)
+
+        return self._fused_loop(rounds, eval_every, state, round_fn, evaluate, per_round,
+                                publish_every, publish_dir, on_checkpoint)
+
+    def _run_fused_hetero(self, rounds: int, eval_every: int,
+                          publish_every: Optional[int] = None, publish_dir: Optional[str] = None,
+                          on_checkpoint=None) -> List[Dict[str, float]]:
+        """``_run_fused`` over ``core/hetero.py``: grouped fits, the
+        cross-group prediction tensor, per-group tallies.  With one group
+        every step is the homogeneous one."""
+        hspec, alg, g = self.spec, self.plan.algorithm, self.generator
+        committee = alg == "distboost_f"
+        state = hetero.init_hetero_boost_state(hspec, rounds, self.masks, committee=committee,
+                                               X=self.Xs)
+        if alg == "preweak_f":
+            with trace.span("preweak.setup", rounds=rounds):
+                spaces, state = hetero.hetero_preweak_f_setup(
+                    hspec, state, self.Xs, self.ys, self.masks, rounds, g)
+                cache = hetero.hetero_preweak_f_predictions(hspec, spaces, self.Xs)
+            stages = hetero.hetero_preweak_f_stages(hspec, spaces, cache)
+            setup_bytes, per_round = self._fused_comm_model(state, setup_tree=spaces)
+            self._account_comm(setup_bytes)
+        else:
+            stages = hetero.HETERO_ROUND_STAGES[alg](hspec, generator=g)
+            _, per_round = self._fused_comm_model(state)
+
+        def round_fn(s, X, y, m):
+            return boosting.run_stages(stages, s, X, y, m)
+
+        tallies = hetero.init_hetero_tally(hspec, self.X_test.shape[0], self.device,
+                                           committee=committee)
+
+        def evaluate(s):
+            nonlocal tallies
+            tallies = hetero.hetero_tally_new_votes(hspec, s.ensemble, tallies, self.X_test,
+                                                    committee=committee)
+            return f1_macro(self.y_test, hetero.hetero_tally_predict(tallies), hspec.n_classes)
 
         return self._fused_loop(rounds, eval_every, state, round_fn, evaluate, per_round,
                                 publish_every, publish_dir, on_checkpoint)

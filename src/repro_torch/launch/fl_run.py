@@ -4,15 +4,22 @@
   PYTHONPATH=src python -m repro_torch.launch.fl_run --dataset adult \
       --collaborators 8 --rounds 10 --depth 4 --eval-every 5 --seed 0
 
+  # heterogeneous federation: learner families cycled over collaborators
+  PYTHONPATH=src python -m repro_torch.launch.fl_run --dataset adult \
+      --collaborators 8 --learners decision_tree,ridge,gaussian_nb --split dirichlet
+
 Runs AdaBoost.F (``--algorithm``: also ``distboost_f``, ``preweak_f`` and
-``bagging``) over oblivious ``decision_tree`` learners (``--learner
-extra_tree``: random split candidates) on an IID split, on the card by
-default (``--device cpu`` runs the kernels' plain versions on the CPU).
-``--seed`` seeds the data, the split and the run's random draws.  Prints one ``round ... f1 ... alpha ...`` line per
-evaluation and a ``total ...s  comm ... MB  final F1 ...`` summary.
-``--publish-every K --publish-dir DIR`` writes a rolling serving
-artifact every K rounds (``serve/artifact.py``); ``--trace`` and
-``--metrics-out`` write the run's spans and metrics.
+``bagging``) over oblivious ``decision_tree`` learners (``--learner``:
+any of the six registered families; ``--learners``: a comma-separated
+list cycled over the collaborators, a heterogeneous federation) on an IID
+split (``--split dirichlet``: label skew, ``--dirichlet-alpha``), on the
+card by default (``--device cpu`` runs the kernels' plain versions on the
+CPU).  ``--seed`` seeds the data, the split and the run's random draws.
+Prints one ``round ... f1 ... alpha ...`` line per evaluation and a
+``total ...s  comm ... MB  final F1 ...`` summary.  ``--publish-every K
+--publish-dir DIR`` writes a rolling serving artifact every K rounds
+(``serve/artifact.py``); ``--trace`` and ``--metrics-out`` write the
+run's spans and metrics.
 """
 from __future__ import annotations
 
@@ -22,38 +29,64 @@ import time
 
 import torch
 
-from repro_torch.core.plan import ALGORITHMS, UNPORTED, adaboost_plan, bagging_plan
+from repro_torch.core.plan import (
+    ALGORITHMS, SPLITS, UNPORTED, DataPlan, LearnerPlan, adaboost_plan, bagging_plan,
+)
 from repro_torch.data import PAPER_DATASETS, get_dataset
 from repro_torch.device import resolve_device
 from repro_torch.fl.federation import Federation, history_summary
-from repro_torch.fl.partition import iid_partition
-from repro_torch.learners import LearnerSpec
+from repro_torch.fl.partition import dirichlet_partition, iid_partition
+from repro_torch.learners import LearnerSpec, available_learners
 from repro_torch.obs import metrics as obs_metrics, trace
 
 
-LEARNERS = ("decision_tree", "extra_tree")
-# the JAX package's other learners, and the ROADMAP item that ports them
-UNPORTED_LEARNERS = {name: "ROADMAP Queue 1 item 8"
-                     for name in ("ridge", "gaussian_nb", "nearest_centroid", "mlp")}
+LEARNERS = tuple(available_learners())
 
 
-def default_hparams(depth: int = 4) -> dict:
-    return {"depth": depth, "n_bins": 16}
+def default_hparams(name: str, depth: int = 4) -> dict:
+    """Per-family CLI defaults (shared by fl_run, serve_fl and --learners)."""
+    if name in ("decision_tree", "extra_tree"):
+        return {"depth": depth, "n_bins": 16}
+    if name == "mlp":
+        return {"hidden": 64, "steps": 200, "local_steps": 20}
+    return {}
+
+
+def parse_learners(ap: argparse.ArgumentParser, value: str | None) -> tuple:
+    """``--learners a,b,c`` -> a tuple of registered names (argparse error
+    on an unknown one); None -> ()."""
+    if not value:
+        return ()
+    names = tuple(n.strip() for n in value.split(",") if n.strip())
+    bad = [n for n in names if n not in LEARNERS]
+    if bad or not names:
+        ap.error(f"--learners {value}: choose from {', '.join(LEARNERS)}")
+    return names
 
 
 def build_federation(dataset: str, collaborators: int, rounds: int, depth: int,
                      seed: int, device, *, algorithm: str = "adaboost_f",
-                     learner: str = "decision_tree") -> Federation:
-    """Data, IID split and ``Federation`` for one run; the data are drawn
-    on the CPU from ``seed`` and moved to ``device``, and the run's own
-    draws come from a generator seeded with ``seed``."""
+                     learner: str = "decision_tree", learners: tuple = (),
+                     split: str = "iid", dirichlet_alpha: float = 0.5) -> Federation:
+    """Data, split and ``Federation`` for one run; the data are drawn on
+    the CPU from ``seed`` and moved to ``device``, the split draws from
+    the same generator, and the run's own draws come from a generator
+    seeded with ``seed``.  ``learners`` (registry keys) makes the
+    federation heterogeneous, cycling them over the collaborators."""
     device = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
     dspec, (Xtr, ytr, Xte, yte) = get_dataset(dataset, g)
-    Xs, ys, masks = iid_partition(Xtr, ytr, collaborators, g)
-    lspec = LearnerSpec(learner, dspec.n_features, dspec.n_classes, default_hparams(depth))
-    plan = (bagging_plan(rounds=rounds) if algorithm == "bagging"
-            else adaboost_plan(rounds=rounds, algorithm=algorithm))
+    data = DataPlan(split=split, dirichlet_alpha=dirichlet_alpha)
+    plan_args = dict(rounds=rounds, data=data,
+                     learners=tuple(LearnerPlan(n, default_hparams(n, depth)) for n in learners))
+    plan = (bagging_plan(**plan_args) if algorithm == "bagging"
+            else adaboost_plan(algorithm=algorithm, **plan_args))
+    if plan.data.split == "dirichlet":
+        Xs, ys, masks = dirichlet_partition(Xtr, ytr, collaborators, alpha=plan.data.dirichlet_alpha,
+                                            n_classes=dspec.n_classes, generator=g)
+    else:
+        Xs, ys, masks = iid_partition(Xtr, ytr, collaborators, g)
+    lspec = LearnerSpec(learner, dspec.n_features, dspec.n_classes, default_hparams(learner, depth))
     return Federation(plan, Xs, ys, masks, Xte, yte, lspec, device=device, seed=seed)
 
 
@@ -62,10 +95,15 @@ def main(argv=None):
     ap.add_argument("--dataset", default="adult", choices=sorted(PAPER_DATASETS))
     ap.add_argument("--algorithm", default="adaboost_f",
                     help=f"one of {', '.join(ALGORITHMS)} (fedavg: {UNPORTED['fedavg']})")
-    ap.add_argument("--learner", default="decision_tree",
-                    help=f"one of {', '.join(LEARNERS)}")
+    ap.add_argument("--learner", default="decision_tree", choices=LEARNERS)
+    ap.add_argument("--learners", default=None,
+                    help="comma-separated learner registry keys cycled across "
+                         "collaborators (e.g. decision_tree,ridge,gaussian_nb): a "
+                         "heterogeneous federation; overrides --learner")
     ap.add_argument("--collaborators", type=int, default=8)
     ap.add_argument("--rounds", type=int, default=100)
+    ap.add_argument("--split", default="iid", choices=SPLITS)
+    ap.add_argument("--dirichlet-alpha", type=float, default=0.5)
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument("--eval-every", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
@@ -86,20 +124,24 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.publish_every is not None and not args.publish_dir:
         ap.error("--publish-every requires --publish-dir")
+    learners = parse_learners(ap, args.learners)
+    if learners and args.algorithm == "fedavg":
+        ap.error("fedavg averages parameters and cannot mix model families")
     if args.algorithm not in ALGORITHMS:
         ap.error(f"--algorithm {args.algorithm}: "
                  + (f"not ported yet ({UNPORTED[args.algorithm]})" if args.algorithm in UNPORTED
                     else f"choose from {', '.join(ALGORITHMS)}"))
-    if args.learner not in LEARNERS:
-        ap.error(f"--learner {args.learner}: "
-                 + (f"not ported yet ({UNPORTED_LEARNERS[args.learner]})"
-                    if args.learner in UNPORTED_LEARNERS else f"choose from {', '.join(LEARNERS)}"))
     device = resolve_device(args.device)
     if args.trace:
         trace.enable()
 
     fed = build_federation(args.dataset, args.collaborators, args.rounds, args.depth,
-                           args.seed, device, algorithm=args.algorithm, learner=args.learner)
+                           args.seed, device, algorithm=args.algorithm, learner=args.learner,
+                           learners=learners, split=args.split,
+                           dirichlet_alpha=args.dirichlet_alpha)
+    if fed.hetero:
+        print("heterogeneous federation:",
+              {i: fed.spec.specs[g].name for i, g in enumerate(fed.spec.assignment)})
     t0 = time.perf_counter()
     history = fed.run(eval_every=args.eval_every, publish_every=args.publish_every,
                       publish_dir=args.publish_dir)

@@ -1,6 +1,6 @@
 """Ensemble serving driver on PyTorch — train-then-serve, load-then-serve,
 or the continuous train→publish→serve loop (answers to
-``repro/launch/serve_fl.py`` for homogeneous ``decision_tree`` ensembles).
+``repro/launch/serve_fl.py``).
 
   # train a federation, save the artifact, then serve the test split:
   PYTHONPATH=src python -m repro_torch.launch.serve_fl --dataset pendigits \\
@@ -16,6 +16,13 @@ or the continuous train→publish→serve loop (answers to
   # k rounds and the serving side folds each checkpoint in:
   PYTHONPATH=src python -m repro_torch.launch.serve_fl --dataset pendigits \\
       --rounds 10 --publish-every 2 --publish-dir /tmp/pendigits_pub
+
+  # heterogeneous: learner families cycled over the collaborators; the
+  # mixed ensemble publishes v2 artifacts and serves behind the same API
+  # (one vote_argmax a batch over every group's members):
+  PYTHONPATH=src python -m repro_torch.launch.serve_fl --dataset pendigits \\
+      --learners decision_tree,ridge,gaussian_nb --collaborators 6 \\
+      --rounds 10 --publish-every 2 --publish-dir /tmp/pendigits_hetero
 
 Runs on the card by default (``--device cpu`` runs the kernels' plain
 versions on the CPU).  Serving drives the micro-batching engine over the
@@ -35,7 +42,7 @@ import torch
 from repro_torch.core.metrics import f1_macro
 from repro_torch.data import PAPER_DATASETS, get_dataset
 from repro_torch.device import resolve_device
-from repro_torch.launch.fl_run import build_federation, finish_obs
+from repro_torch.launch.fl_run import LEARNERS, build_federation, finish_obs, parse_learners
 from repro_torch.obs import trace
 from repro_torch.serve import ServeEngine, ShardVoteCache, load_artifact, save_artifact
 
@@ -44,11 +51,17 @@ def _f1(y: np.ndarray, pred: np.ndarray, n_classes: int) -> float:
     return float(f1_macro(torch.from_numpy(y), torch.from_numpy(pred), n_classes))
 
 
+def _federation(args, device):
+    """AdaBoost.F over an IID split of ``--dataset`` with ``--learner`` or
+    the ``--learners`` mix."""
+    return build_federation(args.dataset, args.collaborators, args.rounds, args.depth,
+                            args.seed, device, learner=args.learner, learners=args.learners)
+
+
 def train_ensemble(args, device):
-    """AdaBoost.F over an IID split of ``--dataset``; returns the
-    federation (its ``state.ensemble`` is the trained strong hypothesis)."""
-    fed = build_federation(args.dataset, args.collaborators, args.rounds, args.depth,
-                           args.seed, device)
+    """Train the federation; its ``state.ensemble`` is the trained strong
+    hypothesis (a group tuple for ``--learners``)."""
+    fed = _federation(args, device)
     t0 = time.perf_counter()
     fed.run(eval_every=args.rounds)  # one eval at the end: the run's one host sync
     print(f"trained {args.rounds} rounds x {args.collaborators} collaborators "
@@ -138,8 +151,7 @@ def publish_and_consume(args, device) -> dict:
     """The continuous loop: the federation publishes a rolling artifact
     every ``--publish-every`` rounds, and the serving side (engine + vote
     cache) folds each checkpoint in incrementally."""
-    fed = build_federation(args.dataset, args.collaborators, args.rounds, args.depth,
-                           args.seed, device)
+    fed = _federation(args, device)
     Xte, yte = fed.X_test.cpu().numpy(), fed.y_test.cpu().numpy()
     engine = cache = None
     consumed = []  # (round, members, engine req/s) per checkpoint
@@ -189,6 +201,11 @@ def publish_and_consume(args, device) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve_fl")
     ap.add_argument("--dataset", default="pendigits", choices=sorted(PAPER_DATASETS))
+    ap.add_argument("--learner", default="decision_tree", choices=LEARNERS)
+    ap.add_argument("--learners", default=None,
+                    help="comma-separated learner registry keys cycled across "
+                         "collaborators: train/publish/serve a heterogeneous "
+                         "federation; overrides --learner")
     ap.add_argument("--collaborators", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--depth", type=int, default=4)
@@ -230,6 +247,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
     args = ap.parse_args(argv)
+    args.learners = parse_learners(ap, args.learners)
     device = resolve_device(args.device)
     if args.trace:
         trace.enable()

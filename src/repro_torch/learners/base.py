@@ -1,9 +1,9 @@
 """Model-agnostic weak-learner interface (answers to ``repro/learners/base.py``).
 
-A weak hypothesis is an opaque bundle of tensors plus functions; the
-federated protocol never looks inside.  Where the JAX package maps a
-learner over collaborators or hypotheses with ``vmap``, the port writes
-the batch axis out:
+A weak hypothesis is a bundle of tensors plus functions; the federated
+protocol never looks inside.  Where the JAX package maps a learner over
+collaborators or hypotheses with ``vmap``, the port writes the batch axis
+out:
 
 ``init(spec, device) -> params``
     Zero-valued parameters of one hypothesis.  Shapes depend on ``spec``
@@ -12,23 +12,35 @@ the batch axis out:
     Per-class scores.  ``params`` may carry a leading hypothesis axis
     ``H``; ``X`` is ``[n, d]`` or ``[C, n, d]``.  Unbatched params give
     ``[n, K]`` for ``X [n, d]``.
+``fit(spec, params, X, y, w, *, generator=None, **draws) -> params``
+    A weighted fit from ``[n, ...]`` inputs; rows with ``w == 0`` are
+    padding.  The closed-form learners and the MLP take a leading
+    collaborator axis natively (``[C, n, ...]`` inputs fit C hypotheses
+    in one batched program): this is the route ``core/boosting.py::
+    _local_fits`` takes for a learner without ``fit_batched``, the
+    counterpart of the JAX package's ``vmap(fit)``.
 ``precompute(spec, X) -> cache``
     The X-only fit scaffold, computed once per shard (``X`` may carry a
     leading collaborator axis).
-``fit_batched(spec, X, y, w, cache, *, generator=None) -> params``
+``fit_batched(spec, X, y, w, cache, *, generator=None, **draws) -> params``
     One tensor program fitting all C collaborators' hypotheses from
-    ``[C, ...]`` inputs; rows with ``w == 0`` are padding.  A randomised
-    learner draws each collaborator's random choices from ``generator``, an
-    explicit CPU ``torch.Generator`` (drawn on the host in a fixed order,
-    then moved to the device, so the card and the CPU draw the same numbers
-    and no draw waits for the card); its own keyword arguments take the
-    draws injected instead (``extra_tree``'s ``candidates``), which is how
-    the tests feed it the JAX package's draws.  Nothing is key-shaped: the
-    JAX package's per-collaborator keys have no counterpart.  A
-    deterministic learner (``decision_tree``) ignores the generator.
-
-``fit(spec, params, X, y, w, *, generator=None)`` fits one hypothesis
-from ``[n, ...]`` inputs.
+    ``[C, ...]`` inputs over the shard-static fit cache (the trees: one
+    ``tree_hist`` launch a level).
+``draw(spec, C, generator, device) -> draws``
+    A randomised learner's random inputs for C fits, as the keyword
+    arguments its fit takes them by (``extra_tree``: ``candidates``;
+    ``mlp``: ``init``), each with a leading collaborator axis.  They are
+    drawn on the host from ``generator``, an explicit CPU
+    ``torch.Generator``, in a fixed order, then moved to the device, so
+    the card and the CPU draw the same numbers and no draw waits for the
+    card.  A fit given ``generator`` and no draws calls ``draw`` itself;
+    the tests inject the JAX package's draws instead.  Nothing is
+    key-shaped: the JAX package's per-collaborator keys have no
+    counterpart.  A deterministic learner has no ``draw`` and ignores the
+    generator.
+``warm_fit(spec, params, X, y, w, *, generator=None) -> params``
+    Gradient continuation from ``params`` (the MLP only; FedAvg's local
+    training).
 """
 from __future__ import annotations
 
@@ -66,6 +78,8 @@ class WeakLearner:
     predict_logits: Callable[[LearnerSpec, Params, torch.Tensor], torch.Tensor]
     precompute: Callable[[LearnerSpec, torch.Tensor], Any] | None = None
     fit_batched: Callable[..., Params] | None = None
+    draw: Callable[..., Dict[str, Any]] | None = None
+    warm_fit: Callable[..., Params] | None = None
 
     def predict(self, spec: LearnerSpec, params: Params, X: torch.Tensor) -> torch.Tensor:
         """Class predictions: the argmax of ``predict_logits`` (int32)."""

@@ -33,9 +33,26 @@ class BinnedDataset(NamedTuple):
 def quantile_edges(X: torch.Tensor, n_bins: int) -> torch.Tensor:
     """Per-feature candidate thresholds from quantiles: [..., n, d] -> [..., d, n_bins].
 
-    Linear interpolation, as ``jnp.quantile``'s default."""
-    qs = torch.linspace(0.0, 1.0, n_bins + 2, dtype=X.dtype, device=X.device)[1:-1]
-    return torch.quantile(X, qs, dim=-2).movedim(0, -1).contiguous()
+    ``jnp.quantile``'s linear interpolation with its rounding: the
+    quantiles ``i · (1 / (n_bins + 1))`` and their positions ``q · (n - 1)``
+    in float32, then ``low · w_low + high · w_high``, which the JAX
+    package's compiled program rounds once after the first product is
+    added (a fused multiply-add; emulated here in float64, which holds the
+    product exactly).  The edges are then the JAX package's to the bit, so
+    a sample that lies on an edge falls on the same side of it on both."""
+    n = X.shape[-2]
+    # jnp.linspace(0, 1, n_bins + 2)[1:-1]: iota times the float32 reciprocal of n_bins + 1
+    step = torch.ones((), dtype=torch.float32, device=X.device) / (n_bins + 1)
+    qs = torch.arange(1, n_bins + 1, dtype=torch.float32, device=X.device) * step
+    q = qs * (n - 1)
+    low, high = torch.floor(q), torch.ceil(q)
+    w_high = q - low
+    w_low = 1.0 - w_high
+    ordered = torch.sort(X, dim=-2).values
+    lo = ordered.index_select(-2, low.clamp(0, n - 1).long())  # [..., n_bins, d]
+    hi = ordered.index_select(-2, high.clamp(0, n - 1).long())
+    edges = lo.double() * w_low.double().unsqueeze(-1) + (hi * w_high.unsqueeze(-1)).double()
+    return edges.to(X.dtype).movedim(-2, -1).contiguous()
 
 
 def digitize(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:

@@ -121,6 +121,11 @@ def draw_candidates(spec: LearnerSpec, C: int, d: int, generator: torch.Generato
     return mask.view(C, depth, d, n_bins).to(device)
 
 
+def draw_extra_tree(spec: LearnerSpec, C: int, generator: torch.Generator, device) -> dict:
+    """``extra_tree``'s draws for C fits, as ``fit_tree_batched`` takes them."""
+    return {"candidates": draw_candidates(spec, C, spec.n_features, generator, device)}
+
+
 def fit_tree_batched(
     spec: LearnerSpec,
     X: torch.Tensor,  # [C, n, d]
@@ -224,5 +229,6 @@ extra_tree = register(
         "extra_tree", init_tree, functools.partial(fit_tree, random_splits=True),
         tree_predict_logits, precompute=tree_precompute,
         fit_batched=functools.partial(fit_tree_batched, random_splits=True),
+        draw=draw_extra_tree,
     )
 )

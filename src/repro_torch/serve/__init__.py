@@ -1,6 +1,6 @@
-"""Ensemble serving on the card (answers to ``repro/serve/``, homogeneous
-ensembles, DistBoost.F committees included): a federation's trained strong hypothesis taken to batched
-inference.
+"""Ensemble serving on the card (answers to ``repro/serve/``: homogeneous
+and heterogeneous ensembles, DistBoost.F committees included): a
+federation's trained strong hypothesis taken to batched inference.
 
   * ``artifact``  — save/load a deployable single-file artifact (the
     JAX package's format, byte for byte; optionally quantized with the
@@ -14,8 +14,7 @@ inference.
   * ``cache``     — shard-resident incremental vote cache.
 
 Driver: ``launch/serve_fl.py``.  Not ported yet: the compile cache, the
-multi-tenant registry, heterogeneous ensembles, the mesh engine (ROADMAP
-Queue 1).
+multi-tenant registry, the mesh engine (ROADMAP Queue 1).
 """
 from repro_torch.serve.artifact import (
     LoadedArtifact,

@@ -17,11 +17,17 @@ DistBoost.F ensemble stores a committee of C hypotheses per slot
 (``committee_size`` C, slots ``[T, C, ...]``); it votes within each slot
 first (``core/scoring.member_prediction(committee=True)``).
 
-Quantized artifacts (format v3) encode each leaf with its own codec
-(``core/serialization.py``) and record the per-leaf plans in the
-manifest.  Not ported: heterogeneous (v2) artifacts (ROADMAP Queue 1
-item 10); ``load_artifact`` rejects them with a ``ValueError`` naming the
-item.
+Heterogeneous ensembles (format v2, ``"learner": "heterogeneous"``) are a
+tuple of per-group ensembles; their payload is the groups' leaves in
+group order, and the manifest adds the per-group learner specs
+(``groups``), the collaborator→group ``assignment`` and the learner key
+of every used member (``member_learners``, in the group-blocked member
+order).  A heterogeneous committee's ``committee_size`` is the
+federation's C: each slot holds one seat block per group.
+
+Quantized artifacts (format v3, either flavour) encode each leaf with its
+own codec (``core/serialization.py``) and record the per-leaf plans in the
+manifest.
 
 A still-training federation publishes a ROLLING artifact stream with
 ``publish_artifact``: each checkpoint is a fresh versioned file plus an
@@ -39,8 +45,9 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import boosting
+from repro_torch.core import boosting, hetero
 from repro_torch.core.boosting import Ensemble
+from repro_torch.core.hetero import HeterogeneousSpec
 from repro_torch.core.serialization import (
     CODEC_BF16,
     CODEC_INT8,
@@ -62,10 +69,11 @@ from repro_torch.learners import LearnerSpec, WeakLearner, available_learners, g
 
 MAGIC = b"MAFLSRV1"
 # Reader capability.  Homogeneous artifacts write format_version 1,
-# heterogeneous ones 2 (not ported), quantized ones 3 with a per-leaf
+# heterogeneous ones 2, quantized ones (either flavour) 3 with a per-leaf
 # "leaf_codecs" list in the manifest.
 MANIFEST_VERSION = 3
 HOMOGENEOUS_VERSION = 1
+HETERO_VERSION = 2
 QUANTIZED_VERSION = 3
 HETERO_LEARNER = "heterogeneous"  # the manifest "learner" key of a mix
 
@@ -76,15 +84,19 @@ SMALL_LEAF_SHARE = 0.05
 
 
 class LoadedArtifact(NamedTuple):
-    learner: WeakLearner
-    spec: LearnerSpec
-    ensemble: Ensemble  # on the device load_artifact was given
+    learner: WeakLearner | None  # None for a heterogeneous artifact
+    spec: LearnerSpec | HeterogeneousSpec
+    ensemble: Any  # Ensemble | HeteroEnsemble, on the device load_artifact was given
     committee_size: int | None  # DistBoost.F stores a committee per slot
     manifest: dict
 
     @property
     def committee(self) -> bool:
         return self.committee_size is not None
+
+    @property
+    def hetero(self) -> bool:
+        return isinstance(self.spec, HeterogeneousSpec)
 
 
 def ensemble_signature(ensemble: Ensemble) -> tuple:
@@ -117,14 +129,32 @@ def _ensemble_template(spec: LearnerSpec, T: int, committee_size: int | None = N
     return boosting.init_ensemble(learner, spec, T, "cpu", committee_size=committee_size)
 
 
+def _hetero_template(hspec: HeterogeneousSpec, T: int, committee: bool, *,
+                     context: str = "artifact") -> hetero.HeteroEnsemble:
+    for name in hspec.names:
+        _require_learner(name, context)
+    return hetero.init_hetero_ensemble(hspec, T, "cpu", committee=committee)
+
+
+def _ensemble_to(ensemble: Any, device) -> Any:
+    if isinstance(ensemble, Ensemble):
+        return boosting.ensemble_to(ensemble, device)
+    return hetero.hetero_ensemble_to(ensemble, device)
+
+
+def ensemble_device(ensemble: Any) -> torch.device:
+    """The device a homogeneous or heterogeneous ensemble lies on."""
+    return (ensemble if isinstance(ensemble, Ensemble) else ensemble[0]).alpha.device
+
+
 # ---------------------------------------------------------------------------
 # Quantization planning — which codec each leaf gets, and the
 # vote-preserving calibration that promotes un-quantizable member slots
 # ---------------------------------------------------------------------------
 
 
-def _params_leaf_plans(params_leaves, mode: str) -> list:
-    """Default per-leaf codec plan for an ensemble's params leaves."""
+def _group_leaf_plans(params_leaves, mode: str) -> list:
+    """Default per-leaf codec plan for ONE ensemble's params leaves."""
     float_total = sum(
         l.nbytes for l in params_leaves if np.issubdtype(l.dtype, np.floating)
     )
@@ -145,56 +175,76 @@ def _params_leaf_plans(params_leaves, mode: str) -> list:
     return plans
 
 
-def _plan_ensemble(ensemble: Ensemble, mode: str) -> list:
-    """Per-leaf plans in the artifact's leaf order: params leaves get the
-    requested codec, alpha and count stay raw (they weight the vote tally
-    directly; quantizing them would change served votes)."""
+def _plan_ensembles(ensembles: list, mode: str) -> list:
+    """Per-leaf plans in the artifact's leaf order (the groups in turn):
+    params leaves get the requested codec, alpha and count stay raw (they
+    weight the vote tally directly; quantizing them would change served
+    votes)."""
     if mode not in QUANTIZE_MODES:
         raise ValueError(f"quantize must be one of {QUANTIZE_MODES}, got {mode!r}")
-    params_leaves = flatten(ensemble.params)[0]
-    return _params_leaf_plans(params_leaves, mode) + [{"codec": CODEC_RAW}] * 2
+    plans = []
+    for ens in ensembles:
+        plans += _group_leaf_plans(flatten(ens.params)[0], mode) + [{"codec": CODEC_RAW}] * 2
+    return plans
 
 
-def _quantize_roundtrip(ensemble: Ensemble, plans: list) -> Ensemble:
+def _quantize_roundtrip(ensemble: Any, plans: list) -> Any:
     """What a consumer will serve: encode + decode every leaf."""
     leaves, structure = flatten(ensemble)
     out = [decode_leaf(encode_leaf(l, p), p, l.shape, l.dtype) for l, p in zip(leaves, plans)]
-    return boosting.ensemble_to(unflatten(structure, out), ensemble.alpha.device)
+    return _ensemble_to(unflatten(structure, out), ensemble_device(ensemble))
 
 
-def _calibrate_plans(spec: LearnerSpec, ensemble: Ensemble, plans: list, calibrate,
-                     committee: bool) -> list:
+def _calibrate_plans(spec, ensemble: Any, plans: list, calibrate, committee: bool) -> list:
     """Greedy vote-preserving promotion: serve the quantized ensemble on
     the calibration rows and, while any vote differs from the f32
-    ensemble's, promote the member slot whose raw restoration fixes the
-    most rows (a bf16 leaf's only escape is raw wholesale).  Terminates at
-    all-slots-raw, which is exact by construction."""
-    learner = get_learner(spec.name)
-    X = torch.as_tensor(np.asarray(calibrate, np.float32), device=ensemble.alpha.device)
+    ensemble's, promote the member slot (of any group) whose raw
+    restoration fixes the most rows (a bf16 leaf's only escape is raw
+    wholesale).  Terminates at all-slots-raw, which is exact by
+    construction."""
+    X = torch.as_tensor(np.asarray(calibrate, np.float32), device=ensemble_device(ensemble))
+    is_hetero = isinstance(spec, HeterogeneousSpec)
 
-    def flips(ens) -> int:
+    def votes(ens):
+        if is_hetero:
+            return hetero.hetero_strong_predict(spec, ens, X, committee=committee)
+        return boosting.strong_predict(get_learner(spec.name), spec, ens, X, committee=committee)
+
+    ensembles = list(ensemble) if is_hetero else [ensemble]
+    group_slices, off = [], 0  # plan-index range per group
+    for ens in ensembles:
+        n = len(flatten(ens)[0])
+        group_slices.append((off, off + n))
+        off += n
+
+    def flips(ps) -> int:
+        groups = [_quantize_roundtrip(ens, ps[a:b]) for ens, (a, b) in zip(ensembles, group_slices)]
         # calibration is offline; each trial's flip count gates the next
         # greedy step, so the sync is inherent
-        return int((boosting.strong_predict(learner, spec, ens, X, committee=committee)  # mafl: allow[host-sync]
-                    != want).sum())
+        return int((votes(tuple(groups) if is_hetero else groups[0]) != want).sum())  # mafl: allow[host-sync]
 
-    want = boosting.strong_predict(learner, spec, ensemble, X, committee=committee)
-    n_flips = flips(_quantize_roundtrip(ensemble, plans))
+    want = votes(ensemble)
+    n_flips = flips(plans)
     if n_flips == 0:
         return plans
 
+    # an int8 leaf can restore ONE member slot raw; a bf16 leaf's only
+    # escape is raw wholesale
     actions: list = []
-    if any(p["codec"] == CODEC_INT8 for p in plans):
-        actions += [("slot", t) for t in range(ensemble.count)]
-    actions += [("leaf", i) for i, p in enumerate(plans) if p["codec"] == CODEC_BF16]
+    for g, ens in enumerate(ensembles):
+        a, b = group_slices[g]
+        if any(p["codec"] == CODEC_INT8 for p in plans[a:b]):
+            actions += [("slot", g, t) for t in range(ens.count)]
+    actions += [("leaf", i, None) for i, p in enumerate(plans) if p["codec"] == CODEC_BF16]
 
     def apply(ps, action):
-        kind, x = action
+        kind, x, t = action
         if kind == "slot":
+            a, b = group_slices[x]
             return [
-                dict(p, promoted_slots=sorted(set(p["promoted_slots"]) | {x}))
-                if p["codec"] == CODEC_INT8 else p
-                for p in ps
+                dict(p, promoted_slots=sorted(set(p["promoted_slots"]) | {t}))
+                if a <= i < b and p["codec"] == CODEC_INT8 else p
+                for i, p in enumerate(ps)
             ]
         return [dict(p, codec=CODEC_RAW) if i == x else p for i, p in enumerate(ps)]
 
@@ -209,7 +259,7 @@ def _calibrate_plans(spec: LearnerSpec, ensemble: Ensemble, plans: list, calibra
             if act in applied:
                 continue
             trial = apply(plans, act)
-            ft = flips(_quantize_roundtrip(ensemble, trial))
+            ft = flips(trial)
             if best is None or ft < best[1]:
                 best = (act, ft, trial)
         applied.add(best[0])
@@ -217,7 +267,7 @@ def _calibrate_plans(spec: LearnerSpec, ensemble: Ensemble, plans: list, calibra
     return plans
 
 
-def _demote_uneconomic(ensemble: Ensemble, plans: list) -> list:
+def _demote_uneconomic(ensemble: Any, plans: list) -> list:
     """A quantized leaf whose encoded form ends up no smaller than raw
     ships raw instead: exactness is free and the artifact never grows
     past its f32 twin."""
@@ -229,12 +279,12 @@ def _demote_uneconomic(ensemble: Ensemble, plans: list) -> list:
     return out
 
 
-def _maybe_quantize(spec: LearnerSpec, ensemble: Ensemble, quantize: Optional[str], calibrate,
-                    committee: bool):
+def _maybe_quantize(spec, ensemble: Any, quantize: Optional[str], calibrate, committee: bool):
     """Returns (payload, leaf_codecs) — leaf_codecs is None unquantized."""
     if quantize is None:
         return serialize(ensemble, packed=True)[0], None
-    plans = _plan_ensemble(ensemble, quantize)
+    ensembles = list(ensemble) if isinstance(spec, HeterogeneousSpec) else [ensemble]
+    plans = _plan_ensembles(ensembles, quantize)
     if calibrate is not None:
         plans = _calibrate_plans(spec, ensemble, plans, calibrate, committee)
     plans = _demote_uneconomic(ensemble, plans)
@@ -244,16 +294,19 @@ def _maybe_quantize(spec: LearnerSpec, ensemble: Ensemble, quantize: Optional[st
 
 def save_artifact(
     path: str | Path,
-    spec: LearnerSpec,
-    ensemble: Ensemble,
+    spec: LearnerSpec | HeterogeneousSpec,
+    ensemble: Any,
     *,
     committee_size: int | None = None,
     extra: dict | None = None,
     quantize: str | None = None,
     calibrate: Any = None,
 ) -> Path:
-    """Write a single-file serving artifact; returns the path.  A DistBoost.F
-    ensemble passes its ``committee_size`` (slots ``[T, C, ...]``).
+    """Write a single-file serving artifact; returns the path.  A
+    ``LearnerSpec`` writes the v1 manifest, a ``HeterogeneousSpec`` (with
+    the per-group ensemble tuple) the v2 one.  A DistBoost.F ensemble
+    passes its ``committee_size`` (slots ``[T, C, ...]``; for a
+    heterogeneous committee, the federation's C).
 
     ``quantize`` ("bf16" or "int8") writes a v3 artifact whose payload
     leaves are individually encoded.  With ``calibrate`` (an [n, d] row
@@ -261,6 +314,9 @@ def save_artifact(
     the f32 ensemble's on those rows and stores raw any member slot whose
     votes quantization would flip."""
     path = Path(path)
+    if isinstance(spec, HeterogeneousSpec):
+        return _save_hetero(path, spec, ensemble, committee_size=committee_size, extra=extra,
+                            quantize=quantize, calibrate=calibrate)
     template = _ensemble_template(spec, ensemble.alpha.shape[0], committee_size)
     got, want = ensemble_signature(ensemble), ensemble_signature(template)
     if got != want:
@@ -284,6 +340,10 @@ def save_artifact(
     if plans is not None:
         manifest["quantize"] = quantize
         manifest["leaf_codecs"] = plans
+    return _write(path, manifest, payload, extra)
+
+
+def _write(path: Path, manifest: dict, payload: bytes, extra: dict | None) -> Path:
     overlap = set(extra or {}) & set(manifest)
     if overlap:
         raise ValueError(f"extra manifest keys shadow required fields: {sorted(overlap)}")
@@ -298,6 +358,59 @@ def save_artifact(
     return path
 
 
+def _save_hetero(path: Path, hspec: HeterogeneousSpec, ensemble: hetero.HeteroEnsemble, *,
+                 committee_size: int | None, extra: dict | None, quantize: str | None = None,
+                 calibrate: Any = None) -> Path:
+    if committee_size is not None and committee_size != hspec.n_collaborators:
+        raise ValueError(
+            f"heterogeneous committees span the whole federation: committee_size "
+            f"must be {hspec.n_collaborators} (or None), got {committee_size}"
+        )
+    committee = committee_size is not None
+    T = int(ensemble[0].alpha.shape[0])
+    template = _hetero_template(hspec, T, committee)
+    got, want = ensemble_signature(ensemble), ensemble_signature(template)
+    if got != want:
+        raise ValueError(
+            f"ensemble does not match the heterogeneous template for groups "
+            f"{hspec.names}: {got} != {want}"
+        )
+    counts = [e.count for e in ensemble]
+    if committee:
+        if len(set(counts)) != 1:
+            raise ValueError(f"committee group counts must move in lockstep: {counts}")
+        # every used member is one mixed committee: one seat per collaborator
+        seat_names = [hspec.specs[g].name for g in hspec.assignment]
+        member_learners: list = [seat_names] * counts[0]
+    else:
+        member_learners = [hspec.specs[g].name for g in range(hspec.n_groups)
+                           for _ in range(counts[g])]
+    payload, plans = _maybe_quantize(hspec, ensemble, quantize, calibrate, committee)
+    manifest = {
+        "format_version": HETERO_VERSION if plans is None else QUANTIZED_VERSION,
+        "learner": HETERO_LEARNER,
+        "n_features": hspec.n_features,
+        "n_classes": hspec.n_classes,
+        "hparams": {},  # per-group hparams live in "groups"
+        "groups": [
+            {"learner": s.name, "hparams": dict(s.hparams), "members": list(hspec.members(g)),
+             "count": counts[g]}
+            for g, s in enumerate(hspec.specs)
+        ],
+        "assignment": list(hspec.assignment),
+        "member_learners": member_learners,
+        "ensemble_capacity": T,
+        "ensemble_count": hetero.hetero_count(ensemble, committee=committee),
+        "committee_size": committee_size,
+        "payload_bytes": len(payload),
+        "payload_crc32": zlib.crc32(payload),
+    }
+    if plans is not None:
+        manifest["quantize"] = quantize
+        manifest["leaf_codecs"] = plans
+    return _write(path, manifest, payload, extra)
+
+
 _MANIFEST_KEYS = (
     "format_version", "learner", "n_features", "n_classes", "hparams",
     "ensemble_capacity", "ensemble_count", "committee_size",
@@ -305,7 +418,7 @@ _MANIFEST_KEYS = (
 )
 
 
-def _decode_payload(payload: bytes, template: Ensemble, manifest: dict, path) -> Ensemble:
+def _decode_payload(payload: bytes, template: Any, manifest: dict, path) -> Any:
     """Pour a payload back into the template — per-leaf codec decode for
     quantized (v3) artifacts, packed deserialize otherwise.  CPU tensors."""
     plans = manifest.get("leaf_codecs")
@@ -374,10 +487,7 @@ def load_artifact(path: str | Path, device: str | torch.device = "cuda") -> Load
     if zlib.crc32(payload) != manifest["payload_crc32"]:
         raise ValueError(f"{path}: payload checksum mismatch")
     if manifest["learner"] == HETERO_LEARNER:
-        raise ValueError(
-            f"{path}: heterogeneous (format v2) artifacts are not ported yet "
-            "(ROADMAP Queue 1 item 10)"
-        )
+        return _load_hetero(path, manifest, payload, dev)
     spec = LearnerSpec(
         manifest["learner"],
         manifest["n_features"],
@@ -396,6 +506,31 @@ def load_artifact(path: str | Path, device: str | torch.device = "cuda") -> Load
     )
 
 
+def _load_hetero(path, manifest: dict, payload: bytes, dev: torch.device) -> LoadedArtifact:
+    for k in ("groups", "assignment"):
+        if k not in manifest:
+            raise ValueError(f"{path}: heterogeneous manifest missing {k!r}")
+    specs = tuple(
+        LearnerSpec(g["learner"], manifest["n_features"], manifest["n_classes"],
+                    dict(g["hparams"]))
+        for g in manifest["groups"]
+    )
+    try:
+        hspec = HeterogeneousSpec(specs=specs, assignment=tuple(manifest["assignment"]))
+    except ValueError as e:
+        raise ValueError(f"{path}: invalid heterogeneous manifest: {e}") from e
+    template = _hetero_template(hspec, manifest["ensemble_capacity"],
+                                manifest["committee_size"] is not None, context=str(path))
+    ensemble = _decode_payload(payload, template, manifest, path)
+    return LoadedArtifact(
+        learner=None,
+        spec=hspec,
+        ensemble=hetero.hetero_ensemble_to(ensemble, dev),
+        committee_size=manifest["committee_size"],
+        manifest=manifest,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Rolling checkpoint stream — the federation→serving handoff
 # ---------------------------------------------------------------------------
@@ -405,8 +540,8 @@ LATEST = "LATEST"
 
 def publish_artifact(
     publish_dir: str | Path,
-    spec: LearnerSpec,
-    ensemble: Ensemble,
+    spec: LearnerSpec | HeterogeneousSpec,
+    ensemble: Any,
     *,
     version: int,
     committee_size: int | None = None,

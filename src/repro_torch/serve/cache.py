@@ -1,6 +1,6 @@
 """Shard-resident incremental vote cache (answers to
-``repro/serve/cache.py``, homogeneous ensembles, DistBoost.F committees
-included).
+``repro/serve/cache.py``: homogeneous and heterogeneous ensembles,
+DistBoost.F committees included).
 
 ``ShardVoteCache`` extends ``core/scoring.VoteTally`` into serving: a
 registered shard keeps its ``[n, K]`` alpha-weighted vote tally resident
@@ -13,7 +13,11 @@ on the ensemble's device, so
 
 The tally adds members in ascending order, one fp32 add per member, as
 the ``vote_argmax`` kernel sums them, so on the card the cache answers
-exactly what the engine answers.
+exactly what the engine answers.  A heterogeneous shard keeps one tally
+per learner group (a committee ensemble one, folded across the groups);
+each grows append-only, and the answer is the argmax of their sum, so
+it can differ from the engine's only on a row whose top two vote sums
+tie to within rounding.
 """
 from __future__ import annotations
 
@@ -24,10 +28,12 @@ from typing import Any, Dict, Hashable
 import numpy as np
 import torch
 
-from repro_torch.core import scoring
+from repro_torch.core import hetero, scoring
 from repro_torch.core.boosting import Ensemble
+from repro_torch.core.hetero import HeterogeneousSpec
 from repro_torch.learners.base import LearnerSpec, WeakLearner
 from repro_torch.obs import metrics as obs_metrics, trace
+from repro_torch.serve.artifact import ensemble_device
 
 # Process-wide vote-cache metric families; per-instance ``stats()``
 # keeps its dict shape over the instance counters.
@@ -50,8 +56,11 @@ _M_FOLDED = obs_metrics.counter(
 @dataclasses.dataclass
 class _Resident:
     X: torch.Tensor  # [n, d] — the shard's rows, pinned for member predicts
-    tally: scoring.VoteTally  # [n, K] running votes over members [0, counted)
+    # [n, K] running votes over members [0, counted): one VoteTally for a
+    # homogeneous ensemble, a per-group tuple for a heterogeneous one
+    tally: Any
     fingerprint: tuple  # (shape, crc32 of rows) — guards against key reuse
+    counted: int = 0  # used members folded so far
 
 
 def _fingerprint(X) -> tuple:
@@ -61,21 +70,31 @@ def _fingerprint(X) -> tuple:
     return (arr.shape, zlib.crc32(arr.tobytes()))
 
 
-def _alpha_prefix_crc(ensemble: Ensemble, count: int) -> int:
-    """CRC of the used alpha prefix: an already-tallied member must never
-    change under the cache."""
-    return zlib.crc32(np.ascontiguousarray(ensemble.alpha[:count].cpu().numpy()).tobytes())
+def _alpha_prefix_crc(ensemble, counts: tuple) -> int:
+    """CRC of the used alpha prefix (of every group, concatenated, for a
+    heterogeneous ensemble): an already-tallied member must never change
+    under the cache."""
+    groups = (ensemble,) if isinstance(ensemble, Ensemble) else ensemble
+    return zlib.crc32(b"".join(
+        np.ascontiguousarray(e.alpha[:c].cpu().numpy()).tobytes() for e, c in zip(groups, counts)))
 
 
 class ShardVoteCache:
-    def __init__(self, learner: WeakLearner, spec: LearnerSpec, ensemble: Ensemble, *,
-                 committee: bool = False):
+    def __init__(self, learner: WeakLearner | None, spec: LearnerSpec | HeterogeneousSpec,
+                 ensemble, *, committee: bool = False):
+        """Homogeneous: ``(learner, LearnerSpec, Ensemble)``.  Heterogeneous:
+        ``(None, HeterogeneousSpec, the group tuple)``."""
+        self.hetero = isinstance(spec, HeterogeneousSpec)
+        if self.hetero and learner is not None:
+            raise ValueError("heterogeneous caches resolve per-group learners from the "
+                             "HeterogeneousSpec; pass learner=None")
         self.learner = learner
         self.spec = spec
         self.committee = committee
         self.ensemble = ensemble
-        self.device = ensemble.alpha.device
-        self._alpha_crc = _alpha_prefix_crc(ensemble, ensemble.count)
+        self.device = ensemble_device(ensemble)
+        self._counts = self._group_counts(ensemble)
+        self._alpha_crc = _alpha_prefix_crc(ensemble, self._counts)
         self._shards: Dict[Hashable, _Resident] = {}
         self.hits = 0  # requests answered from the tally alone
         self.partial_hits = 0  # requests that folded only new members
@@ -88,13 +107,24 @@ class ShardVoteCache:
         """The cache counterpart of ``ServeEngine.from_artifact``."""
         return cls(art.learner, art.spec, art.ensemble, committee=art.committee)
 
+    def _group_counts(self, ensemble) -> tuple:
+        return tuple(e.count for e in ensemble) if self.hetero else (ensemble.count,)
+
+    def _used_count(self) -> int:
+        if self.hetero:
+            return hetero.hetero_count(self.ensemble, committee=self.committee)
+        return self.ensemble.count
+
     def register(self, key: Hashable, X) -> None:
         """Pin a shard resident with an empty tally (no predicts yet)."""
         rows = np.asarray(X, np.float32)
         with trace.span("vote_cache.register", rows=rows.shape[0]):
+            n = rows.shape[0]
+            tally = (hetero.init_hetero_tally(self.spec, n, self.device, committee=self.committee)
+                     if self.hetero else scoring.init_tally(n, self.spec.n_classes, self.device))
             self._shards[key] = _Resident(
                 X=torch.from_numpy(np.ascontiguousarray(rows)).to(self.device),
-                tally=scoring.init_tally(rows.shape[0], self.spec.n_classes, self.device),
+                tally=tally,
                 fingerprint=_fingerprint(rows),
             )
 
@@ -113,45 +143,55 @@ class ShardVoteCache:
             self.reregistrations += 1
             self.register(key, X)
         shard = self._shards[key]
-        new = self.ensemble.count - shard.tally.counted
+        count = self._used_count()
+        new = count - shard.counted
         if new == 0:
             self.hits += 1
             _M_HITS.inc()
         else:
-            if shard.tally.counted == 0:
+            if shard.counted == 0:
                 self.misses += 1  # full tally build (first contact)
                 _M_MISSES.inc()
             else:
                 self.partial_hits += 1  # folds only the appended members
                 _M_PARTIAL.inc()
             with trace.span("vote_cache.refresh", new_members=new):
-                shard.tally = scoring.tally_new_votes(
-                    self.learner, self.spec, self.ensemble, shard.tally, shard.X,
-                    committee=self.committee,
-                )
+                if self.hetero:
+                    shard.tally = hetero.hetero_tally_new_votes(
+                        self.spec, self.ensemble, shard.tally, shard.X, committee=self.committee)
+                else:
+                    shard.tally = scoring.tally_new_votes(
+                        self.learner, self.spec, self.ensemble, shard.tally, shard.X,
+                        committee=self.committee,
+                    )
+            shard.counted = count
             self.members_folded += new
             _M_FOLDED.inc(new)
-        return scoring.tally_predict(shard.tally).cpu().numpy()
+        pred = (hetero.hetero_tally_predict(shard.tally) if self.hetero
+                else scoring.tally_predict(shard.tally))
+        return pred.cpu().numpy()
 
-    def update_ensemble(self, ensemble: Ensemble) -> None:
+    def update_ensemble(self, ensemble) -> None:
         """Swap in a grown ensemble; resident tallies refresh lazily on the
         next request, each folding only the appended members."""
-        if ensemble.count < self.ensemble.count:
+        counts = self._group_counts(ensemble)
+        if any(c < c0 for c, c0 in zip(counts, self._counts)):
             raise ValueError("ensemble shrank; serving caches only grow")
         # resident tallies hold votes of members [0, counted): replacing an
         # already-tallied member would silently serve the old model forever,
         # so reject anything that is not a pure append
-        if _alpha_prefix_crc(ensemble, self.ensemble.count) != self._alpha_crc:
+        if _alpha_prefix_crc(ensemble, self._counts) != self._alpha_crc:
             raise ValueError(
                 "already-tallied ensemble members changed; serving caches are "
                 "append-only — build a new ShardVoteCache for a retrained model"
             )
-        if ensemble.alpha.device != self.device:
+        if ensemble_device(ensemble) != self.device:
             raise ValueError(
-                f"ensemble is on {ensemble.alpha.device}, the cache serves on {self.device}"
+                f"ensemble is on {ensemble_device(ensemble)}, the cache serves on {self.device}"
             )
         self.ensemble = ensemble
-        self._alpha_crc = _alpha_prefix_crc(ensemble, ensemble.count)
+        self._counts = counts
+        self._alpha_crc = _alpha_prefix_crc(ensemble, counts)
 
     def stats(self) -> Dict[str, Any]:
         return {

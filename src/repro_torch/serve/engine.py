@@ -1,5 +1,5 @@
 """Fixed-shape micro-batching inference engine (answers to
-``repro/serve/engine.py``, homogeneous local engine).
+``repro/serve/engine.py``, local engine).
 
 Serving traffic arrives as ragged row groups.  The engine packs incoming
 rows into static ``[B, d]`` batches (padding the ragged tail) and runs
@@ -7,7 +7,11 @@ one ensemble predict per batch on the ensemble's device:
 
   * one ``member_prediction`` over the stacked ``[T, ...]`` slot params
     gives every member's vote, ``[T, B]`` (a DistBoost.F committee slot
-    ``[T, C, ...]`` folds its C votes into the member's first);
+    ``[T, C, ...]`` folds its C votes into the member's first).  A
+    heterogeneous ensemble stacks its groups' ``[T, B]`` blocks into one
+    ``[Σ_g T, B]`` (a group with no used member is skipped: its weights
+    are all 0); a heterogeneous committee folds each member's seats
+    across the groups first (``core/hetero.py``);
   * ``used = (arange(T) < count) * alpha`` weighs them (computed once per
     published ensemble, not per batch);
   * one ``ops.vote_argmax`` reduces them: the hand-written kernel on the
@@ -31,9 +35,8 @@ leaf's shape/dtype): an ensemble of another learner or spec that merely
 matches ``alpha``'s capacity must not be served.
 
 Not ported: the process-wide compile cache (its counterpart here would be
-a CUDA graph per batch size), the mesh backend and heterogeneous
-engines.  There is no kernel switch: ``ops`` dispatches on the
-tensors' device.
+a CUDA graph per batch size) and the mesh backend.  There is no kernel
+switch: ``ops`` dispatches on the tensors' device.
 """
 from __future__ import annotations
 
@@ -45,12 +48,13 @@ from typing import Deque, Dict, List
 import numpy as np
 import torch
 
-from repro_torch.core import scoring
-from repro_torch.core.boosting import Ensemble
+from repro_torch.core import hetero, scoring
+from repro_torch.core.boosting import used_weights
+from repro_torch.core.hetero import HeterogeneousSpec
 from repro_torch.kernels import ops
 from repro_torch.learners.base import LearnerSpec, WeakLearner
 from repro_torch.obs import metrics as obs_metrics, trace
-from repro_torch.serve.artifact import ensemble_signature
+from repro_torch.serve.artifact import ensemble_device, ensemble_signature
 
 # Process-wide engine metric families: every engine reports into these in
 # addition to its per-instance ``EngineStats``.
@@ -91,36 +95,38 @@ class EngineStats:
     )
 
 
-def _used_weights(ensemble: Ensemble) -> torch.Tensor:
-    """alpha over the used slots, 0 beyond ``count``: [T] f32 on the device."""
-    T = ensemble.alpha.shape[0]
-    live = torch.arange(T, device=ensemble.alpha.device) < ensemble.count
-    return (live.to(torch.float32) * ensemble.alpha).contiguous()
-
-
 class ServeEngine:
     def __init__(
         self,
-        learner: WeakLearner,
-        spec: LearnerSpec,
-        ensemble: Ensemble,
+        learner: WeakLearner | None,
+        spec: LearnerSpec | HeterogeneousSpec,
+        ensemble,
         *,
         batch_size: int = 256,
         committee: bool = False,
     ):
         """Serve ``ensemble`` on the device its tensors lie on; ``committee``
-        for a DistBoost.F ensemble."""
+        for a DistBoost.F ensemble.  Homogeneous: ``(learner, LearnerSpec,
+        Ensemble)``; heterogeneous: ``(None, HeterogeneousSpec, the group
+        tuple)``."""
         if batch_size < 1:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
+        self.hetero = isinstance(spec, HeterogeneousSpec)
+        if self.hetero:
+            if learner is not None:
+                raise ValueError("heterogeneous engines resolve per-group learners from the "
+                                 "HeterogeneousSpec; pass learner=None")
+            hetero.resolve(spec)  # fail fast on unknown registry keys
         self.learner = learner
         self.spec = spec
         self.committee = committee
         self.batch_size = int(batch_size)
-        self.device = ensemble.alpha.device
+        self.device = ensemble_device(ensemble)
         # ONE publication point for everything a hot swap changes: readers
-        # snapshot the (ensemble, used weights) pair with a single attribute
-        # load, so a concurrent update_ensemble is never seen half-applied
-        self._live = (ensemble, _used_weights(ensemble))
+        # snapshot (ensemble, used weights, active groups) with a single
+        # attribute load, so a concurrent update_ensemble is never seen
+        # half-applied
+        self._live = self._publication(ensemble)
         self.stats = EngineStats()
         # (id, row, t_submit); deque so batch draining is O(B), not a slice-copy
         self._queue: Deque[tuple[int, np.ndarray, float]] = collections.deque()
@@ -140,13 +146,26 @@ class ServeEngine:
                    committee=art.committee)
 
     @property
-    def ensemble(self) -> Ensemble:
+    def ensemble(self):
         return self._live[0]
 
-    def _predict(self, ensemble: Ensemble, used: torch.Tensor, Xb: torch.Tensor) -> torch.Tensor:
+    def _publication(self, ensemble) -> tuple:
+        """(ensemble, the members' weights, the active-group mask): what a
+        batch reads, computed once per published ensemble."""
+        if not self.hetero:
+            return ensemble, used_weights(ensemble), None
+        active = hetero.active_groups(ensemble, committee=self.committee)
+        used = hetero.hetero_used_weights(ensemble, committee=self.committee, active=active)
+        return ensemble, used, active
+
+    def _predict(self, ensemble, used: torch.Tensor, active, Xb: torch.Tensor) -> torch.Tensor:
         """[B, d] rows -> [B] int32 classes, on the device."""
-        preds = scoring.member_prediction(self.learner, self.spec, ensemble.params, Xb,
-                                          committee=self.committee)  # [T, B]
+        if self.hetero:
+            preds = hetero.hetero_member_predictions(self.spec, ensemble, Xb,
+                                                     committee=self.committee, active=active)
+        else:
+            preds = scoring.member_prediction(self.learner, self.spec, ensemble.params, Xb,
+                                              committee=self.committee)  # [T, B]
         return ops.vote_argmax(preds, used, n_classes=self.spec.n_classes)
 
     def warmup(self) -> None:
@@ -154,8 +173,7 @@ class ServeEngine:
         library's load (and build, at first use) and the device's first
         launches are paid before traffic arrives."""
         X = torch.zeros(self.batch_size, self.spec.n_features, device=self.device)
-        ensemble, used = self._live
-        self._predict(ensemble, used, X).cpu()
+        self._predict(*self._live, X).cpu()
         self.stats.warmup_batches += 1
 
     def _run_batch(self, Xb: torch.Tensor, n_valid: int) -> np.ndarray:
@@ -164,9 +182,9 @@ class ServeEngine:
         t0 = time.perf_counter()
         # one snapshot: the weights and their used mask always come from
         # the same hot-swap publication
-        ensemble, used = self._live
+        live = self._live
         with trace.span("serve.batch", batch_size=B, n_valid=n_valid):
-            out = self._predict(ensemble, used, Xb).cpu().numpy()  # device sync = response ready
+            out = self._predict(*live, Xb).cpu().numpy()  # device sync = response ready
         dt = time.perf_counter() - t0
         self.stats.batch_seconds.observe(dt)
         _M_BATCH_SECONDS.observe(dt)
@@ -246,7 +264,7 @@ class ServeEngine:
         return DeadlineScheduler(self, t_max_s=t_max_s)
 
     # -- live ensemble swap -------------------------------------------------
-    def update_ensemble(self, ensemble: Ensemble) -> None:
+    def update_ensemble(self, ensemble) -> None:
         """Swap in a grown ensemble of the same structure, on the engine's
         device.  Capacity alone is NOT identity: the full structural
         signature (the same check ``save_artifact`` applies against its
@@ -259,9 +277,9 @@ class ServeEngine:
                     f"(nesting + leaf shapes/dtypes): {got} != {want}; "
                     "build a new engine for a different learner/spec/capacity"
                 )
-            if ensemble.alpha.device != self.device:
+            if ensemble_device(ensemble) != self.device:
                 raise ValueError(
-                    f"ensemble is on {ensemble.alpha.device}, the engine serves on {self.device}"
+                    f"ensemble is on {ensemble_device(ensemble)}, the engine serves on {self.device}"
                 )
             # single attribute store = atomic publication under the GIL
-            self._live = (ensemble, _used_weights(ensemble))
+            self._live = self._publication(ensemble)

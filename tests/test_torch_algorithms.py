@@ -197,9 +197,11 @@ def test_plan_names_the_algorithms_and_refuses_fedavg():
 
 
 @pytest.mark.parametrize("argv,item", [(["--algorithm", "fedavg"], "item 11"),
-                                       (["--learner", "ridge"], "item 8"),
-                                       (["--learner", "mlp"], "item 8")])
+                                       (["--learner", "ridge", "--algorithm", "fedavg"], "item 11"),
+                                       (["--learner", "mlp", "--algorithm", "fedavg"], "item 11")])
 def test_fl_run_refuses_unported_choices_naming_the_item(argv, item, capsys):
+    """FedAvg is what is left unported (every learner is ported, item 8);
+    asked for with any learner, it is refused naming its item."""
     from repro_torch.launch import fl_run
 
     with pytest.raises(SystemExit):

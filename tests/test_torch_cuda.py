@@ -503,3 +503,96 @@ def test_llm_serving_on_the_card_goes_through_the_kernel(dev):
     prompts = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
     got = serve.generate(card, prompts.to(dev), 6)["tokens"]
     assert torch.equal(got.cpu(), serve.generate(cpu, prompts, 6)["tokens"])
+
+
+# -- the other learners, the Dirichlet split, heterogeneous federations -------------
+
+
+def _dirichlet_mask():
+    """adult's Dirichlet split as fl_run draws it (C = 8, alpha 0.5, seed 0):
+    [8, n_max], most of each row's tail padding."""
+    from repro_torch.launch import fl_run
+
+    return fl_run.build_federation("adult", 8, 1, 4, 0, "cpu", split="dirichlet").masks
+
+
+def test_weight_update_kernel_under_a_dirichlet_mask(dev):
+    """Rows padded to the largest shard: the padding stays exactly 0 after
+    the renormalisation, the total is 1, rtol 1e-5 against the plain
+    version, the same bits twice."""
+    mask = _dirichlet_mask()
+    g = torch.Generator().manual_seed(18)
+    w = torch.rand(mask.numel(), generator=g) * mask.reshape(-1)
+    w, m = (w / w.sum()).to(dev), mask.reshape(-1).to(dev)
+    mis = (torch.rand(mask.numel(), generator=g) < 0.3).float().to(dev)
+    for a in (0.37, -2.0, 10.0):
+        alpha = torch.tensor(a, device=dev)
+        got = ops.weight_update(w, mis, m, alpha)
+        again = ops.weight_update(w, mis, m, alpha)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref.renormalised_weight_update_ref(w, mis, m, alpha),
+                                   rtol=1e-5, atol=0)
+        assert torch.equal(got, again)
+        assert bool((got[m == 0] == 0).all())
+        assert abs(float(got.double().sum()) - 1.0) < 1e-5
+
+
+def test_weighted_errors_kernel_with_zero_weight_tails(dev):
+    mask = _dirichlet_mask()
+    C, n = mask.shape
+    g = torch.Generator().manual_seed(19)
+    w = torch.rand(C, n, generator=g) * mask
+    w = (w / w.sum()).to(dev)
+    preds = torch.randint(0, 2, (C, C, n), generator=g, dtype=torch.int32).to(dev)
+    y = torch.randint(0, 2, (C, n), generator=g, dtype=torch.int32).to(dev)
+    got = ops.weighted_errors(preds, y, w)
+    again = ops.weighted_errors(preds, y, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.weighted_errors_ref(preds, y, w), rtol=1e-4, atol=0)
+    assert torch.equal(got, again)
+
+
+def test_vote_argmax_kernel_at_the_hetero_engine_shape_equals_a_member_by_member_tally(dev):
+    """pendigits, 3 groups of T = 10 stacked: [30, 256], K = 10."""
+    from repro_torch.core import scoring
+
+    g = torch.Generator().manual_seed(30)
+    preds = torch.randint(0, 10, (30, 256), generator=g, dtype=torch.int32).to(dev)
+    alpha = (torch.rand(30, generator=g) * 3.0).to(dev)
+    got = ops.vote_argmax(preds, alpha, n_classes=10)
+    votes = scoring.init_tally(256, 10, dev).votes
+    for t in range(30):  # one fp32 add a member, ascending, as scoring.tally_new_votes
+        votes = votes + alpha[t] * ref.one_hot(preds[t], 10, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, scoring.tally_predict(scoring.VoteTally(votes, 30)))
+
+
+def test_a_mixed_round_on_the_card_matches_the_cpu(dev):
+    """One AdaBoost.F round of six families over 8 collaborators on the
+    adult Dirichlet split: 8 tree_hist (two tree groups x depth 4), one
+    weighted_errors, one weight_update, no plain version on the card, and
+    the CPU's winner, epsilon (rtol 1e-4) and group counts."""
+    from repro_torch.core import boosting, hetero
+    from repro_torch.launch import fl_run
+
+    learners = ("decision_tree", "extra_tree", "ridge", "gaussian_nb", "nearest_centroid", "mlp")
+    out = {}
+    for device in ("cuda", "cpu"):
+        fed = fl_run.build_federation("adult", 8, 1, 4, 0, device, learners=learners,
+                                      split="dirichlet")
+        state = hetero.init_hetero_boost_state(fed.spec, 1, fed.masks, X=fed.Xs)
+        stages = hetero.hetero_adaboost_f_stages(fed.spec, generator=fed.generator)
+        ops.reset_launches()
+        calls = dict(ref.device_calls)
+        state, metrics = boosting.run_stages(stages, state, fed.Xs, fed.ys, fed.masks)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == {"tree_hist": 8, "weighted_errors": 1,
+                                           "weight_update": 1, "vote_argmax": 0,
+                                           "flash_attention": 0}
+            assert ref.device_calls == calls
+        out[device] = (int(metrics["chosen"]), float(metrics["epsilon"]),
+                       [e.count for e in state.ensemble])
+    (c_gpu, e_gpu, n_gpu), (c_cpu, e_cpu, n_cpu) = out["cuda"], out["cpu"]
+    assert c_gpu == c_cpu and n_gpu == n_cpu
+    assert abs(e_gpu - e_cpu) <= 1e-4 * abs(e_cpu)

@@ -62,7 +62,12 @@ def test_fl_run_defaults_to_cuda_and_raises_without_a_card():
 
 
 @pytest.mark.parametrize("argv", [["--algorithm", "distboost_f"], ["--algorithm", "preweak_f"],
-                                  ["--algorithm", "bagging"], ["--learner", "extra_tree"]])
+                                  ["--algorithm", "bagging"], ["--learner", "extra_tree"],
+                                  ["--learner", "ridge"], ["--learner", "gaussian_nb"],
+                                  ["--learner", "nearest_centroid"], ["--learner", "mlp"],
+                                  ["--split", "dirichlet"],
+                                  ["--learners", "decision_tree,ridge,gaussian_nb"],
+                                  ["--learners", "decision_tree,ridge", "--algorithm", "preweak_f"]])
 def test_fl_run_new_paths_default_to_cuda_and_raise_without_a_card(argv):
     _no_card()
     from repro_torch.launch import fl_run
@@ -90,6 +95,35 @@ def test_serve_fl_defaults_to_cuda_and_raises_without_a_card():
 
     with pytest.raises(RuntimeError, match="cuda"):
         serve_fl.main(["--dataset", "vehicle", "--rounds", "1"])
+
+
+@pytest.mark.parametrize("argv", [["--learner", "ridge"], ["--learners", "decision_tree,ridge"]])
+def test_serve_fl_new_flags_default_to_cuda_and_raise_without_a_card(argv):
+    _no_card()
+    from repro_torch.launch import serve_fl
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_fl.main(["--dataset", "vehicle", "--rounds", "1", *argv])
+
+
+def test_heterogeneous_federation_and_artifact_default_to_cuda(tmp_path):
+    """A heterogeneous Federation and a v2 artifact land on the card unless
+    the caller asks for the CPU."""
+    _no_card()
+    from repro_torch.core import hetero
+    from repro_torch.core.plan import adaboost_plan
+    from repro_torch.fl.federation import Federation
+    from repro_torch.serve import load_artifact, save_artifact
+
+    hs = hetero.HeterogeneousSpec.cycle(["ridge", "gaussian_nb"], 2, 3, 2)
+    X = torch.zeros(2, 4, 3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Federation(adaboost_plan(rounds=1), X, torch.zeros(2, 4, dtype=torch.int32),
+                   torch.ones(2, 4), X[0], torch.zeros(4, dtype=torch.int32), hs)
+    path = save_artifact(tmp_path / "h.mafl", hs, hetero.init_hetero_ensemble(hs, 2, "cpu"))
+    assert load_artifact(path, "cpu").ensemble[0].alpha.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_artifact(path)
 
 
 def test_load_artifact_defaults_to_cuda_and_raises_without_a_card(tmp_path):
@@ -140,8 +174,25 @@ def _numpy_model(cfg):
     return {"embed": embed, "final_norm": flat["final_norm.gamma"], "unit": {"L0": unit}}
 
 
+def _numpy_params(name):
+    import numpy as np
+
+    return {
+        "ridge": {"W": np.zeros((4, 3), np.float32)},
+        "gaussian_nb": {"log_prior": np.zeros(3, np.float32), "mean": np.zeros((3, 3), np.float32),
+                        "var": np.ones((3, 3), np.float32)},
+        "nearest_centroid": {"centroid": np.zeros((3, 3), np.float32),
+                             "log_prior": np.zeros(3, np.float32)},
+        "mlp": {"W1": np.zeros((3, 5), np.float32), "b1": np.zeros(5, np.float32),
+                "W2": np.zeros((5, 3), np.float32), "b2": np.zeros(3, np.float32)},
+    }[name]
+
+
 @pytest.mark.parametrize("name", ["tree_params_from_numpy", "ensemble_from_numpy",
-                                  "boost_state_from_numpy", "model_params_from_numpy"])
+                                  "boost_state_from_numpy", "model_params_from_numpy",
+                                  "params_from_numpy:ridge", "params_from_numpy:gaussian_nb",
+                                  "params_from_numpy:nearest_centroid", "params_from_numpy:mlp",
+                                  "hetero_ensemble_from_numpy"])
 def test_convert_defaults_to_cuda_and_raises_without_a_card(name):
     """The carry-over functions place state on the card unless the caller
     asks for the CPU, as every other entry point of the port does."""
@@ -152,6 +203,15 @@ def test_convert_defaults_to_cuda_and_raises_without_a_card(name):
     if name == "model_params_from_numpy":
         cfg = get_arch("gemma-2b").reduced()
         args = (cfg, _numpy_model(cfg))
+    elif name.startswith("params_from_numpy:"):
+        name, learner = name.split(":")
+        args = (learner, _numpy_params(learner))
+    elif name == "hetero_ensemble_from_numpy":
+        import numpy as np
+
+        ridge = {**_numpy_params("ridge"), "alpha": np.ones(1, np.float32),
+                 "count": np.asarray(1, np.int32)}
+        args = ([_numpy_ensemble(), ridge], ["decision_tree", "ridge"])
     else:
         args = (_numpy_boost_state(),)
     fn = getattr(convert, name)

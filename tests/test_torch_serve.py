@@ -226,17 +226,19 @@ def test_artifact_errors_match_jax(model, tmp_path, how):
 
 @pytest.mark.parametrize("flavour", ["heterogeneous", "committee"])
 def test_artifact_rejects_unported_flavours_naming_the_item(model, tmp_path, flavour):
-    """Heterogeneous (v2) artifacts are still refused, naming their item;
-    committee (DistBoost.F) artifacts, refused until item 7 came, now load
-    and predict what the JAX package's ``strong_predict(committee=True)``
-    predicts."""
+    """The two flavours once refused, naming their items, now load:
+    heterogeneous (v2) artifacts since item 10 (each group's ensemble as
+    saved), committee (DistBoost.F) artifacts since item 7, predicting
+    what the JAX package's ``strong_predict(committee=True)`` predicts."""
     key = jax.random.PRNGKey(0)
     if flavour == "heterogeneous":
         hspec = HeterogeneousSpec.cycle(["decision_tree", "ridge"], 2, D, K,
                                         hparams={"decision_tree": HP, "ridge": {}})
         path = jax_save(tmp_path / "h.mafl", hspec, init_hetero_ensemble(hspec, 3, key))
-        with pytest.raises(ValueError, match="item 10"):
-            load_artifact(path, "cpu")
+        art = load_artifact(path, "cpu")
+        assert art.hetero and art.learner is None and art.spec.names == hspec.names
+        assert [e.alpha.shape[0] for e in art.ensemble] == [3, 3]
+        assert art.spec.assignment == hspec.assignment
         return
     a = random_ensemble_arrays(11, T=T, count=COUNT, depth=DEPTH, d=D, K=K, committee=3)
     path = jax_save(tmp_path / "c.mafl", model["jspec"], jax_ensemble(a), committee_size=3)
