@@ -92,7 +92,25 @@ Phases, each of which raises (non-zero exit) on failure:
    ``--load``, a heterogeneous DistBoost.F committee artifact and
    ``serve_fl --learner ridge`` — one ``vote_argmax`` a batch and a
    warm-up, the cache answering what the engine answers, the card's votes
-   the CPU's outside the near-tie gap.
+   the CPU's outside the near-tie gap;
+11. run the interpreted OpenFL-style round, FedAvg and the §5.1 flags
+   through ``repro_torch.launch.fl_run`` on the card (adult, C = 8, depth
+   4, 16 bins, 10 rounds, seed 0; every launch count set to 0 just before
+   each run): ``--faithful`` (the interpreted path's main run: 32
+   ``tree_hist``, 8 ``weighted_errors``, 8 ``weight_update_product`` and no
+   renormalising ``weight_update`` a round, no plain version on the card),
+   again on the CPU (the chosen member compared round by round, F1 within
+   0.02) and against the card's fused run; the §5.1 ladder (``--faithful``,
+   then ``+packed_serialization``, ``+bounded_tensordb``,
+   ``+fast_barrier``, ``+fused_round``, ``+cache_predictions``, and
+   ``batched_fit`` off) with ms/round, the TensorDB's peak entries, comm MB
+   and the barrier's sleep of each; PreWeak.F (T = 10) without its
+   prediction cache against the cached run; ``--algorithm fedavg --learner
+   mlp`` on the card and the CPU (F1 above the constant predictor's, the
+   same comm bytes).  Phase 3 holds the new shapes too:
+   ``weight_update_product`` at ``[4 070]`` and ``[32 560]``, ``tree_hist``
+   at H = 1 (``[1, 4 070, 14]``, L = 1, 2, 4, 8) under skewed weights and
+   ``weighted_errors`` at ``[1, 8, 4 070]``.
 
 Each phase's seconds are printed at the end.  The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Without a card, or beside no copy of
@@ -128,6 +146,7 @@ TOL = {  # kernel: tolerance against its plain version on the card
     "tree_hist": {"atol": 1e-4, "rtol": 0.0},
     "weighted_errors": {"atol": 0.0, "rtol": 1e-4},
     "weight_update": {"atol": 0.0, "rtol": 1e-5},
+    "weight_update_product": {"atol": 0.0, "rtol": 1e-6},  # elementwise: expf against exp
     # float32 sums in another order (tests/test_kernels.py's atol); in bf16
     # both sides round the same float32 value, so they may land one ulp
     # apart: at most 2^-7 of the value, within rtol 1e-2, plus atol 4e-3
@@ -140,6 +159,8 @@ SOURCES = {
     "tree_hist": ("src/repro_torch/csrc/tree_hist.cu", "src/repro/kernels/tree_hist.py:88"),
     "weighted_errors": ("src/repro_torch/csrc/boost_update.cu", "src/repro/kernels/boost_update.py:51"),
     "weight_update": ("src/repro_torch/csrc/boost_update.cu", "src/repro/kernels/boost_update.py:86"),
+    "weight_update_product": ("src/repro_torch/csrc/boost_update.cu",
+                              "src/repro/kernels/boost_update.py:86"),
     "vote_argmax": ("src/repro_torch/csrc/vote_argmax.cu", "src/repro/kernels/vote_argmax.py:63"),
     # the record reports the bf16 route (gemma-2b's); float32 calls take
     # csrc/flash_attention.cu, timed at "ragged"
@@ -147,7 +168,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:121"),
 }
 MAIN_SHAPE = {"tree_hist": "adult", "weighted_errors": "adult", "weight_update": "adult",
-              "vote_argmax": "pendigits", "flash_attention": "gemma_serve"}
+              "weight_update_product": "adult_shard", "vote_argmax": "pendigits",
+              "flash_attention": "gemma_serve"}
 # vote_argmax [T, n, K]: serve_fl's defaults on pendigits (10 rounds, batch
 # 256) and letter at 100 rounds, at the batch and at a whole 4096-row shard,
 # and letter's batch at 1000 rounds
@@ -344,7 +366,7 @@ def ptxas_report(build_log: str) -> dict:
 # tree_hist, weighted_errors, weight_update, and vote_argmax for 1, 2, 4, 8
 # and 16 classes a thread
 CORE_KERNELS = ("tree_hist_kernel", "weighted_errors_kernel", "weight_update_kernel",
-                "vote_argmax_kernel")
+                "weight_product_kernel", "vote_argmax_kernel")
 
 
 def kernel_row(entry: str, info: dict) -> str:
@@ -615,6 +637,47 @@ def check_weight_update(torch, ops, ref, g):
     return results, worst
 
 
+def check_weight_update_product(torch, ops, ref, g):
+    """The interpreted round's un-renormalised update (the Pallas body
+    alone) against its plain version at rtol 1e-6: adult's shard
+    ``[4 070]`` (a collaborator's update) and the whole ``[32 560]``, an odd
+    N, three alphas and a mask with zeros; each output written over a
+    NaN-filled block."""
+    results, worst = {}, 0.0
+    cases = [("adult_shard", SHAPES["adult"][0]), ("adult", C * SHAPES["adult"][0]),
+             ("ragged", 4097), ("ragged", 1)]
+    for ds, N in cases:
+        w = (torch.rand(N, generator=g) / N).to(DEV)
+        mis = (torch.rand(N, generator=g) < 0.3).float().to(DEV)
+        mask = torch.ones(N)
+        mask[3::7] = 0.0
+        mask = mask.to(DEV)
+        err = 0.0
+        for a in (0.37, -2.0, 10.0):
+            alpha = torch.tensor(a, device=DEV)
+            got = poisoned(torch, (N,), lambda: ops.weight_update_product(w, mis, mask, alpha))
+            want = ref.boost_weight_update_ref(w, mis, mask, alpha)
+            err = max(err, assert_close(torch, "weight_update_product", got, want,
+                                        f"{ds} N={N} alpha={a}"))
+        worst = max(worst, err)
+        if ds != "ragged":
+            alpha = torch.tensor(0.37, device=DEV)
+            # bytes: w, mis, mask and alpha read once, out written once (16N + 4);
+            # operations: an exp and three multiplies an element
+            bms, by = bound_ms(4 * (4 * N + 1), 4 * N)
+            # no single PyTorch call computes w * exp(alpha * mis) * mask: no library time
+            results[ds] = {
+                "shape": f"w [{N}]", "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+                **timings(torch, lambda: ops.weight_update_product(w, mis, mask, alpha),
+                          lambda: ref.boost_weight_update_ref(w, mis, mask, alpha)),
+            }
+    log(f"weight_update_product: {len(cases) * 3} cases agree, each written over a NaN-filled "
+        f"block; worst max_abs_err {worst:.3g}; "
+        + "; ".join(f"{k} {v['shape']} {v['ms']:.5f} ms (bound {v['bound_ms']:.6f}, plain "
+                    f"{v['plain_ms']:.5f}, eager {v['eager_ms']:.5f})" for k, v in results.items()))
+    return results, worst
+
+
 def vote_gap_agree(votes, a, b, alpha) -> tuple:
     """(rows where ``a`` and ``b`` differ outside the near-tie gap, rows
     inside it, rows inside it where they differ): a row whose top two vote
@@ -810,6 +873,72 @@ def check_dirichlet_shapes(torch, ops, ref, g, mask) -> dict:
             "vote_argmax": {"hetero_pendigits": vote}}
 
 
+def check_interpreted_shapes(torch, ops, ref, g) -> dict:
+    """Phase 11's new shapes of the existing kernels: ``tree_hist`` at
+    H = 1, adult's shard (``[1, 4 070, 14]``, L = 1, 2, 4, 8, K = 2) under
+    AdaBoost's skewed weights (atol 1e-4, the plain version's split, each
+    output on a NaN-filled block, the plan's grid in one wave), and
+    ``weighted_errors`` at ``[1, 8, 4 070]`` (rtol 1e-4, the same bits
+    twice).  Returns {kernel: {shape name: record}}."""
+    from repro_torch.kernels import tree_hist as tree_hist_mod
+    from repro_torch.learners.tree import _split_scores
+
+    n, d, K = SHAPES["adult"]
+    B1 = N_BINS + 1
+    levels, worst, plans = {}, 0.0, []
+    for L in (1, 2, 4, 8):
+        bins = torch.randint(0, B1, (1, n, d), generator=g, dtype=torch.int32).to(DEV)
+        leaf = torch.randint(0, L, (1, n), generator=g, dtype=torch.int32).to(DEV)
+        w = torch.exp(4.0 * torch.randn(1, n, generator=g, dtype=torch.float64))
+        w = (w / w.sum()).float()
+        y = torch.randint(0, K, (1, n), generator=g)
+        wy = (torch.nn.functional.one_hot(y, K).float() * w.unsqueeze(-1)).contiguous().to(DEV)
+        got = poisoned(torch, (1, L, d, B1, K),
+                       lambda: ops.tree_hist(bins, leaf, wy, n_leaves=L, n_bins_p1=B1))
+        want = ref.tree_hist_batched_ref(bins, leaf, wy, L, B1)
+        err = assert_close(torch, "tree_hist", got, want, f"H=1 adult L={L}, skewed weights")
+        check(torch.equal(got, ops.tree_hist(bins, leaf, wy, n_leaves=L, n_bins_p1=B1)),
+              f"tree_hist H=1 L={L}: two calls differ")
+        check(torch.equal(torch.argmax(_split_scores(got).flatten(1), dim=1),
+                          torch.argmax(_split_scores(want).flatten(1), dim=1)),
+              f"tree_hist H=1 L={L}: the split differs from the plain version's")
+        worst = max(worst, err)
+        p = tree_hist_mod.launch_plan(1, n, d, L, B1, K)
+        plans.append(f"L={L} dblk {p.dblk} cs {p.cs} {p.threads} threads")
+        seg = ((leaf.long().unsqueeze(-1) * d + torch.arange(d, device=DEV).view(1, 1, d)) * B1
+               + bins.long()).reshape(-1)
+        vals = wy.unsqueeze(2).expand(1, n, d, K).reshape(-1, K).contiguous()
+        buf = torch.zeros(L * d * B1, K, device=DEV)
+        bms, by = bound_ms(4 * (n * d + n + n * K + L * d * B1 * K), d * int((wy != 0).sum()))
+        levels[L] = {"max_abs_err": err, "bound_ms": bms, "bound_by": by,
+                     **timings(torch, lambda: ops.tree_hist(bins, leaf, wy, n_leaves=L, n_bins_p1=B1),
+                               lambda: ref.tree_hist_batched_ref(bins, leaf, wy, L, B1),
+                               lambda: buf.index_add_(0, seg, vals))}
+    hist = {k: sum(v[k] for v in levels.values()) / len(levels)
+            for k in ("ms", "plain_ms", "library_ms", "eager_ms", "bound_ms")}
+    hist.update(shape=f"bin_idx [1, {n}, {d}], L=1,2,4,8, K={K}, skewed weights", levels=levels,
+                max_abs_err=worst, bound_by=levels[8]["bound_by"])
+
+    H = C
+    preds = torch.randint(0, K, (1, H, n), generator=g, dtype=torch.int32).to(DEV)
+    yy = torch.randint(0, K, (1, n), generator=g, dtype=torch.int32).to(DEV)
+    ww = (torch.rand(1, n, generator=g) / n).to(DEV)
+    got = poisoned(torch, (1, H), lambda: ops.weighted_errors(preds, yy, ww))
+    err = assert_close(torch, "weighted_errors", got, ref.weighted_errors_ref(preds, yy, ww),
+                       f"one shard [1, {H}, {n}]")
+    check(torch.equal(got, ops.weighted_errors(preds, yy, ww)), "weighted_errors [1, 8, n]: two calls differ")
+    bms, by = bound_ms(4 * (H * n + 2 * n + H), 2 * H * n)
+    errors = {"shape": f"preds [1, {H}, {n}]", "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+              **timings(torch, lambda: ops.weighted_errors(preds, yy, ww),
+                        lambda: ref.weighted_errors_ref(preds, yy, ww))}
+    log(f"phase 11 shapes: tree_hist H=1 adult, skewed weights, the plain version's split at every "
+        f"level (worst {worst:.3g}; {'; '.join(plans)}): mean {hist['ms']:.5f} ms (bound "
+        f"{hist['bound_ms']:.6f}, plain {hist['plain_ms']:.5f}, index_add_ {hist['library_ms']:.5f}); "
+        f"weighted_errors [1, {H}, {n}] {errors['ms']:.5f} ms (bound {errors['bound_ms']:.6f}, plain "
+        f"{errors['plain_ms']:.5f})")
+    return {"tree_hist": {"adult_h1": hist}, "weighted_errors": {"adult_c1": errors}}
+
+
 def visible_pairs(S: int, T: int, causal: bool, window) -> int:
     """(query, key) pairs the mask lets through for one (b, h): the work
     a flash kernel must do on these shapes."""
@@ -888,6 +1017,10 @@ def run_fl(fl_run, dataset: str, rounds: int, device: str, tag: str, extra=()) -
     log(f"$ python -m repro_torch.launch.fl_run {' '.join(argv)}")
     fl_run.main(argv)
     return json.loads(path.read_text())
+
+
+def no_launches(ops) -> dict:
+    return {name: 0 for name in ops.launch_counts()}
 
 
 def check_run(run: dict, rounds: int, what: str, space: int = C) -> None:
@@ -1168,7 +1301,7 @@ def algorithms_phase(torch, ops, ref, fl_run, card: str) -> None:
         calls = dict(ref.device_calls)
         run = run_fl(fl_run, "adult", rounds, "cuda", f"{tag}_cuda", extra)
         got = ops.launch_counts()
-        check(got == {**want, "vote_argmax": 0, "flash_attention": 0}, f"{tag}: launches {got} != {want}")
+        check(got == {**no_launches(ops), **want}, f"{tag}: launches {got} != {want}")
         check(ref.device_calls == calls, f"{tag}: a plain version ran on CUDA tensors: {ref.device_calls}")
         check_run(run, rounds, f"{tag} on the card", space)
         ms_round[tag] = 1e3 * run["history"][-1]["round_seconds"]
@@ -1263,7 +1396,7 @@ def hetero_phase(torch, ops, ref, fl_run, card: str) -> None:
         calls = dict(ref.device_calls)
         run = run_fl(fl_run, "adult", MAIN["rounds"], "cuda", f"{tag}_cuda", extra)
         got = ops.launch_counts()
-        check(got == {**want, "vote_argmax": 0, "flash_attention": 0}, f"{tag}: launches {got} != {want}")
+        check(got == {**no_launches(ops), **want}, f"{tag}: launches {got} != {want}")
         check(ref.device_calls == calls, f"{tag}: a plain version ran on CUDA tensors: {ref.device_calls}")
         check_run(run, MAIN["rounds"], f"{tag} on the card", space)
         ms_round[tag] = 1e3 * run["history"][-1]["round_seconds"]
@@ -1337,6 +1470,141 @@ def hetero_serving(torch, ops, ref, fl_run, card: str) -> None:
         f"{ridge['stats'].batches} batches and {ridge['stats'].warmup_batches} warm-up, "
         f"F1 {ridge['f1']:.4f}")
     log(card_vs_cpu(torch, ridge_art, "pendigits", ridge["pred"], "pendigits ridge"))
+
+
+# -- phase 11: the interpreted round, FedAvg and the §5.1 flags -------------------------
+
+# launches of one interpreted adult round (C = 8, depth 4): a fit per
+# collaborator, a weighted_errors per shard, a product per collaborator
+INTERPRETED_ROUND = {"tree_hist": C * DEPTH, "weighted_errors": C, "weight_update": 0,
+                     "weight_update_product": C}
+# the §5.1 ladder (the paper's Fig. 3): each step turns one more flag on
+LADDER = [
+    ("faithful", {}),
+    ("+packed_serialization", {"packed_serialization": True}),
+    ("+bounded_tensordb", {"bounded_tensordb": True}),
+    ("+fast_barrier", {"fast_barrier": True}),
+    ("+fused_round", {"fused_round": True}),
+    ("+cache_predictions", {"cache_predictions": True}),
+    ("batched_fit off", {"batched_fit": False}),
+]
+
+
+def ladder_step(torch, fl_run, flags, algorithm: str = "adaboost_f") -> dict:
+    """One adult run (10 rounds, eval every 5) built with ``flags`` through
+    ``fl_run.build_federation``; ms/round is the last history row's
+    (rounds 5-9, one eval), host clock."""
+    fed = fl_run.build_federation("adult", C, MAIN["rounds"], DEPTH, 0, DEV, algorithm=algorithm,
+                                  optimizations=flags)
+    hist = fed.run(eval_every=MAIN["eval_every"])
+    torch.cuda.synchronize()
+    return {"ms_round": 1e3 * hist[-1]["round_seconds"], "f1": hist[-1]["f1"],
+            "peak_entries": fed.aggregator.db.peak_entries, "comm_mb": fed.comm_bytes / 1e6,
+            "barrier_s": fed.barrier.waited_seconds, "rounds": fed.per_round()}
+
+
+def interpreted_phase(torch, ops, ref, fl_run, card: str, fused_run: dict) -> int:
+    """``--faithful`` at full width on the card and the CPU, the §5.1
+    ladder, PreWeak.F without its cache and FedAvg.  Returns the product
+    kernel's launches in the ``--faithful`` run."""
+    import dataclasses
+
+    rounds = MAIN["rounds"]
+    ops.reset_launches()
+    calls = dict(ref.device_calls)
+    run = run_fl(fl_run, "adult", rounds, "cuda", "faithful_cuda", ["--faithful"])
+    got = ops.launch_counts()
+    product_launches = got["weight_update_product"]
+    want = {**no_launches(ops), **{k: v * rounds for k, v in INTERPRETED_ROUND.items()}}
+    check(got == want, f"--faithful: launches {got} != {want}")
+    check(ref.device_calls == calls, f"--faithful: a plain version ran on CUDA tensors: {ref.device_calls}")
+    check_run(run, rounds, "--faithful on the card")
+    cpu = run_fl(fl_run, "adult", rounds, "cpu", "faithful_cpu", ["--faithful"])
+    check_run(cpu, rounds, "--faithful on the CPU")
+    g0, c0 = run["rounds"][0], cpu["rounds"][0]
+    check(g0["chosen"] == c0["chosen"], f"--faithful round 0 chosen: card {g0['chosen']} vs CPU {c0['chosen']}")
+    f1_gpu, f1_cpu = run["history"][-1]["f1"], cpu["history"][-1]["f1"]
+    check(abs(f1_gpu - f1_cpu) <= 0.02, f"--faithful final F1: card {f1_gpu} vs CPU {f1_cpu}")
+    check(run["comm_bytes"] == cpu["comm_bytes"], f"--faithful comm bytes: card {run['comm_bytes']} "
+          f"vs CPU {cpu['comm_bytes']}")
+    agree = sum(a["chosen"] == b["chosen"] for a, b in zip(run["rounds"], cpu["rounds"]))
+    f0 = fused_run["rounds"][0]
+    check(g0["chosen"] == f0["chosen"], f"--faithful round 0 chosen {g0['chosen']} vs the fused "
+          f"run's {f0['chosen']}")
+    f1_fused = fused_run["history"][-1]["f1"]
+    check(abs(f1_gpu - f1_fused) <= 0.02, f"--faithful final F1 {f1_gpu} vs the fused run's {f1_fused}")
+    agree_fused = sum(a["chosen"] == b["chosen"] for a, b in zip(run["rounds"], fused_run["rounds"]))
+    log(f"--faithful (adult, C = {C}, {rounds} rounds) on {card}: launches {got} "
+        f"({INTERPRETED_ROUND} a round); card vs CPU: chosen agrees in "
+        f"{agree}/{rounds} rounds, final F1 {f1_gpu:.4f} vs {f1_cpu:.4f}; card interpreted vs card "
+        f"fused: chosen agrees in {agree_fused}/{rounds}, F1 {f1_gpu:.4f} vs {f1_fused:.4f}; "
+        f"{1e3 * run['history'][-1]['round_seconds']:.3f} ms/round (rounds 5-9, one eval), comm "
+        f"{run['comm_bytes']} bytes, TensorDB peak {run['tensordb_peak_entries']} entries, barrier "
+        f"slept {run['barrier_waited_seconds']:.4f} s")
+
+    from repro_torch.core.plan import OptimizationFlags
+
+    flags, rows = fl_run.FAITHFUL, []
+    for step, change in LADDER:
+        flags = (dataclasses.replace(flags, **change) if step != "batched_fit off"
+                 else OptimizationFlags(batched_fit=False))
+        ops.reset_launches()
+        rec = ladder_step(torch, fl_run, flags)
+        check(ref.device_calls == calls, f"ladder {step}: a plain version ran on CUDA tensors")
+        rec["launches"] = ops.launch_counts()
+        rows.append((step, rec))
+    base = rows[0][1]["rounds"]
+    for step, rec in rows:
+        agree = sum(a["chosen"] == b["chosen"] for a, b in zip(rec["rounds"], base))
+        check(rec["rounds"][0]["chosen"] == base[0]["chosen"], f"ladder {step}: round 0 chose "
+              f"{rec['rounds'][0]['chosen']}, --faithful {base[0]['chosen']}")
+        rec["agree"] = agree
+    check(rows[-1][1]["launches"]["tree_hist"] == C * DEPTH * rounds,
+          f"batched_fit off: {rows[-1][1]['launches']['tree_hist']} tree_hist launches, not "
+          f"{C * DEPTH * rounds} (one a collaborator a level)")
+    log(f"§5.1 ladder (adult, C = {C}, {rounds} rounds; ms/round rounds 5-9 with one eval; {card}): "
+        + "; ".join(f"{step} {rec['ms_round']:.3f} ms/round, TensorDB peak {rec['peak_entries']}, "
+                    f"comm {rec['comm_mb']:.4f} MB, barrier {rec['barrier_s']:.4f} s, F1 "
+                    f"{rec['f1']:.4f}, chosen = --faithful's in {rec['agree']}/{rounds}"
+                    for step, rec in rows))
+    log("ladder launches: " + "; ".join(f"{step} {rec['launches']}" for step, rec in rows))
+
+    cached = ladder_step(torch, fl_run, OptimizationFlags(), "preweak_f")
+    ops.reset_launches()
+    uncached = ladder_step(torch, fl_run, OptimizationFlags(cache_predictions=False), "preweak_f")
+    got = ops.launch_counts()
+    want = {**no_launches(ops), "tree_hist": rounds * DEPTH, "weighted_errors": rounds,
+            "weight_update": rounds}
+    check(got == want, f"PreWeak.F without its cache: launches {got} != {want}")
+    same = [a["chosen"] for a in uncached["rounds"]] == [a["chosen"] for a in cached["rounds"]]
+    check(same, "PreWeak.F without its cache chose other members than the cached run")
+    log(f"PreWeak.F T = {rounds} (adult) on {card}: cached {cached['ms_round']:.3f} ms/round, "
+        f"without the cache {uncached['ms_round']:.3f} (the [{C}, {C * rounds}, "
+        f"{SHAPES['adult'][0]}] space predicted every round); the same member in every round, F1 {uncached['f1']:.4f} vs {cached['f1']:.4f}")
+
+    ops.reset_launches()
+    fed_argv = ["--algorithm", "fedavg", "--learner", "mlp"]
+    fa = run_fl(fl_run, "adult", rounds, "cuda", "fedavg_cuda", fed_argv)
+    check(ops.launch_counts() == no_launches(ops), f"FedAvg launched kernels: {ops.launch_counts()}")
+    check(ref.device_calls == calls, f"FedAvg: a plain version ran on CUDA tensors: {ref.device_calls}")
+    fa_cpu = run_fl(fl_run, "adult", rounds, "cpu", "fedavg_cpu", fed_argv)
+    fed = fl_run.build_federation("adult", C, 1, DEPTH, 0, "cpu")
+    counts = torch.bincount(fed.ys[fed.masks > 0].long(), minlength=2)
+    from repro_torch.core.metrics import f1_macro
+
+    majority = torch.full_like(fed.y_test, int(torch.argmax(counts)))
+    chance = float(f1_macro(fed.y_test, majority, 2))
+    f1_gpu, f1_cpu = fa["history"][-1]["f1"], fa_cpu["history"][-1]["f1"]
+    check(len(fa["history"]) == rounds - 1, f"FedAvg: {len(fa['history'])} history rows")
+    check(f1_gpu > chance and f1_cpu > chance, f"FedAvg F1 card {f1_gpu} / CPU {f1_cpu} not above "
+          f"the constant predictor's {chance}")
+    check(fa["comm_bytes"] == fa_cpu["comm_bytes"], f"FedAvg comm bytes: card {fa['comm_bytes']} "
+          f"vs CPU {fa_cpu['comm_bytes']}")
+    log(f"FedAvg (adult, C = {C}, mlp hidden 64, 20 local steps, {rounds} rounds) on {card}: final "
+        f"F1 {f1_gpu:.4f} (CPU {f1_cpu:.4f}, the constant predictor {chance:.4f}); "
+        f"{1e3 * fa['history'][-1]['round_seconds']:.3f} ms/round (the last row); comm "
+        f"{fa['comm_bytes']} bytes on both")
+    return product_launches
 
 
 # -- phase 8: LLM serving -----------------------------------------------------------
@@ -1518,10 +1786,10 @@ def main() -> int:
         spilled = [row(e) for e in sm90 if flash[e].get("spill_bytes", 1) != 0]
         check(not spilled, f"bf16 flash_attention instances spill: {spilled}")
         core = {e: i for e, i in report.items() if any(k in e for k in CORE_KERNELS)}
-        log("tree_hist / weighted_errors / weight_update / vote_argmax ptxas (registers, spill "
-            "bytes): " + "; ".join(kernel_row(e, i) for e, i in core.items()))
-        check(len(core) == 8, f"ptxas reported {len(core)} tree_hist/weighted_errors/weight_update/"
-              "vote_argmax kernels, not 8")
+        log("tree_hist / weighted_errors / weight_update / weight_update_product / vote_argmax "
+            "ptxas (registers, spill bytes): " + "; ".join(kernel_row(e, i) for e, i in core.items()))
+        check(len(core) == 9, f"ptxas reported {len(core)} tree_hist/weighted_errors/weight_update/"
+              "weight_product/vote_argmax kernels, not 9")
         spilled = [kernel_row(e, i) for e, i in core.items() if i.get("spill_bytes", 1) != 0]
         check(not spilled, f"kernels spill: {spilled}")
     atoms = shared_atomics(_build, "tree_hist_kernel")
@@ -1538,10 +1806,13 @@ def main() -> int:
         "tree_hist": check_tree_hist(torch, ops, ref, g),
         "weighted_errors": check_weighted_errors(torch, ops, ref, g),
         "weight_update": check_weight_update(torch, ops, ref, g),
+        "weight_update_product": check_weight_update_product(torch, ops, ref, g),
         "vote_argmax": check_vote_argmax(torch, ops, ref, g),
         "flash_attention": check_flash_attention(torch, ops, ref, g),
     }
     for name, rows in check_dirichlet_shapes(torch, ops, ref, g, dirichlet_mask(fl_run)).items():
+        per_kernel[name][0].update(rows)
+    for name, rows in check_interpreted_shapes(torch, ops, ref, g).items():
         per_kernel[name][0].update(rows)
     detail = {k: v[0] for k, v in per_kernel.items()}
     log("kernel_detail " + json.dumps({"card": card, "launch_floor_ms": floor, "kernels": detail}))
@@ -1564,7 +1835,7 @@ def main() -> int:
     launches = ops.launch_counts()
     want = {"tree_hist": MAIN["rounds"] * DEPTH, "weighted_errors": MAIN["rounds"],
             "weight_update": MAIN["rounds"]}
-    want["vote_argmax"] = want["flash_attention"] = 0
+    want["weight_update_product"] = want["vote_argmax"] = want["flash_attention"] = 0
     check(launches == want, f"main path launches {launches} != {want}")
     check(ref.device_calls == device_calls,
           f"a plain version ran on CUDA tensors in the main path: {ref.device_calls}")
@@ -1576,7 +1847,8 @@ def main() -> int:
         run = run_fl(fl_run, ds, 5, "cuda", f"{ds}_cuda")
         got = ops.launch_counts()
         check(got == {"tree_hist": 5 * DEPTH, "weighted_errors": 5, "weight_update": 5,
-                      "vote_argmax": 0, "flash_attention": 0}, f"{ds} launches {got}")
+                      "weight_update_product": 0, "vote_argmax": 0, "flash_attention": 0},
+              f"{ds} launches {got}")
         check(ref.device_calls == device_calls, f"{ds}: a plain version ran on CUDA tensors")
         check_run(run, 5, f"{ds} on the card")
         log(f"{ds}: final F1 {run['history'][-1]['f1']:.4f}, launches {got}")
@@ -1640,13 +1912,18 @@ def main() -> int:
     hetero_phase(torch, ops, ref, fl_run, card)
     hetero_serving(torch, ops, ref, fl_run, card)
     phase_done(10)
+
+    # 11. the interpreted round (--faithful), the §5.1 ladder, PreWeak.F
+    # without its cache, FedAvg
+    launches["weight_update_product"] = interpreted_phase(torch, ops, ref, fl_run, card, main_run)
+    phase_done(11)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
 
     kernels = []
     for name, (res, worst) in per_kernel.items():
         src, replaces = SOURCES[name]
-        training = name in ("tree_hist", "weighted_errors", "weight_update")
+        training = name in ("tree_hist", "weighted_errors", "weight_update", "weight_update_product")
         main_shape = res[MAIN_SHAPE[name]]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

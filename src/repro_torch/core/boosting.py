@@ -114,16 +114,37 @@ def init_boost_state(
     )
 
 
-def _local_fits(learner, spec, w, X, y, fit_cache, generator=None, **draws):
-    """Train one weak hypothesis per collaborator (paper step 2): all C
-    fits as one tensor program.  A learner with ``fit_batched`` (the trees)
-    fits over the shard-static fit cache; the others fit ``[C, n, ...]``
-    inputs natively (the counterpart of the JAX package's ``vmap(fit)``).
+def _local_fits(learner, spec, w, X, y, fit_cache, generator=None, *, batched: bool = True,
+                **draws):
+    """Train one weak hypothesis per collaborator (paper step 2).
+
+    Two routes, as the JAX package's ``_local_fits``:
+      * batched (``batched_fit`` on): a learner with ``fit_batched`` (the
+        trees) fits all C over the shard-static fit cache as one tensor
+        program (one ``tree_hist`` launch a level); the others fit
+        ``[C, n, ...]`` inputs natively (the counterpart of ``vmap(fit)``);
+      * per collaborator (``batched_fit`` off; the counterpart of
+        ``vmap(fit_cached)``): a learner with ``fit_batched`` fits each
+        collaborator alone over its slice of the cache, C launches a
+        level.  A randomised learner draws for all C in one call first
+        and hands each fit its row, so both routes draw the same numbers.
     A randomised learner draws from ``generator``, or takes ``draws``
     injected (``learners/base.py``)."""
-    if learner.fit_batched is not None:
+    if learner.fit_batched is None:
+        return learner.fit(spec, None, X, y, w, generator=generator, **draws)
+    if batched or fit_cache is None:
         return learner.fit_batched(spec, X, y, w, fit_cache, generator=generator, **draws)
-    return learner.fit(spec, None, X, y, w, generator=generator, **draws)
+    if learner.draw is not None and not draws:
+        if generator is None:
+            raise ValueError(f"{learner.name} draws: pass a generator or its draws")
+        draws = learner.draw(spec, X.shape[0], generator, X.device)
+    fits = []
+    for i in range(X.shape[0]):
+        row = slice(i, i + 1)
+        cache_i = type(fit_cache)(*(x[row] for x in fit_cache))
+        fits.append(learner.fit_batched(spec, X[row], y[row], w[row], cache_i,
+                                        **{k: v[row] for k, v in draws.items()}))
+    return type(fits[0])(*(torch.cat(leaves) for leaves in zip(*fits)))
 
 
 def _append(ens: Ensemble, member: Any, alpha) -> Ensemble:
@@ -157,12 +178,13 @@ def run_stages(stages, state: BoostState, X, y, mask):
 
 
 def adaboost_f_stages(learner: WeakLearner, spec: LearnerSpec, *,
-                      generator: torch.Generator | None = None):
+                      generator: torch.Generator | None = None, batched_fit: bool = True):
     """The AdaBoost.F round as named stages (see :func:`run_stages`)."""
 
     def fit(state, carry, X, y, mask):
-        # step 2: local training, all C fits as one batched tensor program
-        hyps = _local_fits(learner, spec, state.weights, X, y, state.fit_cache, generator)
+        # step 2: local training, one hypothesis per collaborator
+        hyps = _local_fits(learner, spec, state.weights, X, y, state.fit_cache, generator,
+                           batched=batched_fit)
         return state, {"hyps": hyps}
 
     def score(state, carry, X, y, mask):
@@ -190,9 +212,10 @@ def adaboost_f_stages(learner: WeakLearner, spec: LearnerSpec, *,
 
 def adaboost_f_round(
     learner: WeakLearner, spec: LearnerSpec, state: BoostState, X, y, mask, *,
-    generator: torch.Generator | None = None,
+    generator: torch.Generator | None = None, batched_fit: bool = True,
 ) -> Tuple[BoostState, Dict[str, torch.Tensor]]:
-    return run_stages(adaboost_f_stages(learner, spec, generator=generator), state, X, y, mask)
+    return run_stages(adaboost_f_stages(learner, spec, generator=generator,
+                                        batched_fit=batched_fit), state, X, y, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -206,11 +229,12 @@ def _committee_predict(learner, spec, committee, X) -> torch.Tensor:
 
 
 def distboost_f_stages(learner: WeakLearner, spec: LearnerSpec, *,
-                       generator: torch.Generator | None = None):
+                       generator: torch.Generator | None = None, batched_fit: bool = True):
     """The DistBoost.F round as named stages (see :func:`run_stages`)."""
 
     def fit(state, carry, X, y, mask):
-        committee = _local_fits(learner, spec, state.weights, X, y, state.fit_cache, generator)
+        committee = _local_fits(learner, spec, state.weights, X, y, state.fit_cache, generator,
+                                batched=batched_fit)
         return state, {"committee": committee}
 
     def score(state, carry, X, y, mask):
@@ -232,8 +256,9 @@ def distboost_f_stages(learner: WeakLearner, spec: LearnerSpec, *,
 
 
 def distboost_f_round(learner, spec, state, X, y, mask, *,
-                      generator: torch.Generator | None = None):
-    return run_stages(distboost_f_stages(learner, spec, generator=generator), state, X, y, mask)
+                      generator: torch.Generator | None = None, batched_fit: bool = True):
+    return run_stages(distboost_f_stages(learner, spec, generator=generator,
+                                         batched_fit=batched_fit), state, X, y, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -283,21 +308,27 @@ def preweak_f_predictions(learner, spec, hyp_space, X) -> torch.Tensor:
     return scoring.predict_tensor(learner, spec, hyp_space, X)
 
 
-def preweak_f_stages(learner, spec, hyp_space, pred_cache: torch.Tensor):
+def preweak_f_stages(learner, spec, hyp_space, pred_cache: torch.Tensor | None = None):
     """The PreWeak.F round as named stages (see :func:`run_stages`).  No fit
-    stage: the space is pre-trained and pre-predicted at setup."""
+    stage: the space is pre-trained at set-up.  With ``pred_cache`` (from
+    :func:`preweak_f_predictions`) a round is a reduction over the cached
+    predictions; without it the space is predicted every round (the
+    behaviour before the predict-once optimisation)."""
 
     def score(state, carry, X, y, mask):
-        errs = scoring.error_matrix(pred_cache, y, state.weights)  # [C, C*T]
-        return state, {"errs": errs}
+        preds = pred_cache if pred_cache is not None else preweak_f_predictions(
+            learner, spec, hyp_space, X)  # [C, C*T, n]
+        errs = scoring.error_matrix(preds, y, state.weights)  # [C, C*T]
+        return state, {"preds": preds, "errs": errs}
 
     def aggregate(state, carry, X, y, mask):
+        pred_cache = carry["preds"]
         eps = torch.sum(carry["errs"], dim=0)
         c = torch.argmin(eps)  # stays on the device
         eps_c = torch.take(eps, c)
         alpha = _samme_alpha(eps_c, spec.n_classes)
         ens = _append(state.ensemble, scoring.take_slot(hyp_space, c), alpha)
-        mis = scoring.chosen_mis(pred_cache, y, c)  # row slice of the cache
+        mis = scoring.chosen_mis(pred_cache, y, c)  # row slice of the predictions
         w = scoring.update_weights(state.weights, mis, mask, alpha)
         metrics = {"epsilon": eps_c, "alpha": alpha, "chosen": c.to(torch.int32)}
         return BoostState(ens, w, state.fit_cache), {"metrics": metrics}
@@ -305,7 +336,8 @@ def preweak_f_stages(learner, spec, hyp_space, pred_cache: torch.Tensor):
     return [("score", score), ("aggregate", aggregate)]
 
 
-def preweak_f_round(learner, spec, state, hyp_space, X, y, mask, *, pred_cache: torch.Tensor):
+def preweak_f_round(learner, spec, state, hyp_space, X, y, mask, *,
+                    pred_cache: torch.Tensor | None = None):
     """Rounds loop only on steps 3-4 (the red dotted line of Fig. 1)."""
     return run_stages(preweak_f_stages(learner, spec, hyp_space, pred_cache), state, X, y, mask)
 
@@ -315,7 +347,8 @@ def preweak_f_round(learner, spec, state, hyp_space, X, y, mask, *, pred_cache: 
 # ---------------------------------------------------------------------------
 
 
-def bagging_stages(learner, spec, *, generator: torch.Generator | None = None, pick=None):
+def bagging_stages(learner, spec, *, generator: torch.Generator | None = None, pick=None,
+                   batched_fit: bool = True):
     """The federated-bagging round as named stages (see :func:`run_stages`).
     No score stage.  The member kept is ``pick`` when given (a collaborator
     index, injected), else drawn uniformly from ``generator`` after the
@@ -323,7 +356,8 @@ def bagging_stages(learner, spec, *, generator: torch.Generator | None = None, p
 
     def fit(state, carry, X, y, mask):
         w = mask / torch.clamp_min(torch.sum(mask, dim=1, keepdim=True), 1.0)  # local-uniform
-        hyps = _local_fits(learner, spec, w, X, y, state.fit_cache, generator)
+        hyps = _local_fits(learner, spec, w, X, y, state.fit_cache, generator,
+                           batched=batched_fit)
         return state, {"hyps": hyps}
 
     def aggregate(state, carry, X, y, mask):
@@ -343,9 +377,9 @@ def bagging_stages(learner, spec, *, generator: torch.Generator | None = None, p
 
 
 def bagging_round(learner, spec, state, X, y, mask, *,
-                  generator: torch.Generator | None = None, pick=None):
-    return run_stages(bagging_stages(learner, spec, generator=generator, pick=pick),
-                      state, X, y, mask)
+                  generator: torch.Generator | None = None, pick=None, batched_fit: bool = True):
+    return run_stages(bagging_stages(learner, spec, generator=generator, pick=pick,
+                                     batched_fit=batched_fit), state, X, y, mask)
 
 
 # ---------------------------------------------------------------------------

@@ -241,9 +241,11 @@ def init_hetero_boost_state(hspec: HeterogeneousSpec, T: int, mask: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def _grouped_local_fits(hspec, learners, w, X, y, caches, generator=None) -> List[Any]:
+def _grouped_local_fits(hspec, learners, w, X, y, caches, generator=None, *,
+                        batched: bool = True) -> List[Any]:
     """Paper step 2 under heterogeneity: each group fits its members'
-    slice as one tensor program.  A randomised group draws for all C
+    slice as one tensor program (``batched`` off: a tree group fits each
+    member alone, ``boosting._local_fits``).  A randomised group draws for all C
     collaborators (``learner.draw``, collaborator order) and keeps its
     members' rows; groups draw in group order.  Returns the per-group
     ``[C_g, ...]`` hypothesis stacks."""
@@ -258,7 +260,8 @@ def _grouped_local_fits(hspec, learners, w, X, y, caches, generator=None) -> Lis
         i = idx[g]
         out.append(_local_fits(learner, spec, w.index_select(0, i), X.index_select(0, i),
                                y.index_select(0, i),
-                               caches[g] if caches is not None else None, generator, **draws))
+                               caches[g] if caches is not None else None, generator,
+                               batched=batched, **draws))
     return out
 
 
@@ -310,13 +313,14 @@ def _committee_prediction(learners, hspec, params_by_group, X) -> torch.Tensor:
 
 
 def hetero_adaboost_f_stages(hspec: HeterogeneousSpec, *,
-                             generator: torch.Generator | None = None):
+                             generator: torch.Generator | None = None, batched_fit: bool = True):
     """The grouped AdaBoost.F round as named stages (``boosting.run_stages``)."""
     learners = resolve(hspec)
     owner, local, collab = _hyp_maps(hspec)
 
     def fit(state, carry, X, y, mask):
-        hyps = _grouped_local_fits(hspec, learners, state.weights, X, y, state.fit_cache, generator)
+        hyps = _grouped_local_fits(hspec, learners, state.weights, X, y, state.fit_cache, generator,
+                                   batched=batched_fit)
         return state, {"hyps": hyps}
 
     def score(state, carry, X, y, mask):
@@ -342,14 +346,14 @@ def hetero_adaboost_f_stages(hspec: HeterogeneousSpec, *,
 
 
 def hetero_distboost_f_stages(hspec: HeterogeneousSpec, *,
-                              generator: torch.Generator | None = None):
+                              generator: torch.Generator | None = None, batched_fit: bool = True):
     """The grouped DistBoost.F round: the round hypothesis is the whole
     mixed committee, and every group appends its seat block."""
     learners = resolve(hspec)
 
     def fit(state, carry, X, y, mask):
         committees = _grouped_local_fits(hspec, learners, state.weights, X, y, state.fit_cache,
-                                         generator)
+                                         generator, batched=batched_fit)
         return state, {"committees": committees}
 
     def score(state, carry, X, y, mask):
@@ -411,16 +415,21 @@ def hetero_preweak_f_predictions(hspec: HeterogeneousSpec, spaces, X) -> torch.T
     return _grouped_predict_tensor(hspec, resolve(hspec), spaces, X)
 
 
-def hetero_preweak_f_stages(hspec: HeterogeneousSpec, spaces, pred_cache: torch.Tensor):
-    """The grouped PreWeak.F round: one ``weighted_errors`` over the cache,
-    the argmin appended to its owner group."""
-    T = pred_cache.shape[1] // hspec.n_collaborators
+def hetero_preweak_f_stages(hspec: HeterogeneousSpec, spaces,
+                            pred_cache: torch.Tensor | None = None):
+    """The grouped PreWeak.F round: one ``weighted_errors`` over the cache
+    (without one, over the mixed space predicted anew every round), the
+    argmin appended to its owner group."""
+    T = sum(space[0].shape[0] for space in spaces) // hspec.n_collaborators
     owner, local, _ = _hyp_maps(hspec, per_member=T)
 
     def score(state, carry, X, y, mask):
-        return state, {"errs": scoring.error_matrix(pred_cache, y, state.weights)}
+        preds = pred_cache if pred_cache is not None else hetero_preweak_f_predictions(
+            hspec, spaces, X)
+        return state, {"preds": preds, "errs": scoring.error_matrix(preds, y, state.weights)}
 
     def aggregate(state, carry, X, y, mask):
+        pred_cache = carry["preds"]
         eps = torch.sum(carry["errs"], dim=0)
         c = torch.argmin(eps)
         eps_c = torch.take(eps, c)
@@ -435,7 +444,7 @@ def hetero_preweak_f_stages(hspec: HeterogeneousSpec, spaces, pred_cache: torch.
 
 
 def hetero_bagging_stages(hspec: HeterogeneousSpec, *, generator: torch.Generator | None = None,
-                          pick=None):
+                          pick=None, batched_fit: bool = True):
     """The grouped federated-bagging round: no score stage; the member kept
     is ``pick`` (a collaborator index, injected) or a uniform draw from
     ``generator`` after the fits' draws.  The pick is a host number, so
@@ -449,7 +458,8 @@ def hetero_bagging_stages(hspec: HeterogeneousSpec, *, generator: torch.Generato
 
     def fit(state, carry, X, y, mask):
         w = mask / torch.clamp_min(torch.sum(mask, dim=1, keepdim=True), 1.0)  # local-uniform
-        hyps = _grouped_local_fits(hspec, learners, w, X, y, state.fit_cache, generator)
+        hyps = _grouped_local_fits(hspec, learners, w, X, y, state.fit_cache, generator,
+                                   batched=batched_fit)
         return state, {"hyps": hyps}
 
     def aggregate(state, carry, X, y, mask):

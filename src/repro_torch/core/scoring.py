@@ -7,10 +7,13 @@ update are all reductions over it:
 
   * ``predict_matrix`` / ``predict_tensor`` — the one predict per round;
   * ``error_matrix``  — one ``weighted_errors`` launch over ``[C, H, n]``
-    (the JAX package maps a per-shard call over C);
+    (the JAX package maps a per-shard call over C); ``shard_errors`` is
+    the per-shard call, for the interpreted round;
   * ``chosen_mis``    — a row slice of ``preds``, never a second predict;
   * ``update_weights`` — one ``weight_update`` launch over the flattened
-    ``[C*n]`` weights, the global renormalisation included;
+    ``[C*n]`` weights, the global renormalisation included (with
+    ``renormalize=False``, one ``weight_update_product`` launch: the
+    product alone, for the interpreted round);
   * ``member_prediction`` — the one member-vote rule, shared by the
     incremental tally and the serving engine;
   * ``VoteTally`` — incremental evaluation: a running ``[n, K]`` tally
@@ -68,6 +71,16 @@ def error_matrix(
     return ops.weighted_errors(preds, y, w)
 
 
+def shard_errors(
+    preds: torch.Tensor,  # [H, n] int32
+    y: torch.Tensor,  # [n] int32
+    w: torch.Tensor,  # [n] f32, mask folded in
+) -> torch.Tensor:
+    """eps[h] = weighted error of hypothesis h on one shard: one
+    ``weighted_errors`` launch over ``[1, H, n]``."""
+    return ops.weighted_errors(preds.unsqueeze(0), y.unsqueeze(0), w.unsqueeze(0))[0]
+
+
 def chosen_mis(preds: torch.Tensor, y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Misprediction mask of hypothesis ``c`` (0-dim device tensor): a row
     slice of preds [C, H, n] against y [C, n] -> [C, n] f32."""
@@ -76,14 +89,19 @@ def chosen_mis(preds: torch.Tensor, y: torch.Tensor, c: torch.Tensor) -> torch.T
 
 
 def update_weights(
-    w: torch.Tensor,  # [C, n] f32
-    mis: torch.Tensor,  # [C, n] f32
-    mask: torch.Tensor,  # [C, n] f32
+    w: torch.Tensor,  # [C, n] (or [n]) f32
+    mis: torch.Tensor,  # same shape, f32
+    mask: torch.Tensor,  # same shape, f32
     alpha: torch.Tensor,  # 0-dim f32 on the device
+    *,
+    renormalize: bool = True,
 ) -> torch.Tensor:
     """``w * exp(alpha*mis) * mask`` renormalised over all collaborators
-    (paper step 4), in one kernel launch."""
-    return ops.weight_update(w.reshape(-1), mis.reshape(-1), mask.reshape(-1), alpha).view(w.shape)
+    (paper step 4), in one kernel launch; ``renormalize=False`` returns the
+    product alone, for a caller that renormalises from a total exchanged
+    between the collaborators."""
+    update = ops.weight_update if renormalize else ops.weight_update_product
+    return update(w.reshape(-1), mis.reshape(-1), mask.reshape(-1), alpha).view(w.shape)
 
 
 # ---------------------------------------------------------------------------

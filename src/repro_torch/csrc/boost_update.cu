@@ -1,6 +1,7 @@
 // The AdaBoost.F inner loop (paper steps 3-4): the weighted error of every
 // hypothesis on every shard, and the sample-weight update with its global
-// renormalisation, in one launch each.
+// renormalisation, in one launch each; and the update's product alone, which
+// the interpreted round renormalises from a total taken on the host.
 //
 // weighted_errors:  eps[c, h] = sum_n w[c, n] * 1[preds[c, h, n] != y[c, n]]
 //   Replaces: src/repro/kernels/boost_update.py:weighted_errors (Pallas body
@@ -65,6 +66,19 @@
 //   division keep it within rtol 1e-5 of the plain version (torch.sum adds
 //   in another order).  An all-zero product gives zeros through the 1e-30
 //   clamp, not NaN.
+//
+// weight_update, the product alone:
+//   out[i] = w[i] * expf(alpha * mis[i]) * mask[i]
+//   Replaces: src/repro/kernels/boost_update.py:weight_update (Pallas body
+//   _upd_kernel) where the JAX package calls it with renormalize=False: the
+//   interpreted round updates each collaborator's weights apart and divides
+//   them by a total exchanged on the host (src/repro/fl/federation.py:650-663).
+//   Bound on an H100: bytes.  3*N*4 read + 4 (alpha) + N*4 written over
+//   3.35 TB/s (adult's shard: N = 4070, 65 KB, 0.02 us): latency again.
+//   Design (launch plan: repro_torch/kernels/boost_update.py:product_plan): a
+//   grid-stride elementwise pass, a thread an element, no reduction, no
+//   cluster.  alpha is read from device memory; expf (not __expf) keeps it
+//   within rtol 1e-6 of the plain version.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -210,6 +224,16 @@ weight_update_kernel(const float* __restrict__ w, const float* __restrict__ mis,
   cluster_wait();  // no CTA's total is read after it exits
 }
 
+__global__ void __launch_bounds__(1024)
+weight_product_kernel(const float* __restrict__ w, const float* __restrict__ mis,
+                      const float* __restrict__ mask, const float* __restrict__ alpha,
+                      float* __restrict__ out, long long N) {
+  const float a = *alpha;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < N; i += stride)
+    out[i] = w[i] * expf(a * mis[i]) * mask[i];
+}
+
 }  // namespace
 
 // preds [C, H, n] i32, y [C, n] i32, w [C, n] f32 -> out [C, H] f32, every
@@ -275,4 +299,18 @@ extern "C" int repro_weight_update(const void* w, const void* mis, const void* m
                                            (const float*)mis, (const float*)mask,
                                            (const float*)alpha, (float*)out, N);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// w, mis, mask, out [N] f32; alpha [1] f32 on the device; N > 0.  `blocks`
+// CTAs of `threads` threads (a multiple of 32, at most 1024) stride over the
+// vector; out is written once per element.  Returns the launch's cudaError_t.
+extern "C" int repro_weight_update_product(const void* w, const void* mis, const void* mask,
+                                           const void* alpha, void* out, long long N,
+                                           int blocks, int threads, void* stream) {
+  if (blocks < 1 || threads % 32 != 0 || threads < 32 || threads > 1024 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  weight_product_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)w, (const float*)mis, (const float*)mask, (const float*)alpha, (float*)out,
+      N);
+  return (int)cudaGetLastError();
 }

@@ -1,42 +1,63 @@
-"""The MAFL federation runtime, fused homogeneous path (answers to
-``Federation`` in ``repro/fl/federation.py``): AdaBoost.F, DistBoost.F,
-PreWeak.F and federated bagging, picked by ``plan.algorithm``.
+"""The MAFL federation runtime (answers to ``Federation`` in
+``repro/fl/federation.py``): AdaBoost.F, DistBoost.F, PreWeak.F and
+federated bagging, picked by ``plan.algorithm``, and OpenFL's FedAvg.
 
-A round is the composed stages of ``core/boosting.py`` run eagerly on the
-federation's device; its hot spots launch the hand-written kernels on the
-card.  PreWeak.F trains its C*T hypothesis space and predicts it on every
-shard once, at set-up (the ``preweak.setup`` span); each of its rounds is
-then one ``weighted_errors`` launch over that cache and one
-``weight_update``.  Random draws (bagging's pick, ``extra_tree``'s split
-candidates) come from one CPU ``torch.Generator`` seeded from ``seed``, so
-a run on the card draws what the same run on the CPU draws; a draw is
-copied to the card, never read back.  Nothing in the round loop copies to
-the host: the round's metrics stay device tensors until an evaluation row
-reads them, all in one transfer, and a serving checkpoint
-(``publish_every``) copies the ensemble to the host once.  Communication
-is modelled from shapes, as the JAX package's fused path does.
+Two paths, chosen by ``plan.optimizations.fused_round`` (paper §5.1):
+
+* **fused** (the default): a round is the composed stages of
+  ``core/boosting.py`` run eagerly on the federation's device; its hot
+  spots launch the hand-written kernels on the card.  PreWeak.F trains its
+  C*T hypothesis space at set-up (the ``preweak.setup`` span) and, with
+  ``cache_predictions``, predicts it on every shard once, so each round is
+  one ``weighted_errors`` launch over that cache and one ``weight_update``.
+  Nothing in the round loop copies to the host: the round's metrics stay
+  device tensors until an evaluation row reads them, all in one transfer,
+  and a serving checkpoint (``publish_every``) copies the ensemble to the
+  host once.  Communication is modelled from shapes, as the JAX package's
+  fused path does.
+* **interpreted** (``fused_round`` off, as ``fl_run --faithful`` sets it,
+  and always for FedAvg): the plan's task graph walked by
+  ``core/protocol.run_round``, OpenFL-style.  Every collaborator fits
+  alone, and its model travels to the aggregator as serialized bytes
+  through a ``TensorDB`` (a copy to the host per collaborator per round,
+  inherent to the path); a ``SynchBarrier`` follows every task, and the
+  §5.1 toggles (``packed_serialization``, ``bounded_tensordb``,
+  ``fast_barrier``) each restore the pre-optimisation cost.  The
+  aggregator's argmin, epsilon and alpha are host float64 arithmetic, and
+  each collaborator's weights are updated by the un-renormalised product
+  (``weight_update_product``), then divided by a total taken on the host.
+  Communication is measured: the bytes serialized.
+
+Random draws (bagging's pick, ``extra_tree``'s split candidates, the MLP's
+initial weights) come from one CPU ``torch.Generator`` seeded from
+``seed``, so a run on the card draws what the same run on the CPU draws;
+a draw is copied to the card, never read back.
 
 A heterogeneous federation (a ``core/hetero.HeterogeneousSpec``, or a plan
 whose ``learners`` cycle learner families over the collaborators) runs the
-same loop over ``core/hetero.py``'s grouped stages; its winner's index is
-read on the host once a round, where the owner group's count moves.  The
-interpreted (OpenFL-style) path and elastic federations are not ported
-yet (ROADMAP Queue 1 items 11, 12).
+fused loop over ``core/hetero.py``'s grouped stages; its winner's index is
+read on the host once a round, where the owner group's count moves.
+Elastic federations are not ported yet (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
-from repro_torch.core import boosting, hetero, scoring
+from repro_torch.core import boosting, hetero, protocol, scoring
+from repro_torch.core.aggregation import fedavg
 from repro_torch.core.hetero import HeterogeneousSpec
 from repro_torch.core.metrics import f1_macro
 from repro_torch.core.plan import Plan
-from repro_torch.core.serialization import wire_size
+from repro_torch.core.serialization import deserialize, serialize, wire_format, wire_size
+from repro_torch.core.tensordb import TensorDB, TensorKey
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ref import one_hot
 from repro_torch.learners.base import LearnerSpec, get_learner
 from repro_torch.obs import metrics as obs_metrics, trace
 
@@ -56,6 +77,31 @@ _M_ROUND_SECONDS = obs_metrics.histogram(
     "mafl_federation_round_seconds",
     "Wall-clock seconds per federated round (history-row averages).",
 )
+
+
+@dataclasses.dataclass
+class Collaborator:
+    """One collaborator of the interpreted path: its shard (views of the
+    federation's stacked tensors) and its own store."""
+
+    idx: int
+    X: torch.Tensor  # [n, d]
+    y: torch.Tensor  # [n]
+    mask: torch.Tensor  # [n]
+    weights: torch.Tensor  # [n] raw AdaBoost sample weights
+    db: TensorDB
+    params: Any = None  # the current local model (FedAvg)
+
+    @property
+    def origin(self) -> str:
+        return f"collaborator_{self.idx}"
+
+
+@dataclasses.dataclass
+class Aggregator:
+    db: TensorDB
+    ensemble: List[Any] = dataclasses.field(default_factory=list)  # [(params, alpha)]
+    global_params: Any = None  # FedAvg
 
 
 class Federation:
@@ -93,7 +139,23 @@ class Federation:
         self.masks = torch.as_tensor(masks, dtype=torch.float32).to(dev).contiguous()
         self.X_test = torch.as_tensor(X_test, dtype=torch.float32).to(dev).contiguous()
         self.y_test = torch.as_tensor(y_test, dtype=torch.int32).to(dev).contiguous()
-        self.n_collaborators = self.Xs.shape[0]
+        self.n_collaborators = C
+        # the interpreted path's roles (the fused path reads the stacked tensors)
+        opt = plan.optimizations
+        retention = opt.tensordb_retention if opt.bounded_tensordb else None
+        self.aggregator = Aggregator(db=TensorDB(retention))
+        w0 = self.masks / torch.clamp_min(torch.sum(self.masks), 1.0)
+        self.collaborators = [
+            Collaborator(i, self.Xs[i], self.ys[i], self.masks[i], w0[i], TensorDB(retention))
+            for i in range(C)
+        ]
+        self.barrier = protocol.SynchBarrier(C, sleep_s=plan.collaborator.sleep_s,
+                                             structural=opt.fast_barrier)
+        self.end_round_sleep_s = 0.0 if opt.fast_barrier else max(plan.aggregator.sleep_s * 10, 0.1)
+        self._eval_every = 1
+        self._wire_fmt = None  # the hypotheses' wire format, from the first one sent
+        self._round_scratch: Dict[str, Any] = {}
+        self._round_log: List[Dict[str, float]] = []  # interpreted rounds' metrics, on the host
         self.comm_bytes = 0
         # (wall time, comm_bytes, round) at the previous history row
         self._row_marker = (time.perf_counter(), 0, 0)
@@ -122,18 +184,68 @@ class Federation:
         ``ServeEngine`` / ``ShardVoteCache`` consumer folds only the
         appended members.  ``on_checkpoint(path, round)`` fires after each
         publish (e.g. to hot-swap a live engine)."""
+        rounds = rounds or self.plan.aggregator.rounds
+        fused = self.plan.optimizations.fused_round and self.plan.algorithm != "fedavg"
+        if self.hetero and not fused:
+            raise ValueError(
+                "heterogeneous federations require the fused round path "
+                "(optimizations.fused_round on, non-fedavg algorithm): the "
+                "interpreted simulation and fedavg assume one hypothesis pytree"
+            )
         if publish_every is not None:
             if publish_every <= 0:
                 raise ValueError(f"publish_every must be positive, got {publish_every}")
             if publish_dir is None:
                 raise ValueError("publish_every requires a publish_dir")
-        run = self._run_fused_hetero if self.hetero else self._run_fused
-        return run(rounds or self.plan.rounds, eval_every, publish_every, publish_dir,
-                   on_checkpoint)
+            if not fused:
+                raise ValueError(
+                    "checkpoint publishing requires the fused round path "
+                    "(optimizations.fused_round on, non-fedavg algorithm)"
+                )
+        if fused:
+            run = self._run_fused_hetero if self.hetero else self._run_fused
+            return run(rounds, eval_every, publish_every, publish_dir, on_checkpoint)
+        self._eval_every = eval_every
+        self._row_marker = (time.perf_counter(), self.comm_bytes, 0)
+        for r in range(rounds):
+            with trace.span("round", round=r, algorithm=self.plan.algorithm):
+                protocol.run_round(self, r)
+            _M_ROUNDS.inc()
+        return self.history
+
+    # -- the interpreted path's messaging ----------------------------------
+    def send(self, tree: Any) -> List[bytes]:
+        """Serialize ``tree`` for the wire (a copy to the host) and count
+        its bytes."""
+        bufs = serialize(tree, packed=self.plan.optimizations.packed_serialization)
+        self._account_comm(sum(len(b) for b in bufs))
+        return bufs
+
+    def recv(self, bufs: List[bytes], fmt) -> Any:
+        """The tree back from its buffers, on the host."""
+        return deserialize(bufs, fmt, packed=self.plan.optimizations.packed_serialization)
+
+    def end_round_barrier(self, round_idx: int) -> None:
+        if self.end_round_sleep_s:
+            time.sleep(self.end_round_sleep_s)
+
+    def strong_predict_host(self, X: torch.Tensor) -> torch.Tensor:
+        """The interpreted path's ensemble vote: a loop over its
+        ``(params, alpha)`` members (an empty ensemble predicts class 0)."""
+        if not self.aggregator.ensemble:
+            return torch.zeros(X.shape[0], dtype=torch.int32, device=X.device)
+        K = self.spec.n_classes
+        votes = torch.zeros(X.shape[0], K, dtype=torch.float32, device=X.device)
+        for params, alpha in self.aggregator.ensemble:
+            pred = self.learner.predict(self.spec, params, X)
+            votes = votes + alpha * one_hot(pred, K, torch.float32)
+        return torch.argmax(votes, dim=-1).to(torch.int32)
 
     def per_round(self) -> List[Dict[str, float]]:
-        """epsilon / alpha / chosen of every round run so far, fetched from
-        the device in one transfer."""
+        """epsilon / alpha / chosen of every round run so far (the fused
+        path's fetched from the device in one transfer)."""
+        if self._round_log:
+            return list(self._round_log)
         if not self._round_metrics:
             return []
         table = torch.stack([
@@ -238,6 +350,7 @@ class Federation:
     def _run_fused(self, rounds: int, eval_every: int, publish_every: Optional[int] = None,
                    publish_dir: Optional[str] = None, on_checkpoint=None) -> List[Dict[str, float]]:
         learner, spec, alg, g = self.learner, self.spec, self.plan.algorithm, self.generator
+        opt = self.plan.optimizations
         committee = self.committee_size
         state = boosting.init_boost_state(learner, spec, rounds, self.masks,
                                           committee_size=committee, X=self.Xs)
@@ -247,26 +360,34 @@ class Federation:
                     learner, spec, state, self.Xs, self.ys, self.masks, rounds, g)
                 # the C*T space is static: predicted on every shard once, every
                 # round is then a reduction over this [C, C*T, n] cache
-                cache = boosting.preweak_f_predictions(learner, spec, hyp_space, self.Xs)
+                cache = (boosting.preweak_f_predictions(learner, spec, hyp_space, self.Xs)
+                         if opt.cache_predictions else None)
             stages = boosting.preweak_f_stages(learner, spec, hyp_space, cache)
             setup_bytes, per_round = self._fused_comm_model(state, setup_tree=hyp_space)
             self._account_comm(setup_bytes)
         else:
-            stages = boosting.ROUND_STAGES[alg](learner, spec, generator=g)
+            stages = boosting.ROUND_STAGES[alg](learner, spec, generator=g,
+                                                batched_fit=opt.batched_fit)
             _, per_round = self._fused_comm_model(state)
 
         def round_fn(s, X, y, m):
             return boosting.run_stages(stages, s, X, y, m)
 
-        # incremental eval: each eval adds only the members appended since
-        # the previous one
-        tally = scoring.init_tally(self.X_test.shape[0], spec.n_classes, self.device)
+        if opt.cache_predictions:
+            # incremental eval: each eval adds only the members appended
+            # since the previous one
+            tally = scoring.init_tally(self.X_test.shape[0], spec.n_classes, self.device)
 
-        def evaluate(s):
-            nonlocal tally
-            tally = scoring.tally_new_votes(learner, spec, s.ensemble, tally, self.X_test,
-                                            committee=committee is not None)
-            return f1_macro(self.y_test, scoring.tally_predict(tally), spec.n_classes)
+            def evaluate(s):
+                nonlocal tally
+                tally = scoring.tally_new_votes(learner, spec, s.ensemble, tally, self.X_test,
+                                                committee=committee is not None)
+                return f1_macro(self.y_test, scoring.tally_predict(tally), spec.n_classes)
+        else:
+            def evaluate(s):  # the whole ensemble predicted at every evaluation
+                pred = boosting.strong_predict(learner, spec, s.ensemble, self.X_test,
+                                               committee=committee is not None)
+                return f1_macro(self.y_test, pred, spec.n_classes)
 
         return self._fused_loop(rounds, eval_every, state, round_fn, evaluate, per_round,
                                 publish_every, publish_dir, on_checkpoint)
@@ -278,6 +399,7 @@ class Federation:
         cross-group prediction tensor, per-group tallies.  With one group
         every step is the homogeneous one."""
         hspec, alg, g = self.spec, self.plan.algorithm, self.generator
+        opt = self.plan.optimizations
         committee = alg == "distboost_f"
         state = hetero.init_hetero_boost_state(hspec, rounds, self.masks, committee=committee,
                                                X=self.Xs)
@@ -285,32 +407,190 @@ class Federation:
             with trace.span("preweak.setup", rounds=rounds):
                 spaces, state = hetero.hetero_preweak_f_setup(
                     hspec, state, self.Xs, self.ys, self.masks, rounds, g)
-                cache = hetero.hetero_preweak_f_predictions(hspec, spaces, self.Xs)
+                cache = (hetero.hetero_preweak_f_predictions(hspec, spaces, self.Xs)
+                         if opt.cache_predictions else None)
             stages = hetero.hetero_preweak_f_stages(hspec, spaces, cache)
             setup_bytes, per_round = self._fused_comm_model(state, setup_tree=spaces)
             self._account_comm(setup_bytes)
         else:
-            stages = hetero.HETERO_ROUND_STAGES[alg](hspec, generator=g)
+            stages = hetero.HETERO_ROUND_STAGES[alg](hspec, generator=g,
+                                                     batched_fit=opt.batched_fit)
             _, per_round = self._fused_comm_model(state)
 
         def round_fn(s, X, y, m):
             return boosting.run_stages(stages, s, X, y, m)
 
-        tallies = hetero.init_hetero_tally(hspec, self.X_test.shape[0], self.device,
-                                           committee=committee)
+        if opt.cache_predictions:
+            tallies = hetero.init_hetero_tally(hspec, self.X_test.shape[0], self.device,
+                                               committee=committee)
 
-        def evaluate(s):
-            nonlocal tallies
-            tallies = hetero.hetero_tally_new_votes(hspec, s.ensemble, tallies, self.X_test,
+            def evaluate(s):
+                nonlocal tallies
+                tallies = hetero.hetero_tally_new_votes(hspec, s.ensemble, tallies, self.X_test,
+                                                        committee=committee)
+                return f1_macro(self.y_test, hetero.hetero_tally_predict(tallies), hspec.n_classes)
+        else:
+            def evaluate(s):  # the whole ensemble predicted at every evaluation
+                pred = hetero.hetero_strong_predict(hspec, s.ensemble, self.X_test,
                                                     committee=committee)
-            return f1_macro(self.y_test, hetero.hetero_tally_predict(tallies), hspec.n_classes)
+                return f1_macro(self.y_test, pred, hspec.n_classes)
 
         return self._fused_loop(rounds, eval_every, state, round_fn, evaluate, per_round,
                                 publish_every, publish_dir, on_checkpoint)
 
 
 def history_summary(fed: Federation) -> Dict[str, Any]:
-    """JSON-ready record of a run: history rows, every round's metrics and
-    the modelled wire bytes."""
+    """JSON-ready record of a run: history rows, every round's metrics, the
+    wire bytes (measured on the interpreted path, modelled on the fused
+    one), the aggregator's TensorDB peak entries and the seconds the
+    barrier slept (both 0 on the fused path)."""
     return {"history": fed.history, "rounds": fed.per_round(), "comm_bytes": fed.comm_bytes,
+            "tensordb_peak_entries": fed.aggregator.db.peak_entries,
+            "barrier_waited_seconds": fed.barrier.waited_seconds,
             "device": str(fed.device)}
+
+
+# ---------------------------------------------------------------------------
+# Task executors of the interpreted path: the paper's §4.1 task vocabulary,
+# step for step as repro/fl/federation.py's
+# ---------------------------------------------------------------------------
+
+
+@protocol.task_executor("train")
+def _train(fed: Federation, r: int, args: Dict[str, Any]) -> None:
+    if fed.plan.algorithm == "fedavg":
+        _fedavg_train(fed, r)
+        return
+    for c in fed.collaborators:
+        # a local fit on the AdaBoost weights, rescaled locally so that a
+        # scale-sensitive learner keeps its regularisation
+        wsum = torch.clamp_min(torch.sum(c.weights), 1e-30)
+        w_fit = c.weights / wsum * torch.clamp_min(torch.sum(c.mask), 1.0)
+        params = fed.learner.fit(fed.spec, None, c.X, c.y, w_fit, generator=fed.generator)
+        if fed._wire_fmt is None:
+            fed._wire_fmt = wire_format(params)
+        bufs = fed.send(params)  # collaborator -> aggregator
+        fed.aggregator.db.put(TensorKey("weak_hypothesis", c.origin, r), bufs)
+
+
+@protocol.task_executor("weak_learners_validate")
+def _weak_learners_validate(fed: Federation, r: int, args: Dict[str, Any]) -> None:
+    # the aggregator broadcasts the whole hypothesis space to every collaborator
+    entries = fed.aggregator.db.query(name="weak_hypothesis", round=r)
+    entries.sort(key=lambda kv: kv[0].origin)
+    hyps = [fed.recv(bufs, fed._wire_fmt) for _, bufs in entries]
+    fed._account_comm(
+        sum(sum(len(b) for b in bufs) for _, bufs in entries) * (fed.n_collaborators - 1)
+    )  # n-1 extra copies on the wire
+    # the space stacked once and moved to the device; each collaborator
+    # predicts it on its shard once and scores it with one weighted_errors
+    hyp_stack = type(hyps[0])(*(torch.stack(leaves).to(fed.device) for leaves in zip(*hyps)))
+    err_rows, norm_vals, pred_rows = [], [], []
+    for c in fed.collaborators:
+        w = c.weights * c.mask
+        preds = scoring.predict_matrix(fed.learner, fed.spec, hyp_stack, c.X)  # [H, n]
+        pred_rows.append(preds)  # reused by adaboost_update: no second predict
+        err_rows.append(scoring.shard_errors(preds, c.y, w))
+        norm_vals.append(torch.sum(w))
+        c.db.put(TensorKey("misprediction", c.origin, r), None)
+    # one stacked transfer of the round's errors and norms; the float32 ->
+    # float64 casts are exact
+    table = torch.cat([torch.stack(err_rows), torch.stack(norm_vals).unsqueeze(1)], dim=1)
+    table = table.cpu().numpy().astype(np.float64)
+    errs, norms = table[:, :-1], table[:, -1]
+    fed._round_scratch = {"errs": errs, "norms": norms, "hyps": hyp_stack, "preds": pred_rows}
+    fed.aggregator.db.put(TensorKey("error_matrix", "aggregator", r), errs)
+
+
+@protocol.task_executor("adaboost_update")
+def _adaboost_update(fed: Federation, r: int, args: Dict[str, Any]) -> None:
+    scratch = fed._round_scratch
+    errs, norms = scratch["errs"], scratch["norms"]
+    eps = errs.sum(axis=0) / max(norms.sum(), 1e-30)
+    c_idx = int(np.argmin(eps))  # mafl: allow[host-sync] a numpy value, already on the host
+    e = float(np.clip(eps[c_idx], 1e-10, 1 - 1e-10))  # mafl: allow[host-sync] numpy, on the host
+    alpha = float(  # mafl: allow[host-sync] numpy arithmetic on the host
+        np.clip(np.log((1 - e) / e) + np.log(fed.spec.n_classes - 1.0), -10, 10))
+    chosen = scoring.take_slot(scratch["hyps"], c_idx)
+    fed.aggregator.ensemble.append((chosen, alpha))
+    fed.aggregator.db.put(TensorKey("adaboost_coeff", "aggregator", r), alpha)
+    # broadcast (chosen hypothesis, alpha); the collaborators update their weights
+    fed._account_comm((wire_size(chosen) + 8) * fed.n_collaborators)
+    alpha_dev = torch.tensor(alpha, dtype=torch.float32).to(fed.device)
+    wsums = []
+    for i, c in enumerate(fed.collaborators):
+        # the chosen hypothesis's mispredictions: a row of the predictions
+        # weak_learners_validate made, no second predict
+        mis = (scratch["preds"][i][c_idx] != c.y).to(torch.float32)
+        c.weights = scoring.update_weights(c.weights, mis, c.mask, alpha_dev, renormalize=False)
+        wsums.append(torch.sum(c.weights))
+    # one stacked transfer; Python's left-to-right sum over the exact float64
+    # casts, as the JAX package takes it
+    total = sum(torch.stack(wsums).cpu().tolist())
+    for c in fed.collaborators:  # the global renormalisation, from the exchanged norms
+        c.weights = c.weights / max(total, 1e-30)
+    fed._round_log.append({"round": r, "epsilon": float(eps[c_idx]),  # mafl: allow[host-sync] numpy
+                           "alpha": alpha, "chosen": c_idx})
+
+
+@protocol.task_executor("adaboost_validate")
+def _adaboost_validate(fed: Federation, r: int, args: Dict[str, Any]) -> None:
+    if (r + 1) % fed._eval_every and r != fed.plan.aggregator.rounds - 1:
+        return
+    pred = fed.strong_predict_host(fed.X_test)
+    # once an evaluation: the metric is this task's output
+    f1 = float(f1_macro(fed.y_test, pred, fed.spec.n_classes))  # mafl: allow[host-sync]
+    last = fed.aggregator.ensemble[-1] if fed.aggregator.ensemble else (None, 0.0)
+    fed.history.append({"round": r, "f1": f1, "alpha": last[1], **fed._history_extras(r)})
+    fed.aggregator.db.put(TensorKey("metric/f1", "aggregator", r), f1)
+
+
+# -- OpenFL's original DNN workflow: FedAvg over warm-started learners ------
+
+
+def _fedavg_train(fed: Federation, r: int) -> None:
+    if fed.learner.warm_fit is None:
+        raise ValueError(f"learner {fed.spec.name!r} has no warm_fit; FedAvg needs one")
+    if fed.aggregator.global_params is None:
+        # random initial weights from the run's generator (``init`` gives
+        # zeros, which would leave the hidden units symmetric)
+        (init,) = fed.learner.draw(fed.spec, 1, fed.generator, fed.device).values()
+        fed.aggregator.global_params = type(init)(*(x[0] for x in init))
+    local, sizes = [], []
+    for c in fed.collaborators:
+        fed._account_comm(wire_size(fed.aggregator.global_params))  # broadcast
+        p = fed.learner.warm_fit(fed.spec, fed.aggregator.global_params, c.X, c.y, c.mask,
+                                 generator=fed.generator)
+        c.params = p
+        fed._account_comm(wire_size(p))  # upload
+        local.append(p)
+        sizes.append(torch.sum(c.mask))  # stays on the device
+    stacked = type(local[0])(*(torch.stack(leaves) for leaves in zip(*local)))
+    fed.aggregator.global_params = fedavg(stacked, torch.stack(sizes))
+
+
+@protocol.task_executor("aggregated_model_validation")
+def _agg_model_validation(fed: Federation, r: int, args: Dict[str, Any]) -> None:
+    if fed.aggregator.global_params is None:
+        return
+    pred = fed.learner.predict(fed.spec, fed.aggregator.global_params, fed.X_test)
+    fed.history.append({
+        "round": r,
+        # validation-only task, once a round: the metric is its output
+        "f1": float(f1_macro(fed.y_test, pred, fed.spec.n_classes)),  # mafl: allow[host-sync]
+        "alpha": 0.0,
+        **fed._history_extras(r),
+    })
+
+
+@protocol.task_executor("locally_tuned_model_validation")
+def _local_model_validation(fed: Federation, r: int, args: Dict[str, Any]) -> None:
+    for c in fed.collaborators:
+        if c.params is None:
+            continue
+        pred = fed.learner.predict(fed.spec, c.params, c.X)
+        c.db.put(
+            TensorKey("metric/local_f1", c.origin, r),
+            # validation-only task: one metric per collaborator is the output
+            float(f1_macro(c.y, pred, fed.spec.n_classes)),  # mafl: allow[host-sync]
+        )

@@ -45,6 +45,8 @@ _SIGNATURES = {  # every extern "C" function of the sources: (restype, argtypes)
     "repro_weighted_errors": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # w, mis, mask, alpha, out, N, cs, threads, stream
     "repro_weight_update": (_I, [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P]),
+    # w, mis, mask, alpha, out, N, blocks, threads, stream
+    "repro_weight_update_product": (_I, [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P]),
     # preds, alpha, out, T, n, K, classes per thread, threads, stream
     "repro_vote_argmax": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "repro_flash_attention_f32": (_I, _FLASH),

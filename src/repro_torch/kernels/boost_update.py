@@ -8,7 +8,11 @@
 * ``weight_update`` — w * exp(alpha * mis) * mask, renormalised to sum 1
   (its total clamped at 1e-30), one thread-block cluster over the whole
   vector reduced through distributed shared memory, with ``alpha`` read
-  on the device.
+  on the device;
+* ``weight_update_product`` — the product w * exp(alpha * mis) * mask alone,
+  a grid-stride elementwise pass: the interpreted round's update of one
+  collaborator's weights, renormalised afterwards from a total taken on
+  the host (``renormalize=False`` in ``core/scoring.py:update_weights``).
 
 Answers to ``repro/kernels/boost_update.py`` (``weight_update`` together
 with the renormalisation of ``repro/core/scoring.py:update_weights``).
@@ -31,6 +35,7 @@ ERRORS_CLUSTER = 8  # weighted_errors: CTAs per cluster at most (the portable si
 ERRORS_ROWS = 8  # rows per CTA, a warp each
 ERRORS_WARPS = SMS * 32  # the sample slices grow until the grid holds this many warps
 MIN_THREADS, MAX_THREADS = 64, 1024  # per CTA of weight_update
+PRODUCT_THREADS = 256  # per CTA of weight_update_product
 
 
 def _cta_threads(n: int, cs: int) -> int:
@@ -68,6 +73,17 @@ def update_plan(N: int) -> UpdatePlan:
     elements each thread takes ``ceil(N / 16384)``, the first 8 of them in
     registers."""
     return UpdatePlan(UPDATE_CLUSTER, _cta_threads(N, UPDATE_CLUSTER))
+
+
+class ProductPlan(NamedTuple):
+    blocks: int
+    threads: int  # per CTA
+
+
+def product_plan(N: int) -> ProductPlan:
+    """A thread an element in CTAs of 256, at most 8 CTAs an SM; past that
+    each thread strides over the vector."""
+    return ProductPlan(max(1, min(-(-N // PRODUCT_THREADS), 8 * SMS)), PRODUCT_THREADS)
 
 
 def _same_device(name: str, *ts: torch.Tensor) -> torch.device:
@@ -155,5 +171,44 @@ def weight_update(
     return out
 
 
+def weight_update_product(
+    w: torch.Tensor,  # [N] float32
+    mis: torch.Tensor,  # [N] float32
+    mask: torch.Tensor,  # [N] float32
+    alpha: torch.Tensor,  # scalar float32, on the same device
+) -> torch.Tensor:
+    """w * exp(alpha * mis) * mask, [N] float32: the Pallas
+    ``weight_update`` body alone (``renormalize=False``)."""
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=w.device)
+    dev = _same_device("weight_update_product", w, mis, mask, alpha)
+    if any(t.dtype != torch.float32 for t in (w, mis, mask)):
+        raise TypeError("weight_update_product takes float32 w, mis and mask")
+    if w.dim() != 1 or mis.shape != w.shape or mask.shape != w.shape or alpha.numel() != 1:
+        raise ValueError(
+            f"weight_update_product takes [N] w/mis/mask and a scalar alpha; got "
+            f"{tuple(w.shape)}, {tuple(mis.shape)}, {tuple(mask.shape)}, {tuple(alpha.shape)}"
+        )
+    if not (w.is_contiguous() and mis.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("weight_update_product takes contiguous tensors")
+    if dev.type == "cpu":
+        return ref.boost_weight_update_ref(w, mis, mask, alpha)
+    out = torch.empty_like(w)  # every element is written: no memset
+    N = w.numel()
+    if N > 0:
+        plan = product_plan(N)
+        alpha = alpha.reshape(1).contiguous()
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.repro_weight_update_product(
+                w.data_ptr(), mis.data_ptr(), mask.data_ptr(), alpha.data_ptr(),
+                out.data_ptr(), N, plan.blocks, plan.threads, stream,
+            )
+        _build.check(rc, "weight_update_product")
+        weight_update_product.launches += 1
+    return out
+
+
 weighted_errors.launches = 0  # kernel launches since the last reset
 weight_update.launches = 0
+weight_update_product.launches = 0

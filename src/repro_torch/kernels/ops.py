@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels.boost_update import weight_update, weighted_errors
+from repro_torch.kernels.boost_update import weight_update, weight_update_product, weighted_errors
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.tree_hist import tree_hist
 from repro_torch.kernels.vote_argmax import vote_argmax
@@ -18,6 +18,7 @@ KERNELS = {
     "tree_hist": tree_hist,
     "weighted_errors": weighted_errors,
     "weight_update": weight_update,
+    "weight_update_product": weight_update_product,
     "vote_argmax": vote_argmax,
     "flash_attention": flash_attention,
 }
@@ -34,6 +35,7 @@ def launch_counts() -> Dict[str, int]:
 
 
 __all__ = [
-    "tree_hist", "weighted_errors", "weight_update", "vote_argmax", "flash_attention",
+    "tree_hist", "weighted_errors", "weight_update", "weight_update_product", "vote_argmax",
+    "flash_attention",
     "reset_launches", "launch_counts",
 ]

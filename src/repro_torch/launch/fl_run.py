@@ -8,13 +8,23 @@
   PYTHONPATH=src python -m repro_torch.launch.fl_run --dataset adult \
       --collaborators 8 --learners decision_tree,ridge,gaussian_nb --split dirichlet
 
-Runs AdaBoost.F (``--algorithm``: also ``distboost_f``, ``preweak_f`` and
-``bagging``) over oblivious ``decision_tree`` learners (``--learner``:
+  # the interpreted OpenFL-style round with every §5.1 optimisation off
+  PYTHONPATH=src python -m repro_torch.launch.fl_run --dataset adult --faithful
+
+  # OpenFL's FedAvg workflow over the MLP
+  PYTHONPATH=src python -m repro_torch.launch.fl_run --dataset adult \
+      --algorithm fedavg --learner mlp
+
+Runs AdaBoost.F (``--algorithm``: also ``distboost_f``, ``preweak_f``,
+``bagging`` and ``fedavg``) over oblivious ``decision_tree`` learners (``--learner``:
 any of the six registered families; ``--learners``: a comma-separated
 list cycled over the collaborators, a heterogeneous federation) on an IID
 split (``--split dirichlet``: label skew, ``--dirichlet-alpha``), on the
 card by default (``--device cpu`` runs the kernels' plain versions on the
-CPU).  ``--seed`` seeds the data, the split and the run's random draws.
+CPU).  ``--faithful`` runs the interpreted task graph with the paper's
+§5.1 optimisations off (per-leaf serialization, an unbounded TensorDB,
+sleep-polling barriers, no fused round, no prediction cache).  ``--seed``
+seeds the data, the split and the run's random draws.
 Prints one ``round ... f1 ... alpha ...`` line per evaluation and a
 ``total ...s  comm ... MB  final F1 ...`` summary.  ``--publish-every K
 --publish-dir DIR`` writes a rolling serving artifact every K rounds
@@ -30,17 +40,21 @@ import time
 import torch
 
 from repro_torch.core.plan import (
-    ALGORITHMS, SPLITS, UNPORTED, DataPlan, LearnerPlan, adaboost_plan, bagging_plan,
+    ALGORITHMS, SPLITS, DataPlan, LearnerPlan, OptimizationFlags, adaboost_plan, bagging_plan,
+    fedavg_plan,
 )
 from repro_torch.data import PAPER_DATASETS, get_dataset
 from repro_torch.device import resolve_device
 from repro_torch.fl.federation import Federation, history_summary
 from repro_torch.fl.partition import dirichlet_partition, iid_partition
-from repro_torch.learners import LearnerSpec, available_learners
+from repro_torch.learners import LearnerSpec, available_learners, get_learner
 from repro_torch.obs import metrics as obs_metrics, trace
 
 
 LEARNERS = tuple(available_learners())
+# --faithful: the paper's pre-optimisation OpenFL round (repro/launch/fl_run.py)
+FAITHFUL = OptimizationFlags(packed_serialization=False, bounded_tensordb=False,
+                             fast_barrier=False, fused_round=False, cache_predictions=False)
 
 
 def default_hparams(name: str, depth: int = 4) -> dict:
@@ -67,20 +81,27 @@ def parse_learners(ap: argparse.ArgumentParser, value: str | None) -> tuple:
 def build_federation(dataset: str, collaborators: int, rounds: int, depth: int,
                      seed: int, device, *, algorithm: str = "adaboost_f",
                      learner: str = "decision_tree", learners: tuple = (),
-                     split: str = "iid", dirichlet_alpha: float = 0.5) -> Federation:
+                     split: str = "iid", dirichlet_alpha: float = 0.5,
+                     optimizations: OptimizationFlags | None = None) -> Federation:
     """Data, split and ``Federation`` for one run; the data are drawn on
     the CPU from ``seed`` and moved to ``device``, the split draws from
     the same generator, and the run's own draws come from a generator
     seeded with ``seed``.  ``learners`` (registry keys) makes the
-    federation heterogeneous, cycling them over the collaborators."""
+    federation heterogeneous, cycling them over the collaborators;
+    ``optimizations`` sets the §5.1 flags (default: all on)."""
     device = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
     dspec, (Xtr, ytr, Xte, yte) = get_dataset(dataset, g)
-    data = DataPlan(split=split, dirichlet_alpha=dirichlet_alpha)
-    plan_args = dict(rounds=rounds, data=data,
+    data = DataPlan(dataset=dataset, n_collaborators=collaborators, split=split,
+                    dirichlet_alpha=dirichlet_alpha, seed=seed)
+    plan_args = dict(rounds=rounds, data=data, optimizations=optimizations or OptimizationFlags(),
                      learners=tuple(LearnerPlan(n, default_hparams(n, depth)) for n in learners))
-    plan = (bagging_plan(**plan_args) if algorithm == "bagging"
-            else adaboost_plan(algorithm=algorithm, **plan_args))
+    if algorithm == "fedavg":
+        plan = fedavg_plan(**plan_args)
+    elif algorithm == "bagging":
+        plan = bagging_plan(**plan_args)
+    else:
+        plan = adaboost_plan(algorithm=algorithm, **plan_args)
     if plan.data.split == "dirichlet":
         Xs, ys, masks = dirichlet_partition(Xtr, ytr, collaborators, alpha=plan.data.dirichlet_alpha,
                                             n_classes=dspec.n_classes, generator=g)
@@ -93,8 +114,7 @@ def build_federation(dataset: str, collaborators: int, rounds: int, depth: int,
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="repro_torch.launch.fl_run")
     ap.add_argument("--dataset", default="adult", choices=sorted(PAPER_DATASETS))
-    ap.add_argument("--algorithm", default="adaboost_f",
-                    help=f"one of {', '.join(ALGORITHMS)} (fedavg: {UNPORTED['fedavg']})")
+    ap.add_argument("--algorithm", default="adaboost_f", choices=ALGORITHMS)
     ap.add_argument("--learner", default="decision_tree", choices=LEARNERS)
     ap.add_argument("--learners", default=None,
                     help="comma-separated learner registry keys cycled across "
@@ -107,11 +127,14 @@ def main(argv=None):
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument("--eval-every", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--faithful", action="store_true",
+                    help="the interpreted OpenFL-style round with the paper's §5.1 "
+                         "optimisations off (serialization, TensorDB, barriers)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
     ap.add_argument("--history-out", default=None, metavar="PATH",
-                    help="write the run history, every round's metrics and the "
-                         "modelled comm bytes as JSON")
+                    help="write the run history, every round's metrics, the comm bytes, "
+                         "the TensorDB peak and the barrier's sleep as JSON")
     ap.add_argument("--publish-every", type=int, default=None, metavar="K",
                     help="publish a versioned serving artifact every K rounds")
     ap.add_argument("--publish-dir", default=None,
@@ -127,10 +150,10 @@ def main(argv=None):
     learners = parse_learners(ap, args.learners)
     if learners and args.algorithm == "fedavg":
         ap.error("fedavg averages parameters and cannot mix model families")
-    if args.algorithm not in ALGORITHMS:
-        ap.error(f"--algorithm {args.algorithm}: "
-                 + (f"not ported yet ({UNPORTED[args.algorithm]})" if args.algorithm in UNPORTED
-                    else f"choose from {', '.join(ALGORITHMS)}"))
+    if learners and args.faithful:
+        ap.error("--learners is fused-mode only; drop --faithful")
+    if args.algorithm == "fedavg" and get_learner(args.learner).warm_fit is None:
+        ap.error(f"learner {args.learner!r} has no warm_fit; FedAvg needs one")
     device = resolve_device(args.device)
     if args.trace:
         trace.enable()
@@ -138,7 +161,8 @@ def main(argv=None):
     fed = build_federation(args.dataset, args.collaborators, args.rounds, args.depth,
                            args.seed, device, algorithm=args.algorithm, learner=args.learner,
                            learners=learners, split=args.split,
-                           dirichlet_alpha=args.dirichlet_alpha)
+                           dirichlet_alpha=args.dirichlet_alpha,
+                           optimizations=FAITHFUL if args.faithful else None)
     if fed.hetero:
         print("heterogeneous federation:",
               {i: fed.spec.specs[g].name for i, g in enumerate(fed.spec.assignment)})

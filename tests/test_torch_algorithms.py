@@ -21,7 +21,7 @@ from repro.learners import get_learner as jax_learner
 from repro_torch import convert
 from repro_torch.core import boosting as tboost
 from repro_torch.core.metrics import f1_macro
-from repro_torch.core.plan import ALGORITHMS, adaboost_plan, bagging_plan
+from repro_torch.core.plan import ALGORITHMS, adaboost_plan, bagging_plan, fedavg_plan
 from repro_torch.fl.federation import Federation
 from repro_torch.learners import LearnerSpec, get_learner
 from test_torch_boosting import HP, _shards
@@ -186,30 +186,42 @@ def test_centralized_adaboost_matches_jax():
 
 
 def test_plan_names_the_algorithms_and_refuses_fedavg():
-    assert ALGORITHMS == ("adaboost_f", "distboost_f", "preweak_f", "bagging")
+    """``ALGORITHMS`` names FedAvg beside the four model-agnostic ones; its
+    plan is OpenFL's three-task DNN workflow, and the AdaBoost.F graph
+    still refuses an unknown algorithm."""
+    assert ALGORITHMS == ("adaboost_f", "distboost_f", "preweak_f", "bagging", "fedavg")
     assert bagging_plan(rounds=3).algorithm == "bagging"
     for alg in ALGORITHMS[:3]:
         assert adaboost_plan(algorithm=alg).algorithm == alg
-    with pytest.raises(ValueError, match="item 11"):
-        adaboost_plan(algorithm="fedavg")
+    fa = fedavg_plan(rounds=3)
+    assert fa.algorithm == "fedavg" and fa.aggregator.nn and fa.collaborator.nn
+    assert [t.kind for t in fa.tasks] == ["aggregated_model_validation", "train",
+                                          "locally_tuned_model_validation"]
     with pytest.raises(ValueError, match="unknown algorithm"):
         adaboost_plan(algorithm="gradient_boost")
 
 
-@pytest.mark.parametrize("argv,item", [(["--algorithm", "fedavg"], "item 11"),
-                                       (["--learner", "ridge", "--algorithm", "fedavg"], "item 11"),
-                                       (["--learner", "mlp", "--algorithm", "fedavg"], "item 11")])
+@pytest.mark.parametrize("argv,item", [(["--algorithm", "fedavg"], "'decision_tree' has no warm_fit"),
+                                       (["--learner", "ridge", "--algorithm", "fedavg"],
+                                        "'ridge' has no warm_fit"),
+                                       (["--learner", "mlp", "--algorithm", "fedavg"], None)])
 def test_fl_run_refuses_unported_choices_naming_the_item(argv, item, capsys):
-    """FedAvg is what is left unported (every learner is ported, item 8);
-    asked for with any learner, it is refused naming its item."""
+    """FedAvg runs with the one learner that has ``warm_fit`` (the MLP);
+    asked for with a tree or ridge, it is refused naming ``warm_fit``, as
+    the JAX package refuses it."""
     from repro_torch.launch import fl_run
 
+    if item is None:
+        hist = fl_run.main(argv + ["--device", "cpu", "--dataset", "vehicle", "--collaborators", "4",
+                                   "--rounds", "3", "--eval-every", "3"])
+        assert [h["round"] for h in hist] == [1, 2] and 0.0 < hist[-1]["f1"] <= 1.0
+        return
     with pytest.raises(SystemExit):
         fl_run.main(argv + ["--device", "cpu"])
     assert item in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("algorithm", ALGORITHMS)
+@pytest.mark.parametrize("algorithm", ALGORITHMS[:4])
 def test_fl_run_cpu_rehearsal_of_each_algorithm(algorithm, tmp_path):
     import json
 

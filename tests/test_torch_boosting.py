@@ -5,6 +5,8 @@ One round starts both sides from the same carried-across state
 (``repro_torch.convert``); the whole slice runs a port ``Federation`` and
 a JAX ``Federation`` on the same shards and compares every ensemble slot
 the two chose."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -155,20 +157,22 @@ def test_strong_predict_matches_tally():
 
 
 def test_federation_rejects_unported_algorithm():
-    """FedAvg is the one algorithm the port still refuses, naming the
-    ROADMAP item that brings it (DistBoost.F, refused here until item 7,
-    now runs: tests/test_torch_algorithms.py)."""
-    with pytest.raises(ValueError, match=r"not ported yet \(ROADMAP Queue 1 item 11\)"):
-        adaboost_plan(algorithm="fedavg")
+    """Every algorithm is ported now; what the federation still refuses is
+    a FedAvg plan that mixes learner families.  Built without validation
+    (as a YAML plan would arrive), the federation validates it on entry."""
     Xs, ys, masks, Xte, yte, K = _shards(seed=3)
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="fedavg averages parameters and cannot mix model families"):
         Federation(_unvalidated_fedavg_plan(), Xs, ys, masks, Xte, yte,
-                   LearnerSpec("decision_tree", Xs.shape[2], K, HP), device="cpu")
+                   LearnerSpec("mlp", Xs.shape[2], K, {"hidden": 8}), device="cpu")
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        Federation(dataclasses.replace(_unvalidated_fedavg_plan(), learners=(), algorithm="krum"),
+                   Xs, ys, masks, Xte, yte, LearnerSpec("mlp", Xs.shape[2], K, {}), device="cpu")
 
 
 def _unvalidated_fedavg_plan():
-    """A plan naming fedavg, built without validation (as a YAML plan
-    would arrive): the federation validates it on entry."""
-    from repro_torch.core.plan import Plan
+    """A FedAvg plan over two learner families, built without validation."""
+    from repro_torch.core.plan import LearnerPlan, Plan, RolePlan, TaskSpec
 
-    return Plan(rounds=2, algorithm="fedavg")
+    return Plan(RolePlan(nn=True, rounds=2), RolePlan(nn=True, rounds=2),
+                [TaskSpec("train", "train")], algorithm="fedavg",
+                learners=(LearnerPlan("mlp"), LearnerPlan("ridge")))

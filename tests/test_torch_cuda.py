@@ -8,7 +8,8 @@ Where ``torch.cuda.is_available()`` is False every test here skips.
 Tolerances are the card's: the histogram kernel sums in fixed point per
 CTA, the plain version in float32 in another order (atol 1e-4, on cells
 of mass up to about 1, as on the main path), errors rtol 1e-4,
-weights rtol 1e-5 (the renormalising total in another order).
+weights rtol 1e-5 (the renormalising total in another order), the
+un-renormalised product rtol 1e-6.
 ``vote_argmax`` is exact: on half-integer alphas the vote sums are exact
 in f32, so any summation order gives the same argmax, and on any alphas
 it sums the members in ascending order, as a member-by-member tally does.
@@ -210,6 +211,84 @@ def test_weight_update_kernel_all_zero_mask_gives_zeros(dev, N):
     assert bool((got == 0).all())  # 0 / 1e-30, never 0 / 0
 
 
+@pytest.mark.parametrize("N", [4070, 32560, 4097, 0])
+def test_weight_update_product_kernel_matches_plain(dev, N):
+    """The interpreted round's un-renormalised update (the Pallas body
+    alone) against its plain version at rtol 1e-6: adult's shard, adult's
+    whole federation, an odd N and N = 0; every element written (a
+    NaN-filled block) and one launch a non-empty call."""
+    w, mis, mask = _update_inputs(dev, N, N + 3)
+    w = w / max(N, 1)
+    for a in (0.37, -2.0, 10.0):
+        alpha = torch.tensor(a, device=dev)
+        before = ops.launch_counts()["weight_update_product"]
+        got = (_poisoned(dev, (N,), lambda: ops.weight_update_product(w, mis, mask, alpha)) if N
+               else ops.weight_update_product(w, mis, mask, alpha))
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["weight_update_product"] == before + (1 if N else 0)
+        assert got.shape == (N,) and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, ref.boost_weight_update_ref(w, mis, mask, alpha),
+                                   rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("L", [1, 2, 4, 8])
+def test_tree_hist_kernel_one_fit_skewed_weights(dev, L):
+    """The interpreted round's per-collaborator fit: H = 1 at adult's
+    shard (``[1, 4070, 14]``), under AdaBoost's skewed weights, within
+    atol 1e-4 and choosing the plain version's split."""
+    from repro_torch.learners.tree import _split_scores
+
+    n, d, K = 4070, 14, 2
+    g = torch.Generator().manual_seed(200 + L)
+    bins = torch.randint(0, 17, (1, n, d), generator=g, dtype=torch.int32).to(dev)
+    leaf = torch.randint(0, L, (1, n), generator=g, dtype=torch.int32).to(dev)
+    w = torch.exp(4.0 * torch.randn(1, n, generator=g, dtype=torch.float64))
+    w = (w / w.sum()).float()
+    y = torch.randint(0, K, (1, n), generator=g)
+    wy = (torch.nn.functional.one_hot(y, K).float() * w.unsqueeze(-1)).contiguous().to(dev)
+    got = _poisoned(dev, (1, L, d, 17, K), lambda: ops.tree_hist(bins, leaf, wy, n_leaves=L,
+                                                                 n_bins_p1=17))
+    want = ref.tree_hist_batched_ref(bins, leaf, wy, L, 17)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert torch.equal(torch.argmax(_split_scores(got).flatten(1), dim=1),
+                       torch.argmax(_split_scores(want).flatten(1), dim=1))
+
+
+def test_weighted_errors_kernel_one_shard(dev):
+    """The interpreted round scores each shard alone: ``[1, 8, 4070]``."""
+    g = torch.Generator().manual_seed(8)
+    preds = torch.randint(0, 2, (1, 8, 4070), generator=g, dtype=torch.int32).to(dev)
+    y = torch.randint(0, 2, (1, 4070), generator=g, dtype=torch.int32).to(dev)
+    w = (torch.rand(1, 4070, generator=g) / 4070).to(dev)
+    got = _poisoned(dev, (1, 8), lambda: ops.weighted_errors(preds, y, w))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.weighted_errors_ref(preds, y, w), rtol=1e-4, atol=0)
+
+
+def test_interpreted_round_launches_per_collaborator(dev):
+    """One interpreted AdaBoost.F round at C = 4: a tree fit per
+    collaborator (4 tree_hist each), a weighted_errors per shard and a
+    product per collaborator, no renormalising update, no plain version
+    on the card; the chosen member is the CPU's."""
+    from repro_torch.launch import fl_run
+
+    chosen = {}
+    for device in ("cuda", "cpu"):
+        ops.reset_launches()
+        calls = dict(ref.device_calls)
+        fed = fl_run.build_federation("vehicle", 4, 1, 4, 0, device,
+                                      optimizations=fl_run.FAITHFUL)
+        fed.run()
+        if device == "cuda":
+            assert ops.launch_counts() == {"tree_hist": 16, "weighted_errors": 4, "weight_update": 0,
+                                           "weight_update_product": 4, "vote_argmax": 0,
+                                           "flash_attention": 0}
+            assert ref.device_calls == calls
+        chosen[device] = fed.per_round()[0]["chosen"]
+    assert chosen["cuda"] == chosen["cpu"]
+
+
 def test_round_never_waits_for_the_card(dev):
     """Rounds run with CUDA's sync debug mode set to raise: the chosen
     index and alpha stay on the device, so no operation of a round
@@ -243,7 +322,8 @@ def test_a_round_launches_each_level_and_the_errors_once(dev):
     boosting.adaboost_f_round(fed.learner, fed.spec, state, fed.Xs, fed.ys, fed.masks)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"tree_hist": 4, "weighted_errors": 1, "weight_update": 1,
-                                   "vote_argmax": 0, "flash_attention": 0}
+                                   "weight_update_product": 0, "vote_argmax": 0,
+                                   "flash_attention": 0}
 
 
 def test_federation_on_the_card_goes_through_the_kernels(dev):
@@ -254,7 +334,8 @@ def test_federation_on_the_card_goes_through_the_kernels(dev):
     hist = fl_run.main(["--dataset", "vehicle", "--collaborators", "4", "--rounds", "3",
                         "--eval-every", "3"])
     assert ops.launch_counts() == {"tree_hist": 12, "weighted_errors": 3, "weight_update": 3,
-                                   "vote_argmax": 0, "flash_attention": 0}
+                                   "weight_update_product": 0, "vote_argmax": 0,
+                                   "flash_attention": 0}
     assert ref.device_calls == calls
     assert 0.0 < hist[-1]["f1"] <= 1.0
 
@@ -280,7 +361,8 @@ def test_new_federations_on_the_card_go_through_the_kernels(dev, algorithm, lear
                                       learner=learner)
         hist = fed.run(eval_every=3)
         if device == "cuda":
-            assert ops.launch_counts() == {**want, "vote_argmax": 0, "flash_attention": 0}
+            assert ops.launch_counts() == {**want, "weight_update_product": 0, "vote_argmax": 0,
+                                           "flash_attention": 0}
             assert ref.device_calls == calls
         runs[device] = (fed.per_round()[0], hist[-1]["f1"])
     (card, f1_card), (cpu, f1_cpu) = runs["cuda"], runs["cpu"]
@@ -588,8 +670,8 @@ def test_a_mixed_round_on_the_card_matches_the_cpu(dev):
         if device == "cuda":
             torch.cuda.synchronize()
             assert ops.launch_counts() == {"tree_hist": 8, "weighted_errors": 1,
-                                           "weight_update": 1, "vote_argmax": 0,
-                                           "flash_attention": 0}
+                                           "weight_update": 1, "weight_update_product": 0,
+                                           "vote_argmax": 0, "flash_attention": 0}
             assert ref.device_calls == calls
         out[device] = (int(metrics["chosen"]), float(metrics["epsilon"]),
                        [e.count for e in state.ensemble])

@@ -67,7 +67,9 @@ def test_fl_run_defaults_to_cuda_and_raises_without_a_card():
                                   ["--learner", "nearest_centroid"], ["--learner", "mlp"],
                                   ["--split", "dirichlet"],
                                   ["--learners", "decision_tree,ridge,gaussian_nb"],
-                                  ["--learners", "decision_tree,ridge", "--algorithm", "preweak_f"]])
+                                  ["--learners", "decision_tree,ridge", "--algorithm", "preweak_f"],
+                                  ["--faithful"], ["--faithful", "--algorithm", "preweak_f"],
+                                  ["--algorithm", "fedavg", "--learner", "mlp"]])
 def test_fl_run_new_paths_default_to_cuda_and_raise_without_a_card(argv):
     _no_card()
     from repro_torch.launch import fl_run

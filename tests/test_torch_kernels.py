@@ -24,7 +24,9 @@ from repro.kernels.boost_update import weighted_errors as pallas_weighted_errors
 from repro.kernels.tree_hist import tree_hist as pallas_tree_hist
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.core import scoring
-from repro_torch.kernels.boost_update import UPDATE_REGISTERS, errors_plan, update_plan
+from repro_torch.kernels.boost_update import (
+    UPDATE_REGISTERS, errors_plan, product_plan, update_plan,
+)
 from repro_torch.kernels.tree_hist import (
     MAX_FEATURES_PER_BLOCK, MAX_SHARED_BYTES, MAX_THREADS, MIN_THREADS, SMS,
     blocks_per_sm, launch_plan,
@@ -251,6 +253,37 @@ def test_update_weights_matches_jax_pallas(C, n, alpha, zero_mask):
         assert abs(float(got.sum()) - 1.0) < 1e-5
 
 
+@pytest.mark.parametrize("n,alpha", [(300, 1.5), (4070, -2.0), (129, 10.0)])
+def test_weight_update_product_matches_pallas_interpret(n, alpha):
+    """``ops.weight_update_product`` (its CPU dispatch: the plain version)
+    against the Pallas ``weight_update`` in interpret mode: the same
+    product, with no renormalisation after it."""
+    w, mis, mask = _update_inputs(n, seed=n)
+    got = ops.weight_update_product(*_t(w, mis, mask), torch.tensor(alpha))
+    want = pallas_weight_update(jnp.asarray(w), jnp.asarray(mis), jnp.asarray(mask),
+                                jnp.float32(alpha), block_s=128, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("N,blocks", [(4070, 16), (32560, 128), (1, 1), (10**7, 1056)])
+def test_weight_update_product_plan(N, blocks):
+    """A thread an element in CTAs of 256, at most 8 CTAs an SM (132 SMs);
+    past that the threads stride."""
+    plan = product_plan(N)
+    assert plan == (blocks, 256)
+    assert plan.blocks * plan.threads >= min(N, 8 * 132 * 256)
+
+
+def test_weight_update_product_checks_its_inputs():
+    w, mis, mask = _update_inputs(10)
+    with pytest.raises(TypeError):
+        ops.weight_update_product(*_t(w.astype(np.float64), mis, mask), torch.tensor(0.3))
+    with pytest.raises(ValueError):
+        ops.weight_update_product(*_t(w, mis[:-1].copy(), mask), torch.tensor(0.3))
+    with pytest.raises(ValueError):
+        ops.weight_update_product(*_t(w, mis, mask), torch.tensor([0.3, 0.4]))
+
+
 @pytest.mark.parametrize("N,threads,per_thread", [
     (32560, 1024, 2), (16000, 1024, 1), (50000, 1024, 4),  # adult, letter, forestcover at C = 8
     (260480, 1024, 16),  # adult at 64 collaborators: 8 a thread through the output
@@ -317,11 +350,13 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     ops.weighted_errors(*_t(np.zeros((2, 3, 4), np.int32), np.zeros((2, 4), np.int32),
                             np.ones((2, 4), np.float32)))
     ops.weight_update(*_t(*_update_inputs(10)), torch.tensor(0.3))
+    ops.weight_update_product(*_t(*_update_inputs(10)), torch.tensor(0.3))
     ops.vote_argmax(*_t(np.zeros((3, 4), np.int32), np.ones(3, np.float32)), n_classes=2)
     q = np.ones((1, 2, 4, 32), np.float32)
     ops.flash_attention(*_t(q, q[:, :1], q[:, :1]))
     assert ops.launch_counts() == {"tree_hist": 0, "weighted_errors": 0, "weight_update": 0,
-                                   "vote_argmax": 0, "flash_attention": 0}
+                                   "weight_update_product": 0, "vote_argmax": 0,
+                                   "flash_attention": 0}
     assert ref.device_calls == before  # device_calls counts CUDA tensors only
 
 

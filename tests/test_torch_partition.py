@@ -102,8 +102,8 @@ def test_fl_run_dirichlet_split_pads_the_shards(tmp_path):
 def test_plan_validates_the_split():
     from repro_torch.core.plan import DataPlan, adaboost_plan
 
-    assert adaboost_plan(data=DataPlan("dirichlet", 0.1)).data.split == "dirichlet"
+    assert adaboost_plan(data=DataPlan(split="dirichlet", dirichlet_alpha=0.1)).data.split == "dirichlet"
     with pytest.raises(ValueError, match="unknown split"):
-        adaboost_plan(data=DataPlan("shards"))
+        adaboost_plan(data=DataPlan(split="shards"))
     with pytest.raises(ValueError, match="dirichlet_alpha must be positive"):
-        adaboost_plan(data=DataPlan("dirichlet", 0.0))
+        adaboost_plan(data=DataPlan(split="dirichlet", dirichlet_alpha=0.0))
