@@ -110,7 +110,31 @@ Phases, each of which raises (non-zero exit) on failure:
    same comm bytes).  Phase 3 holds the new shapes too:
    ``weight_update_product`` at ``[4 070]`` and ``[32 560]``, ``tree_hist``
    at H = 1 (``[1, 4 070, 14]``, L = 1, 2, 4, 8) under skewed weights and
-   ``weighted_errors`` at ``[1, 8, 4 070]``.
+   ``weighted_errors`` at ``[1, 8, 4 070]``;
+12. run the elastic runtime and the multi-tenant registry on the card
+   (adult, C = 8, depth 4, 16 bins, IID, seed 0, 10 rounds; every launch
+   count set to 0 just before each run): (a) ``Federation.run(policy=
+   ParticipationPolicy())`` with no faults for all four algorithms, equal
+   to the fused run bit for bit (history, every round's metrics, weights,
+   ensemble) with the fused run's launches (AdaBoost.F 4 / 1 / 1 / 0 a
+   round); through ``fl_run --elastic``, each also on the CPU: (b) virtual
+   chaos (``--deadline-ms 1000 --fault-seed 7 --fault-drop-p 0.2
+   --fault-kill 2:3``), (c) late merges (``--deadline-ms 500 --fault-seed 3
+   --fault-delay-p 0.4 --fault-delay-ms 600:1400``), (d) DistBoost.F under
+   (b)'s faults — responders, dropouts and late merges equal to the CPU's,
+   one ``weight_update_product`` a partial round and one ``weight_update``
+   a full one, each late alpha its base times its discount, the ensemble
+   count rounds - skipped + late merges, round 0's member the CPU's, F1
+   within 0.02; (e) ``--elastic-realtime --deadline-ms 20`` (every round at
+   least one responder, ms/round); (f) a ``ModelRegistry`` of three
+   tenants refreshed at every checkpoint (adult: (b)'s run publishing
+   every 2, then a late-merge run whose larger capacity rebuilds;
+   pendigits: serve_fl's defaults, then a DistBoost.F committee stream that
+   rebuilds; letter, T = 100): the expected swaps and rebuilds, one
+   ``vote_argmax`` a served batch, each tenant's votes those of a
+   standalone engine and the CPU's outside the near-tie gap, rows/s and
+   p50/p99 of 37-row ``predict`` calls and ``submit(deadline_s=)`` with
+   ``drain()`` under the deadline scheduler.
 
 Each phase's seconds are printed at the end.  The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Without a card, or beside no copy of
@@ -1109,10 +1133,11 @@ def stage_breakdown(torch, fl_run, card: str) -> None:
 
 
 def profile_round(torch, fl_run, card: str, rounds: int = MAIN["rounds"], label: str = "adult",
-                  **build) -> None:
+                  run_kw: dict | None = None, **build) -> None:
     """Device time by kernel and the device's busy share over an adult
     run's rounds (set-up excluded; the main path's by default, ``build``
-    gives ``build_federation`` other flags), from torch.profiler."""
+    gives ``build_federation`` other flags, ``run_kw`` ``Federation.run``
+    an elastic policy and faults), from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1120,7 +1145,7 @@ def profile_round(torch, fl_run, card: str, rounds: int = MAIN["rounds"], label:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fed.run(eval_every=MAIN["eval_every"])
+        fed.run(eval_every=MAIN["eval_every"], **(run_kw or {}))
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     rows = [(e.key, e.count, getattr(e, "device_time_total", None) or e.cuda_time_total)
@@ -1607,6 +1632,258 @@ def interpreted_phase(torch, ops, ref, fl_run, card: str, fused_run: dict) -> in
     return product_launches
 
 
+# -- phase 12: the elastic runtime and the multi-tenant registry -----------------------
+
+# (b) virtual chaos, (c) late merges, (e) realtime: fl_run flags (adult, C = 8, 10 rounds)
+CHAOS = ["--elastic", "--deadline-ms", "1000", "--fault-seed", "7", "--fault-drop-p", "0.2",
+         "--fault-kill", "2:3"]
+LATE = ["--elastic", "--deadline-ms", "500", "--fault-seed", "3", "--fault-delay-p", "0.4",
+        "--fault-delay-ms", "600:1400"]
+REALTIME = ["--elastic", "--elastic-realtime", "--deadline-ms", "20", "--fault-delay-p", "0.3",
+            "--fault-delay-ms", "5:60"]
+LATE_KEY = ("src_round", "merged_round", "collaborator", "lateness", "discount")
+REQUEST_ROWS = 37  # serve_fl's default request
+REGISTRY_WINDOW_S = 0.3  # seconds of 37-row registry predicts per tenant
+
+
+def elastic_noop(torch, ops, ref, fl_run, card: str) -> None:
+    """(a) ``ParticipationPolicy()`` with no faults against the fused run,
+    for each algorithm: the same history, per-round metrics, weights and
+    ensemble to the bit, and the same launches (AdaBoost.F 4 / 1 / 1 / 0 a
+    round, phase 6's)."""
+    from repro_torch.fl.elastic import ParticipationPolicy
+
+    rounds, rows = MAIN["rounds"], []
+    for alg in ("adaboost_f", "distboost_f", "preweak_f", "bagging"):
+        runs = {}
+        for mode in ("fused", "elastic"):
+            fed = fl_run.build_federation("adult", C, rounds, DEPTH, 0, DEV, algorithm=alg)
+            calls = dict(ref.device_calls)
+            ops.reset_launches()
+            hist = fed.run(eval_every=MAIN["eval_every"],
+                           policy=ParticipationPolicy() if mode == "elastic" else None)
+            torch.cuda.synchronize()
+            check(ref.device_calls == calls, f"elastic no-op {alg} {mode}: a plain version ran on CUDA")
+            runs[mode] = (fed, hist, ops.launch_counts())
+        (f, h1, l1), (e, h2, l2) = runs["fused"], runs["elastic"]
+        key = ("round", "f1", "epsilon", "alpha", "chosen")
+        check([{k: r[k] for k in key} for r in h1] == [{k: r[k] for k in key} for r in h2],
+              f"elastic no-op {alg}: history differs from the fused run's")
+        check(e.per_round() == f.per_round(), f"elastic no-op {alg}: round metrics differ")
+        check(torch.equal(e.state.weights, f.state.weights), f"elastic no-op {alg}: weights differ")
+        check(e.state.ensemble.count == f.state.ensemble.count
+              and torch.equal(e.state.ensemble.alpha, f.state.ensemble.alpha)
+              and all(torch.equal(a, b) for a, b in zip(e.state.ensemble.params, f.state.ensemble.params)),
+              f"elastic no-op {alg}: ensemble differs from the fused run's")
+        check(l2 == l1 and l2["weight_update_product"] == 0,
+              f"elastic no-op {alg}: launches {l2} != the fused run's {l1}")
+        if alg == "adaboost_f":
+            want = {**no_launches(ops), "tree_hist": rounds * DEPTH, "weighted_errors": rounds,
+                    "weight_update": rounds}
+            check(l2 == want, f"elastic no-op adaboost_f: launches {l2} != {want}")
+        rows.append(f"{alg} {1e3 * h2[-1]['round_seconds']:.3f} (fused {1e3 * h1[-1]['round_seconds']:.3f})")
+    log(f"phase 12 (a) no-op policy = fused run bit for bit (history, metrics, weights, ensemble, "
+        f"launches) for all four algorithms; ms/round on {card}: " + ", ".join(rows))
+
+
+def elastic_pair(torch, ops, ref, fl_run, flags: list, tag: str, extra=()) -> tuple:
+    """One ``fl_run --elastic`` run on the card (launch counts set to 0 just
+    before) and the same on the CPU; the host-side outcome (responders,
+    dropouts, late merges) must be equal and the round counts consistent."""
+    calls = dict(ref.device_calls)
+    ops.reset_launches()
+    gpu = run_fl(fl_run, "adult", MAIN["rounds"], "cuda", f"{tag}_cuda", [*flags, *extra])
+    launches = ops.launch_counts()
+    check(ref.device_calls == calls, f"{tag}: a plain version ran on CUDA tensors")
+    cpu = run_fl(fl_run, "adult", MAIN["rounds"], "cpu", f"{tag}_cpu", [*flags, *extra])
+    for k in ("responders", "dropouts"):
+        check(gpu[k] == cpu[k], f"{tag}: {k} card {gpu[k]} vs CPU {cpu[k]}")
+    late = [{k: r[k] for k in LATE_KEY} for r in gpu["late"]]
+    check(late == [{k: r[k] for k in LATE_KEY} for r in cpu["late"]], f"{tag}: late merges differ")
+    for run, where in ((gpu, "card"), (cpu, "CPU")):
+        for r in run["late"]:
+            # alpha = discount * base in float32 (the discount is a power of
+            # 1/2, so exact): alpha <= base where the late hypothesis still
+            # beats chance under the current weights, |alpha| <= |base| always
+            check(r["alpha"] == r["base_alpha"] * r["discount"] and abs(r["alpha"]) <= abs(r["base_alpha"])
+                  and (r["alpha"] <= r["base_alpha"] or r["base_alpha"] < 0),
+                  f"{tag} {where}: late alpha {r['alpha']} against base {r['base_alpha']}")
+        skipped = sum(1 for n in run["responders"] if n == 0)
+        check(run["ensemble_count"] == MAIN["rounds"] - skipped + len(run["late"]),
+              f"{tag} {where}: {run['ensemble_count']} members, not rounds - skipped + late merges")
+        f1 = run["history"][-1]["f1"]
+        check(0.0 < f1 <= 1.0, f"{tag} {where}: final F1 {f1}")
+    full = sum(1 for n in gpu["responders"] if n == C)
+    partial = sum(1 for n in gpu["responders"] if 0 < n < C)
+    check(launches["weight_update_product"] == partial and launches["weight_update"] == full,
+          f"{tag}: {launches} for {full} full and {partial} partial rounds")
+    g0, c0 = gpu["rounds"][0], cpu["rounds"][0]
+    check(g0["chosen"] == c0["chosen"], f"{tag} round 0 chosen: card {g0['chosen']} vs CPU {c0['chosen']}")
+    f1_gpu, f1_cpu = gpu["history"][-1]["f1"], cpu["history"][-1]["f1"]
+    check(abs(f1_gpu - f1_cpu) <= 0.02, f"{tag} final F1: card {f1_gpu} vs CPU {f1_cpu}")
+    agree = sum(a["chosen"] == b["chosen"] for a, b in zip(gpu["rounds"], cpu["rounds"]))
+    negative = sum(1 for r in gpu["late"] if r["base_alpha"] < 0)
+    log(f"phase 12 {tag}: responders {gpu['responders']} (= CPU), dropouts {gpu['dropouts']}, "
+        f"{len(gpu['late'])} late merges ({negative} with a base alpha below 0: worse than chance "
+        f"under the current weights), {partial} partial + {full} full rounds, launches "
+        f"{launches}; card vs CPU: chosen agrees in {agree}/{len(gpu['rounds'])} rounds, final F1 "
+        f"{f1_gpu:.4f} vs {f1_cpu:.4f}; {1e3 * gpu['history'][-1]['round_seconds']:.3f} ms/round "
+        f"(the last history row)")
+    return gpu, launches
+
+
+def elastic_realtime(torch, fl_run, card: str) -> None:
+    """(e) wall-clock arrivals: every round closes over at least
+    ``min_responders`` (1)."""
+    run = run_fl(fl_run, "adult", MAIN["rounds"], "cuda", "realtime_cuda", REALTIME)
+    check(all(n >= 1 for n in run["responders"]), f"realtime: a round under the floor {run['responders']}")
+    waits = [h["wait_s"] for h in run["history"]]
+    log(f"phase 12 (e) realtime (deadline 20 ms, 30% delayed 5-60 ms) on {card}: responders "
+        f"{run['responders']}, dropouts {run['dropouts']}, {len(run['late'])} late merges, "
+        f"{1e3 * run['history'][-1]['round_seconds']:.3f} ms/round (the last history row), "
+        f"eval-row waits {[round(1e3 * w, 1) for w in waits]} ms")
+
+
+def registry_phase(torch, ops, ref, fl_run, card: str) -> dict:
+    """(f) three tenants on one ``ModelRegistry``: adult (the chaos run
+    publishing every 2, then a late-merge run whose larger capacity
+    rebuilds), pendigits (serve_fl's defaults, then a DistBoost.F committee
+    stream that rebuilds) and letter (T = 100), refreshed at every
+    checkpoint.  Returns the registry's ``vote_argmax`` launches."""
+    from repro_torch.fl.elastic import FaultPlan, ParticipationPolicy
+    from repro_torch.data import get_dataset
+    from repro_torch.obs.metrics import Histogram
+    from repro_torch.serve import ModelRegistry, ServeEngine, latest_artifact, load_artifact
+
+    root = SERVE / "registry"
+    shutil.rmtree(root, ignore_errors=True)
+    reg = ModelRegistry()
+    outcomes = {}
+
+    def follow(name):
+        def on_checkpoint(path, version):
+            if name not in reg.tenants():
+                reg.add_tenant(name, path.parent)
+            else:
+                outcomes.setdefault(name, []).append(reg.refresh(name).get(name))
+        return on_checkpoint
+
+    chaos = dict(policy=ParticipationPolicy(deadline_s=1.0),
+                 faults=FaultPlan(seed=7, drop_p=0.2, kills=((2, 3),)))
+    late = dict(policy=ParticipationPolicy(deadline_s=0.5),
+                faults=FaultPlan(seed=3, delay_p=0.4, delay_range_s=(0.6, 1.4)))
+    streams = [  # tenant, dataset, C, rounds, publish every, build keywords, run keywords
+        ("adult", "adult", C, 10, 2, {}, chaos),
+        ("adult", "adult", C, 12, 6, {}, late),
+        ("pendigits", "pendigits", 4, 10, 2, {}, {}),
+        ("pendigits", "pendigits", 4, 12, 12, {"algorithm": "distboost_f"}, {}),
+        ("letter", "letter", 4, 100, 50, {}, {}),
+    ]
+    for name, ds, c, rounds, every, build, run_kw in streams:
+        fed = fl_run.build_federation(ds, c, rounds, DEPTH, 0, DEV, **build)
+        fed.run(eval_every=rounds, publish_every=every, publish_dir=str(root / name),
+                on_checkpoint=follow(name), **run_kw)
+    want = {"adult": (5, 1), "pendigits": (4, 1), "letter": (1, 0)}
+    stats = reg.stats()["tenants"]
+    got = {n: (t["swaps"], t["rebuilds"]) for n, t in stats.items()}
+    check(got == want, f"registry (swaps, rebuilds) {got} != {want}")
+    check(all(v is not None for vs in outcomes.values() for v in vs), f"a refresh found nothing new: {outcomes}")
+
+    tests = {ds: get_dataset(ds, torch.Generator().manual_seed(0))[1][2].numpy()
+             for ds in ("adult", "pendigits", "letter")}
+    before = {n: reg.engine(n).stats.batches + reg.engine(n).stats.warmup_batches for n in stats}
+    calls = dict(ref.device_calls)
+    ops.reset_launches()
+    preds = {n: reg.predict(n, tests[n]) for n in reg.tenants()}
+    launches = ops.launch_counts()["vote_argmax"]
+    served = sum(reg.engine(n).stats.batches + reg.engine(n).stats.warmup_batches - before[n]
+                 for n in stats)
+    check(launches == served, f"registry: {launches} vote_argmax launches for {served} batches")
+    check(ref.device_calls == calls, "registry: a plain version ran on CUDA tensors")
+    rows = []
+    for n in reg.tenants():
+        path = latest_artifact(root / n)
+        alone = ServeEngine.from_artifact(load_artifact(path)).predict(tests[n])
+        check(bool((alone == preds[n]).all()), f"registry {n}: other votes than a standalone engine")
+        rows.append(card_vs_cpu(torch, path, n, preds[n], f"registry {n}"))
+    log("phase 12 (f) registry: " + "; ".join(rows) + f"; swaps/rebuilds {got}, {launches} "
+        f"vote_argmax launches for {served} batches")
+
+    perf = []
+    for n in reg.tenants():
+        X, lat = tests[n], Histogram()
+        reg.predict(n, X[:REQUEST_ROWS])
+        t0 = done = time.perf_counter()
+        i = reqs = 0
+        while done - t0 < REGISTRY_WINDOW_S:
+            rows_ = X[i:i + REQUEST_ROWS]
+            t1 = time.perf_counter()
+            reg.predict(n, rows_)
+            done = time.perf_counter()
+            lat.observe(done - t1)
+            reqs += len(rows_)
+            i = (i + REQUEST_ROWS) % (len(X) - REQUEST_ROWS)
+        perf.append(f"{n} {reqs / (done - t0):.0f} rows/s, {lat.count} requests, p50 "
+                    f"{1e3 * lat.percentile(50):.3f} ms p99 {1e3 * lat.percentile(99):.3f} ms")
+    eng, X = reg.engine("pendigits"), tests["pendigits"]
+    with eng.scheduler() as sched:
+        t0 = time.perf_counter()
+        ids = []
+        for i in range(0, len(X), REQUEST_ROWS):
+            ids += sched.submit(X[i:i + REQUEST_ROWS], deadline_s=0.002)
+        sched.drain()
+        dt = time.perf_counter() - t0
+        got_pred = sched.results(ids)
+        check(bool((got_pred == preds["pendigits"]).all()), "deadline scheduler: other votes than predict")
+        waits = sched.queue_wait
+    st = eng.stats.request_latencies
+    log(f"phase 12 (f) registry predict on {card} (37-row requests, {REGISTRY_WINDOW_S} s each): "
+        + "; ".join(perf) + f"; pendigits submit(deadline_s=0.002) + drain(): {len(X)} rows in "
+        f"{1e3 * dt:.3f} ms = {len(X) / dt:.0f} rows/s, latency p50 {1e3 * st.percentile(50):.3f} ms "
+        f"p99 {1e3 * st.percentile(99):.3f} ms, queue wait p50 {1e3 * waits.percentile(50):.3f} ms")
+    return {"vote_argmax": launches}
+
+
+def elastic_round_cost(torch, ops, fl_run, card: str) -> None:
+    """Host operations of one steady adult AdaBoost.F round through the
+    elastic stages, full and with one collaborator absent (the sixth of
+    ten), and where (b)'s chaos run's device time goes (torch.profiler)."""
+    import numpy as np
+
+    from repro_torch.core import boosting, scoring
+    from repro_torch.fl.elastic import (FaultPlan, ParticipationPolicy, elastic_adaboost_f_stages,
+                                        run_elastic_stages)
+
+    fed = fl_run.build_federation("adult", C, MAIN["rounds"], DEPTH, 0, DEV)
+    state = boosting.init_boost_state(fed.learner, fed.spec, MAIN["rounds"], fed.masks, X=fed.Xs)
+    stages = elastic_adaboost_f_stages(fed.learner, fed.spec, generator=fed.generator)
+    full = scoring.participation(np.ones(C), DEV)
+    for _ in range(MAIN["rounds"] // 2):
+        state, _, _ = run_elastic_stages(stages, state, fed.Xs, fed.ys, fed.masks, full)
+    counted = {}
+    for name, resp in (("full", np.ones(C)), ("partial", np.r_[np.ones(C - 1), 0.0])):
+        counted[name] = host_ops(torch, ops, lambda: run_elastic_stages(
+            stages, state, fed.Xs, fed.ys, fed.masks, scoring.participation(resp, DEV)))
+    torch.cuda.synchronize()
+    log("phase 12 host operations of an elastic adult round (round 6 of 10; PyTorch operators + "
+        "kernel launches): " + "; ".join(
+            f"{k} {v['host_ops']} ({v['torch_ops']} + {v['kernel_launches']})" for k, v in counted.items()))
+    profile_round(torch, fl_run, card, label="adult b_chaos", run_kw=dict(
+        policy=ParticipationPolicy(deadline_s=1.0), faults=FaultPlan(seed=7, drop_p=0.2, kills=((2, 3),))))
+
+
+def elastic_phase(torch, ops, ref, fl_run, card: str) -> dict:
+    """Phase 12; returns the card's launches in (b)'s chaos run and the
+    registry's ``vote_argmax`` launches."""
+    elastic_noop(torch, ops, ref, fl_run, card)
+    _, chaos_launches = elastic_pair(torch, ops, ref, fl_run, CHAOS, "b_chaos")
+    elastic_pair(torch, ops, ref, fl_run, LATE, "c_late_merges")
+    elastic_pair(torch, ops, ref, fl_run, CHAOS, "d_distboost_chaos", ["--algorithm", "distboost_f"])
+    elastic_realtime(torch, fl_run, card)
+    elastic_round_cost(torch, ops, fl_run, card)
+    return {**chaos_launches, **registry_phase(torch, ops, ref, fl_run, card)}
+
+
 # -- phase 8: LLM serving -----------------------------------------------------------
 
 
@@ -1917,6 +2194,11 @@ def main() -> int:
     # without its cache, FedAvg
     launches["weight_update_product"] = interpreted_phase(torch, ops, ref, fl_run, card, main_run)
     phase_done(11)
+
+    # 12. the elastic runtime (fl_run --elastic, faults, late merges) and the
+    # multi-tenant registry
+    elastic_launches = elastic_phase(torch, ops, ref, fl_run, card)
+    phase_done(12)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
 
@@ -1931,6 +2213,8 @@ def main() -> int:
             "launches_per_round": launches[name] / MAIN["rounds"] if training else None,
             "launches_per_batch": launches[name] / serve_dispatches if name == "vote_argmax" else None,
             "launches_per_prefill": launches[name] if name == "flash_attention" else None,
+            # phase 12: the chaos run's training launches, the registry's votes
+            "launches_elastic": elastic_launches.get(name, 0),
             "max_abs_err": worst, "max_err": worst,
             "ms": main_shape["ms"], "kernel_ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],

@@ -1,5 +1,4 @@
-"""Predict-once scoring (answers to the unmasked half of
-``repro/core/scoring.py``).
+"""Predict-once scoring (answers to ``repro/core/scoring.py``).
 
 Each round materialises the prediction tensor ``preds [C, H, n]`` once;
 the error matrix, the chosen hypothesis's mispredictions and the weight
@@ -17,15 +16,20 @@ update are all reductions over it:
   * ``member_prediction`` — the one member-vote rule, shared by the
     incremental tally and the serving engine;
   * ``VoteTally`` — incremental evaluation: a running ``[n, K]`` tally
-    that adds only the members appended since the last eval.
+    that adds only the members appended since the last eval;
+  * the masked twins (``masked_error_sum``, ``masked_argmin``,
+    ``participation_denom``, ``masked_update_weights``,
+    ``masked_member_prediction``, ``tally_new_votes_masked``) — the
+    elastic round's step 3/4 over a :class:`Participation`.
 
 The chosen index and alpha stay on the device throughout, so nothing
 here waits for the card.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -105,6 +109,91 @@ def update_weights(
 
 
 # ---------------------------------------------------------------------------
+# Masked (partial-participation) reductions — the elastic round's step 3/4
+# ---------------------------------------------------------------------------
+#
+# An elastic round (fl/elastic.py) closes over a SUBSET of collaborators.
+# The helpers below are the masked twins of the reductions above, with one
+# contract: under full participation each is BIT-FOR-BIT the unmasked
+# reduction, because it runs that reduction's literal operations (the
+# renormalising ``weight_update`` launch, not the product and a sum).  The
+# JAX package picks that branch on the device; here the responder set is
+# known on the host (``Participation.full``), so the branch is a host
+# ``if`` and no helper reads the device.
+
+
+class Participation(NamedTuple):
+    """A round's responders: ``mask [C]`` f32 on the device (1.0 responder,
+    0.0 absent; None under full participation, where nothing reads it),
+    ``full``, whether every collaborator responded, and ``responders``,
+    the same ``[C]`` bool mask on the host."""
+
+    mask: Optional[torch.Tensor]
+    full: bool
+    responders: np.ndarray
+
+
+def participation(responders, device) -> Participation:
+    """A :class:`Participation` from a host ``[C]`` mask (numpy or a
+    sequence; > 0 means responded).  A partial mask goes to the device in
+    one copy, from pinned memory on the card, so no round waits for it."""
+    resp = np.asarray(responders) > 0
+    if resp.all():
+        return Participation(None, True, resp)
+    mask = torch.from_numpy(resp.astype(np.float32))
+    if torch.device(device).type == "cuda":
+        mask = mask.pin_memory()
+    return Participation(mask.to(device, non_blocking=True), False, resp)
+
+
+def masked_error_sum(errs: torch.Tensor, part: Participation) -> torch.Tensor:
+    """Global weighted error over responding shards: errs [C, H] -> [H].
+    Absent collaborators' rows are zeroed before the shard-axis sum."""
+    if part.full:
+        return torch.sum(errs, dim=0)
+    return torch.sum(torch.where(part.mask[:, None] > 0, errs, 0.0), dim=0)
+
+
+def masked_argmin(eps: torch.Tensor, hyp_part: Participation) -> torch.Tensor:
+    """argmin over the hypotheses of responding collaborators only (absent
+    ones never uploaded theirs): eps [H] -> 0-dim index on the device."""
+    if hyp_part.full:
+        return torch.argmin(eps)
+    return torch.argmin(torch.where(hyp_part.mask > 0, eps, float("inf")))
+
+
+def participation_denom(weights: torch.Tensor, part: Participation) -> torch.Tensor:
+    """Normaliser of a partial-participation weighted error: the
+    responders' weight mass (the weights are normalised over ALL shards,
+    so an error summed over responders alone underestimates).  The
+    literal 1.0 under full participation, an exact identity."""
+    if part.full:
+        return torch.ones((), dtype=weights.dtype, device=weights.device)
+    mass = torch.sum(torch.where(part.mask[:, None] > 0, weights, 0.0))
+    return torch.clamp_min(mass, 1e-30)
+
+
+def masked_update_weights(
+    w: torch.Tensor,  # [C, n] f32
+    mis: torch.Tensor,  # [C, n] f32
+    mask: torch.Tensor,  # [C, n] f32
+    part: Participation,
+    alpha: torch.Tensor,
+) -> torch.Tensor:
+    """Paper step 4 over responders only: absent collaborators' rows are
+    FROZEN (they never saw the chosen hypothesis), and the renormalisation
+    still runs over every row, so a returning collaborator resumes with
+    correctly scaled weights.  A partial round is one
+    ``weight_update_product`` launch, the select and the division; a full
+    one is :func:`update_weights`' one renormalising launch."""
+    if part.full:
+        return update_weights(w, mis, mask, alpha)
+    upd = update_weights(w, mis, mask, alpha, renormalize=False)
+    sel = torch.where(part.mask[:, None] > 0, upd, w)
+    return sel / torch.clamp_min(torch.sum(sel), 1e-30)
+
+
+# ---------------------------------------------------------------------------
 # Incremental ensemble evaluation
 # ---------------------------------------------------------------------------
 
@@ -125,18 +214,23 @@ def init_tally(n: int, n_classes: int, device) -> VoteTally:
 
 
 def committee_tally(learner: WeakLearner, spec: LearnerSpec, params_t: Any,
-                    X: torch.Tensor) -> torch.Tensor:
+                    X: torch.Tensor, seat_mask: torch.Tensor | None = None) -> torch.Tensor:
     """The seat vote tally ``[..., [T,] n, K]`` of a committee slot
     (``[C, ...]``) or slot stack (``[T, C, ...]``): each seat's vote as a
-    one-hot (out of range: a zero row), summed over the seats.  A mixed
-    (heterogeneous) committee sums its groups' tallies
-    (``core/hetero.py``)."""
+    one-hot (out of range: a zero row), summed over the seats.  With
+    ``seat_mask`` (``[C]`` or ``[T, C]``) a seat whose mask is 0 votes for
+    nothing (an elastic committee's absent members); an all-ones mask
+    gives the same bits as none.  A mixed (heterogeneous) committee sums
+    its groups' tallies (``core/hetero.py``)."""
     proto = learner.init(spec, X.device)
     lead = params_t[0].shape[: params_t[0].dim() - proto[0].dim()]  # ([T,] C)
     flat = type(params_t)(*(x.reshape((-1,) + p.shape) for x, p in zip(params_t, proto)))
     batch = X.shape[:-2]  # a leading shard axis, when X is [C, n, d]
     preds = learner.predict(spec, flat, X).view(batch + lead + X.shape[-2:-1])  # [.., [T,] C, n]
-    return one_hot(preds, spec.n_classes, torch.float32).sum(dim=len(batch) + len(lead) - 1)
+    votes = one_hot(preds, spec.n_classes, torch.float32)
+    if seat_mask is not None:
+        votes = torch.where(seat_mask.view(lead + (1, 1)) > 0, votes, 0.0)
+    return votes.sum(dim=len(batch) + len(lead) - 1)
 
 
 def member_prediction(learner: WeakLearner, spec: LearnerSpec, params_t: Any,
@@ -164,6 +258,31 @@ def tally_new_votes(
     for t in range(tally.counted, ensemble.count):
         pred = member_prediction(learner, spec, take_slot(ensemble.params, t), X,
                                  committee=committee)
+        votes = votes + ensemble.alpha[t] * one_hot(pred, spec.n_classes, votes.dtype)
+    return VoteTally(votes, ensemble.count)
+
+
+def masked_member_prediction(learner: WeakLearner, spec: LearnerSpec, params_t: Any,
+                             cmask: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """A DistBoost.F committee's vote with its absent members masked out:
+    ``cmask`` (``[C]``, or ``[T, C]`` for a slot stack) records which of
+    the slot's C seats took part in its round.  All-ones gives
+    :func:`member_prediction` (``committee=True``) bit for bit."""
+    tally = committee_tally(learner, spec, params_t, X, seat_mask=cmask)
+    return torch.argmax(tally, dim=-1).to(torch.int32)
+
+
+def tally_new_votes_masked(
+    learner: WeakLearner, spec: LearnerSpec, ensemble, cmasks: torch.Tensor,
+    tally: VoteTally, X: torch.Tensor,
+) -> VoteTally:
+    """:func:`tally_new_votes` for elastic DistBoost.F ensembles: each
+    committee slot votes through its row of ``cmasks [T, C]``.  With
+    all-ones masks this is ``tally_new_votes(committee=True)`` bit for
+    bit."""
+    votes = tally.votes
+    for t in range(tally.counted, ensemble.count):
+        pred = masked_member_prediction(learner, spec, take_slot(ensemble.params, t), cmasks[t], X)
         votes = votes + ensemble.alpha[t] * one_hot(pred, spec.n_classes, votes.dtype)
     return VoteTally(votes, ensemble.count)
 

@@ -37,7 +37,11 @@ A heterogeneous federation (a ``core/hetero.HeterogeneousSpec``, or a plan
 whose ``learners`` cycle learner families over the collaborators) runs the
 fused loop over ``core/hetero.py``'s grouped stages; its winner's index is
 read on the host once a round, where the owner group's count moves.
-Elastic federations are not ported yet (ROADMAP Queue 1 item 12).
+
+``run(policy=..., faults=...)`` hands a homogeneous fused-path federation
+to ``fl/elastic.ElasticFederation`` (partial participation, straggler
+deadlines, late merges, injected faults) over the same tensors and
+generator; with no faults and no deadline it is bit for bit the fused run.
 """
 from __future__ import annotations
 
@@ -57,11 +61,12 @@ from repro_torch.core.plan import Plan
 from repro_torch.core.serialization import deserialize, serialize, wire_format, wire_size
 from repro_torch.core.tensordb import TensorDB, TensorKey
 from repro_torch.device import resolve_device
+from repro_torch.fl.elastic import (
+    METRIC_KEYS, ElasticFederation, FaultPlan, ParticipationPolicy, round_table,
+)
 from repro_torch.kernels.ref import one_hot
 from repro_torch.learners.base import LearnerSpec, get_learner
 from repro_torch.obs import metrics as obs_metrics, trace
-
-_METRIC_KEYS = ("epsilon", "alpha", "chosen")
 
 # Process-wide federation metric families (docs/ARCHITECTURE.md,
 # "Observability").
@@ -163,6 +168,7 @@ class Federation:
         self.published: List[Path] = []  # checkpoint artifacts, oldest first
         self.state: Optional[boosting.BoostState] = None
         self._round_metrics: List[Dict[str, torch.Tensor]] = []
+        self.elastic: Optional[ElasticFederation] = None  # the elastic runtime of the last run
 
     # -- main loop ---------------------------------------------------------
     def run(
@@ -173,9 +179,17 @@ class Federation:
         publish_every: Optional[int] = None,
         publish_dir: Optional[str] = None,
         on_checkpoint: Optional[Callable[[Path, int], None]] = None,
+        policy: Optional[ParticipationPolicy] = None,
+        faults: Optional[FaultPlan] = None,
     ) -> List[Dict[str, float]]:
         """Run the federation; a history row every ``eval_every`` rounds
         and after the last.
+
+        ``policy`` (an ``fl/elastic.ParticipationPolicy``) or ``faults``
+        (an ``fl/elastic.FaultPlan``) runs the rounds through the elastic
+        runtime, kept in ``self.elastic``: homogeneous fused federations
+        only (a heterogeneous one raises ``NotImplementedError``, an
+        interpreted or FedAvg one ``ValueError``).
 
         ``publish_every=k`` emits a versioned serving artifact
         (``serve/artifact.publish_artifact``) into ``publish_dir`` every k
@@ -186,6 +200,14 @@ class Federation:
         publish (e.g. to hot-swap a live engine)."""
         rounds = rounds or self.plan.aggregator.rounds
         fused = self.plan.optimizations.fused_round and self.plan.algorithm != "fedavg"
+        if publish_every is not None:
+            if publish_every <= 0:
+                raise ValueError(f"publish_every must be positive, got {publish_every}")
+            if publish_dir is None:
+                raise ValueError("publish_every requires a publish_dir")
+        if policy is not None or faults is not None:
+            return self._run_elastic(rounds, eval_every, policy, faults, publish_every,
+                                     publish_dir, on_checkpoint)
         if self.hetero and not fused:
             raise ValueError(
                 "heterogeneous federations require the fused round path "
@@ -193,10 +215,6 @@ class Federation:
                 "interpreted simulation and fedavg assume one hypothesis pytree"
             )
         if publish_every is not None:
-            if publish_every <= 0:
-                raise ValueError(f"publish_every must be positive, got {publish_every}")
-            if publish_dir is None:
-                raise ValueError("publish_every requires a publish_dir")
             if not fused:
                 raise ValueError(
                     "checkpoint publishing requires the fused round path "
@@ -212,6 +230,29 @@ class Federation:
                 protocol.run_round(self, r)
             _M_ROUNDS.inc()
         return self.history
+
+    def _run_elastic(self, rounds: int, eval_every: int, policy, faults, publish_every,
+                     publish_dir, on_checkpoint) -> List[Dict[str, float]]:
+        """The rounds under ``fl/elastic.py``'s runtime, over this
+        federation's tensors and generator; its history, state, comm bytes
+        and checkpoints become this federation's."""
+        if self.hetero:
+            raise NotImplementedError(
+                "elastic rounds support homogeneous federations only; "
+                "heterogeneous groups keep the lockstep loop"
+            )
+        self.elastic = ElasticFederation(
+            self.plan, self.Xs, self.ys, self.masks, self.X_test, self.y_test, self.spec,
+            policy=policy or ParticipationPolicy(), faults=faults, device=self.device,
+            generator=self.generator,
+        )
+        history = self.elastic.run(rounds, eval_every, publish_every=publish_every,
+                                   publish_dir=publish_dir, on_checkpoint=on_checkpoint)
+        self.history = self.elastic.history
+        self.state = self.elastic.state
+        self.comm_bytes += self.elastic.comm_bytes
+        self.published.extend(self.elastic.published)
+        return history
 
     # -- the interpreted path's messaging ----------------------------------
     def send(self, tree: Any) -> List[bytes]:
@@ -243,19 +284,13 @@ class Federation:
 
     def per_round(self) -> List[Dict[str, float]]:
         """epsilon / alpha / chosen of every round run so far (the fused
-        path's fetched from the device in one transfer)."""
+        path's fetched from the device in one transfer; an elastic run's
+        executed rounds)."""
+        if self.elastic is not None:
+            return self.elastic.per_round()
         if self._round_log:
             return list(self._round_log)
-        if not self._round_metrics:
-            return []
-        table = torch.stack([
-            torch.stack([m[k].to(torch.float32) for k in _METRIC_KEYS])
-            for m in self._round_metrics
-        ]).tolist()
-        return [
-            {"round": r, "epsilon": eps, "alpha": alpha, "chosen": round(chosen)}
-            for r, (eps, alpha, chosen) in enumerate(table)
-        ]
+        return round_table(list(enumerate(self._round_metrics)))
 
     def _history_extras(self, r: int) -> Dict[str, float]:
         """round_seconds / comm_bytes deltas since the previous history
@@ -333,7 +368,7 @@ class Federation:
                     with trace.span("round.eval", round=r):
                         f1 = evaluate(state)
                         f1_, eps, alpha, chosen = torch.stack([f1.to(torch.float32)] + [
-                            metrics[k].to(torch.float32) for k in _METRIC_KEYS
+                            metrics[k].to(torch.float32) for k in METRIC_KEYS
                         ]).tolist()  # the one host sync of this eval
                     self.history.append({
                         "round": r, "f1": f1_, "epsilon": eps, "alpha": alpha,

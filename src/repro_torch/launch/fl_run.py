@@ -15,6 +15,11 @@
   PYTHONPATH=src python -m repro_torch.launch.fl_run --dataset adult \
       --algorithm fedavg --learner mlp
 
+  # elastic rounds: a 1 s straggler deadline, 20% of uploads lost,
+  # collaborator 2 killed at round 3
+  PYTHONPATH=src python -m repro_torch.launch.fl_run --dataset adult --elastic \
+      --deadline-ms 1000 --fault-seed 7 --fault-drop-p 0.2 --fault-kill 2:3
+
 Runs AdaBoost.F (``--algorithm``: also ``distboost_f``, ``preweak_f``,
 ``bagging`` and ``fedavg``) over oblivious ``decision_tree`` learners (``--learner``:
 any of the six registered families; ``--learners``: a comma-separated
@@ -29,7 +34,12 @@ Prints one ``round ... f1 ... alpha ...`` line per evaluation and a
 ``total ...s  comm ... MB  final F1 ...`` summary.  ``--publish-every K
 --publish-dir DIR`` writes a rolling serving artifact every K rounds
 (``serve/artifact.py``); ``--trace`` and ``--metrics-out`` write the
-run's spans and metrics.
+run's spans and metrics.  ``--elastic`` runs the rounds through
+``fl/elastic.py`` (partial participation, a straggler deadline
+``--deadline-ms``, staleness-discounted late merges, ``--fault-*``
+injection; ``--elastic-realtime`` waits on the wall clock), and
+``--history-out`` then writes the elastic summary (responders, dropouts by
+reason, late merges).
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ from repro_torch.core.plan import (
 )
 from repro_torch.data import PAPER_DATASETS, get_dataset
 from repro_torch.device import resolve_device
+from repro_torch.fl.elastic import FaultPlan, ParticipationPolicy
 from repro_torch.fl.federation import Federation, history_summary
 from repro_torch.fl.partition import dirichlet_partition, iid_partition
 from repro_torch.learners import LearnerSpec, available_learners, get_learner
@@ -144,6 +155,39 @@ def main(argv=None):
                          "Chrome-trace JSON; also prints a phase-time summary table")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="dump the process metrics registry in Prometheus text format")
+    # -- elastic runtime (fl/elastic.py): participation policy ------------
+    ap.add_argument("--elastic", action="store_true",
+                    help="event-driven elastic rounds: straggler deadlines, partial "
+                         "participation, staleness-discounted late merges")
+    ap.add_argument("--deadline-ms", type=float, default=None, metavar="MS",
+                    help="straggler deadline per round; omit to wait for every active "
+                         "collaborator (lockstep semantics)")
+    ap.add_argument("--min-responders", type=int, default=1,
+                    help="a round never closes over fewer responders: the deadline "
+                         "stretches to the fastest arrivals")
+    ap.add_argument("--staleness-gamma", type=float, default=0.5,
+                    help="late-merge alpha discount per round of lateness")
+    ap.add_argument("--max-staleness", type=int, default=2,
+                    help="rounds after which a late hypothesis is discarded")
+    ap.add_argument("--no-late-merge", action="store_true",
+                    help="drop stragglers' uploads instead of merging them")
+    ap.add_argument("--elastic-realtime", action="store_true",
+                    help="wall-clock arrival board (timers) instead of the "
+                         "deterministic virtual clock")
+    # -- fault injection (fl/elastic.py::FaultPlan) -----------------------
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for the deterministic fault schedule")
+    ap.add_argument("--fault-drop-p", type=float, default=0.0,
+                    help="per-(round, collaborator) upload-loss probability")
+    ap.add_argument("--fault-delay-p", type=float, default=0.0,
+                    help="per-(round, collaborator) straggler probability")
+    ap.add_argument("--fault-delay-ms", default="0:0", metavar="LO:HI",
+                    help="straggler delay range in milliseconds")
+    ap.add_argument("--fault-kill", action="append", default=[], metavar="C:ROUND",
+                    help="kill collaborator C at ROUND (repeatable)")
+    ap.add_argument("--fault-flaky", action="append", default=[], metavar="C:OFF:REJOIN",
+                    help="collaborator C offline for rounds [OFF, REJOIN) then rejoins "
+                         "(repeatable)")
     args = ap.parse_args(argv)
     if args.publish_every is not None and not args.publish_dir:
         ap.error("--publish-every requires --publish-dir")
@@ -166,19 +210,40 @@ def main(argv=None):
     if fed.hetero:
         print("heterogeneous federation:",
               {i: fed.spec.specs[g].name for i, g in enumerate(fed.spec.assignment)})
+    policy, faults = build_policy_faults(args) if args.elastic else (None, None)
     t0 = time.perf_counter()
     history = fed.run(eval_every=args.eval_every, publish_every=args.publish_every,
-                      publish_dir=args.publish_dir)
+                      publish_dir=args.publish_dir, policy=policy, faults=faults)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     _print_history(history)
     print(f"total {dt:.1f}s  comm {fed.comm_bytes/1e6:.2f} MB  final F1 {history[-1]['f1']:.4f}")
     if args.history_out:
+        summary = fed.elastic.summary() if args.elastic else history_summary(fed)
         with open(args.history_out, "w") as f:
-            json.dump(history_summary(fed), f, indent=2)
+            json.dump(summary, f, indent=2)
     finish_obs(args)
     return history
+
+
+def build_policy_faults(args) -> tuple:
+    """--elastic / --fault-* flags -> (ParticipationPolicy, FaultPlan)."""
+    lo, hi = (float(x) for x in args.fault_delay_ms.split(":"))
+    kills = tuple(tuple(int(x) for x in spec.split(":")) for spec in args.fault_kill)
+    flaky = tuple(tuple(int(x) for x in spec.split(":")) for spec in args.fault_flaky)
+    policy = ParticipationPolicy(
+        deadline_s=None if args.deadline_ms is None else args.deadline_ms / 1e3,
+        min_responders=args.min_responders,
+        staleness_gamma=args.staleness_gamma,
+        max_staleness=args.max_staleness,
+        late_merge=not args.no_late_merge,
+        realtime=args.elastic_realtime,
+    )
+    faults = FaultPlan(seed=args.fault_seed, delay_p=args.fault_delay_p,
+                       delay_range_s=(lo / 1e3, hi / 1e3), drop_p=args.fault_drop_p,
+                       kills=kills, flaky=flaky)
+    return policy, faults
 
 
 def finish_obs(args) -> None:

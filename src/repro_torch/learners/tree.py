@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import one_hot
 from repro_torch.learners.base import LearnerSpec, WeakLearner, register, weighted_onehot
 from repro_torch.learners.binning import BinnedDataset, bin_dataset
 
@@ -92,8 +93,17 @@ def _descend_stage(bin_idx: torch.Tensor, leaf: torch.Tensor, f, b) -> torch.Ten
 def _leaf_stage(wy: torch.Tensor, leaf: torch.Tensor, depth: int) -> torch.Tensor:
     """[C, 2**depth, K] leaf log class distributions."""
     C, n, K = wy.shape
-    counts = torch.zeros(C, 2**depth, K, dtype=wy.dtype, device=wy.device)
-    counts.scatter_add_(1, leaf.long().unsqueeze(-1).expand(C, n, K), wy)
+    if wy.is_cuda:
+        # a sum over the samples of a leaf mask: a float scatter-add on the
+        # card accumulates through atomics in arrival order, so two fits of
+        # the same data would differ in the last bits
+        in_leaf = one_hot(leaf, 2**depth, wy.dtype)  # [C, n, L]
+        counts = torch.sum(in_leaf.unsqueeze(-1) * wy.unsqueeze(-2), dim=1)  # [C, L, K]
+    else:
+        # sample by sample, the order of the JAX package's segment_sum: the
+        # same bits, so a leaf whose classes tie votes as the JAX tree's does
+        counts = torch.zeros(C, 2**depth, K, dtype=wy.dtype, device=wy.device)
+        counts.scatter_add_(1, leaf.long().unsqueeze(-1).expand(C, n, K), wy)
     tot = torch.sum(counts, dim=-1, keepdim=True)
     # Empty leaves fall back to the collaborator's global class prior.
     prior = torch.sum(wy, dim=1) / torch.clamp_min(torch.sum(wy, dim=(1, 2)), 1e-12).unsqueeze(-1)

@@ -10,11 +10,13 @@ federation's trained strong hypothesis taken to batched inference.
   * ``engine``    — fixed-shape micro-batching with one ``vote_argmax``
     kernel launch per batch;
   * ``scheduler`` — the async deadline dispatch loop: a partial batch
-    runs on its own after ``t_max_s``, no ``flush()`` needed;
-  * ``cache``     — shard-resident incremental vote cache.
+    runs on its own by its requests' deadlines, no ``flush()`` needed;
+  * ``cache``     — shard-resident incremental vote cache;
+  * ``registry``  — the multi-tenant registry: one engine per subscribed
+    checkpoint stream, hot-swapped or rebuilt on ``refresh()``.
 
-Driver: ``launch/serve_fl.py``.  Not ported yet: the compile cache, the
-multi-tenant registry, the mesh engine (ROADMAP Queue 1).
+Driver: ``launch/serve_fl.py``.  Not ported yet: the compile cache
+(ROADMAP Queue 4) and the mesh engine (ROADMAP Queue 1 item 12).
 """
 from repro_torch.serve.artifact import (
     LoadedArtifact,
@@ -25,13 +27,16 @@ from repro_torch.serve.artifact import (
     save_artifact,
 )
 from repro_torch.serve.cache import ShardVoteCache
-from repro_torch.serve.engine import EngineStats, ServeEngine
+from repro_torch.serve.engine import EngineConfig, EngineStats, ServeEngine
+from repro_torch.serve.registry import ModelRegistry
 from repro_torch.serve.scheduler import DeadlineScheduler
 
 __all__ = [
     "DeadlineScheduler",
+    "EngineConfig",
     "EngineStats",
     "LoadedArtifact",
+    "ModelRegistry",
     "ServeEngine",
     "ShardVoteCache",
     "ensemble_signature",

@@ -34,16 +34,20 @@ against the live ensemble's full structural signature (nesting + every
 leaf's shape/dtype): an ensemble of another learner or spec that merely
 matches ``alpha``'s capacity must not be served.
 
-Not ported: the process-wide compile cache (its counterpart here would be
-a CUDA graph per batch size) and the mesh backend.  There is no kernel
-switch: ``ops`` dispatches on the tensors' device.
+``EngineConfig`` groups the serving knobs (batch size, committee, the
+deadline scheduler's default ``t_max_s``) so a caller such as
+``serve/registry.py`` passes one object.  There is no kernel switch:
+``ops`` dispatches on the tensors' device.  Not ported: the process-wide
+compile cache (its counterpart here would be a CUDA graph per batch size,
+ROADMAP Queue 4) and the mesh backend (``EngineConfig(mesh=...)`` raises;
+ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
-from typing import Deque, Dict, List
+from typing import Any, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -76,6 +80,23 @@ _M_REQ_LATENCY = obs_metrics.histogram(
 )
 
 
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Serving policy knobs, grouped so drivers can pass one object.
+
+    ``t_max_s`` is the deadline scheduler's default: the longest a queued
+    partial batch may wait before it is dispatched padded
+    (``serve/scheduler.DeadlineScheduler``).  ``mesh`` (a batch-sharded
+    engine over several devices) is not ported: anything but None raises
+    (ROADMAP Queue 1 item 12).  There is no kernel flag: the card always
+    runs the kernel."""
+
+    batch_size: int = 256
+    committee: bool = False
+    t_max_s: float = 0.005
+    mesh: Any = None
+
+
 @dataclasses.dataclass
 class EngineStats:
     requests: int = 0
@@ -102,15 +123,33 @@ class ServeEngine:
         spec: LearnerSpec | HeterogeneousSpec,
         ensemble,
         *,
-        batch_size: int = 256,
-        committee: bool = False,
+        batch_size: Optional[int] = None,
+        committee: Optional[bool] = None,
+        config: Optional[EngineConfig] = None,
     ):
         """Serve ``ensemble`` on the device its tensors lie on; ``committee``
         for a DistBoost.F ensemble.  Homogeneous: ``(learner, LearnerSpec,
         Ensemble)``; heterogeneous: ``(None, HeterogeneousSpec, the group
-        tuple)``."""
+        tuple)``.  The knobs come either as keywords or inside ``config``,
+        never both."""
+        if config is None:
+            config = EngineConfig(
+                batch_size=256 if batch_size is None else int(batch_size),
+                committee=bool(committee),
+            )
+        elif batch_size is not None or committee is not None:
+            # silently preferring one source over the other would serve
+            # under knobs the caller never asked for
+            raise ValueError("pass batch_size/committee inside the EngineConfig, not alongside it")
+        if config.mesh is not None:
+            raise NotImplementedError(
+                "EngineConfig(mesh=...): the batch-sharded engine over several devices is "
+                "not ported yet (ROADMAP Queue 1 item 12)"
+            )
+        batch_size, committee = config.batch_size, config.committee
         if batch_size < 1:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
+        self.config = config
         self.hetero = isinstance(spec, HeterogeneousSpec)
         if self.hetero:
             if learner is not None:
@@ -139,9 +178,20 @@ class ServeEngine:
         cls,
         art,  # artifact.LoadedArtifact
         *,
-        batch_size: int = 256,
+        batch_size: Optional[int] = None,
+        config: Optional[EngineConfig] = None,
     ) -> "ServeEngine":
-        """An engine for a loaded artifact, on the device it was loaded to."""
+        """An engine for a loaded artifact, on the device it was loaded to
+        (the artifact says whether it is a committee)."""
+        if config is not None:
+            if batch_size is not None:
+                raise ValueError("pass batch_size inside the EngineConfig, not alongside it")
+            if config.committee != art.committee:
+                raise ValueError(
+                    f"config.committee={config.committee} contradicts the "
+                    f"artifact (committee={art.committee})"
+                )
+            return cls(art.learner, art.spec, art.ensemble, config=config)
         return cls(art.learner, art.spec, art.ensemble, batch_size=batch_size,
                    committee=art.committee)
 
@@ -254,11 +304,11 @@ class ServeEngine:
             _M_REQ_LATENCY.observe(done - t_submit)
 
     # -- async deadline dispatch --------------------------------------------
-    def scheduler(self, *, t_max_s: float):
+    def scheduler(self, *, t_max_s: Optional[float] = None):
         """Start a ``serve/scheduler.DeadlineScheduler`` over this engine:
         full batches dispatch immediately, a partial batch dispatches on
-        its own once its oldest request has waited ``t_max_s`` — no
-        ``flush`` call needed."""
+        its own once the earliest queued deadline (default
+        ``config.t_max_s``) arrives — no ``flush`` call needed."""
         from repro_torch.serve.scheduler import DeadlineScheduler
 
         return DeadlineScheduler(self, t_max_s=t_max_s)

@@ -6,12 +6,13 @@ synchronous: a partial batch waits forever unless the caller remembers
 to flush, which no open-ended request stream ever can.  This module
 runs dispatch on its own thread under a LATENCY DEADLINE policy:
 
-  * every request may sit in the queue at most ``t_max_s`` before its
-    batch is dispatched;
+  * a request carries a deadline (``submit(..., deadline_s=...)``,
+    default ``t_max_s``, itself ``EngineConfig.t_max_s`` by default) — the
+    longest it may sit in the queue before its batch is dispatched;
   * a FULL static batch dispatches immediately, exactly like the
     synchronous path;
-  * a PARTIAL batch dispatches on its own the moment its oldest
-    request's deadline arrives, padded up to the static ``[B, d]`` shape —
+  * a PARTIAL batch dispatches on its own the moment the earliest queued
+    deadline arrives, padded up to the static ``[B, d]`` shape —
     a lone request is answered within its deadline plus one batch time,
     no ``flush()`` anywhere.
 
@@ -24,7 +25,7 @@ batch-mates.  The worker makes the engine's device its current device,
 so its launches go to the card the engine serves on.  Per-request
 latency (submit → result available) lands in
 ``engine.stats.request_latencies``, so p50/p99 under the deadline
-policy read out the same way as under the sync path.
+policy read out the same way as under the sync path.  ``drain()`` blocks until every submitted request is answered.
 
 While a scheduler is attached, route all traffic through it — calling
 ``engine.predict``/``engine.submit`` concurrently from another thread
@@ -67,6 +68,7 @@ class _Pending(NamedTuple):
     rid: int
     row: np.ndarray
     t_submit: float
+    deadline: float  # absolute perf_counter time the request must dispatch by
 
 
 class DeadlineScheduler:
@@ -80,9 +82,9 @@ class DeadlineScheduler:
             answers = sched.results(ids)      # blocks until served
     """
 
-    def __init__(self, engine, *, t_max_s: float):
+    def __init__(self, engine, *, t_max_s: Optional[float] = None):
         self.engine = engine
-        self.t_max_s = float(t_max_s)
+        self.t_max_s = float(engine.config.t_max_s if t_max_s is None else t_max_s)
         if self.t_max_s <= 0:
             raise ValueError(f"t_max_s must be positive, got {self.t_max_s}")
         self._cv = threading.Condition()
@@ -100,17 +102,19 @@ class DeadlineScheduler:
         self._thread.start()
 
     # -- request side -------------------------------------------------------
-    def submit(self, X) -> List[int]:
+    def submit(self, X, *, deadline_s: Optional[float] = None) -> List[int]:
         """Queue rows; returns request ids.  Full batches dispatch at
-        once; anything else dispatches ``t_max_s`` after this call."""
+        once; anything else dispatches by ``deadline_s`` (default
+        ``t_max_s``) after this call."""
         rows = np.atleast_2d(np.asarray(X, np.float32))
+        dl = self.t_max_s if deadline_s is None else float(deadline_s)
         now = time.perf_counter()
         with self._cv:
             if self._closed:
                 raise RuntimeError("scheduler is closed")
             ids = []
             for row in rows:
-                self._queue.append(_Pending(self._next_id, row, now))
+                self._queue.append(_Pending(self._next_id, row, now, now + dl))
                 ids.append(self._next_id)
                 self._next_id += 1
             self.engine.stats.requests += len(ids)
@@ -143,6 +147,13 @@ class DeadlineScheduler:
 
     def results(self, ids: List[int], *, timeout_s: Optional[float] = None) -> np.ndarray:
         return np.array([self.result(r, timeout_s=timeout_s) for r in ids], np.int32)
+
+    def drain(self) -> None:
+        """Block until every submitted request has been dispatched and
+        answered (the answers stay available to ``result``)."""
+        with self._cv:
+            while self._queue or self._inflight:
+                self._cv.wait(0.1)
 
     def close(self) -> None:
         """Dispatch whatever is still queued, then stop the worker."""
@@ -182,9 +193,10 @@ class DeadlineScheduler:
                     if self._closed:
                         return  # queue empty — done
                     if self._queue:
-                        # partial batch: sleep until the FIFO head's
-                        # deadline, the earliest in the queue
-                        wait = self._queue[0].t_submit + self.t_max_s - time.perf_counter()
+                        # partial batch: sleep until the earliest queued
+                        # deadline (requests carry their own, so the head
+                        # of the FIFO need not be the most urgent)
+                        wait = min(p.deadline for p in self._queue) - time.perf_counter()
                         if wait <= 0:
                             trigger = "deadline"  # dispatch padded
                             break

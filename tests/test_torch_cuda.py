@@ -678,3 +678,147 @@ def test_a_mixed_round_on_the_card_matches_the_cpu(dev):
     (c_gpu, e_gpu, n_gpu), (c_cpu, e_cpu, n_cpu) = out["cuda"], out["cpu"]
     assert c_gpu == c_cpu and n_gpu == n_cpu
     assert abs(e_gpu - e_cpu) <= 1e-4 * abs(e_cpu)
+
+
+# -- the elastic runtime and the registry on the card --------------------------------
+
+ELASTIC_CHAOS = dict(deadline_s=1.0, seed=7, drop_p=0.2, kills=((2, 3),))
+ELASTIC_LATE = dict(deadline_s=0.5, seed=3, delay_p=0.4, delay_range_s=(0.6, 1.4))
+
+
+def _elastic_run(device, algorithm, deadline_s=None, **faults):
+    from repro_torch.fl.elastic import FaultPlan, ParticipationPolicy
+    from repro_torch.launch import fl_run
+
+    fed = fl_run.build_federation("vehicle", 4, 6, 4, 0, device, algorithm=algorithm)
+    ops.reset_launches()
+    calls = dict(ref.device_calls)
+    hist = fed.run(eval_every=1, policy=ParticipationPolicy(deadline_s=deadline_s),
+                   faults=FaultPlan(**faults) if faults else None)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        assert ref.device_calls == calls
+    return fed, hist, ops.launch_counts()
+
+
+def test_two_fused_runs_on_the_card_are_the_same_bits(dev):
+    """The same run twice on the card gives the same ensemble to the bit: the
+    trees' leaf counts are a sum over the samples, not a float scatter-add
+    (whose atomics add in arrival order)."""
+    from repro_torch.launch import fl_run
+
+    runs = []
+    for _ in range(2):
+        fed = fl_run.build_federation("adult", 8, 3, 4, 0, "cuda")
+        fed.run(eval_every=3)
+        runs.append(fed.state)
+    assert torch.equal(runs[0].weights, runs[1].weights)
+    for a, b in zip(runs[0].ensemble.params, runs[1].ensemble.params):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("algorithm", ["adaboost_f", "distboost_f", "preweak_f", "bagging"])
+def test_elastic_noop_on_the_card_is_the_fused_run_bit_for_bit(dev, algorithm):
+    """No faults, no deadline: the fused run's launches (no product) and its
+    bits: history, weights and every ensemble leaf."""
+    from repro_torch.launch import fl_run
+
+    fused = fl_run.build_federation("vehicle", 4, 6, 4, 0, "cuda", algorithm=algorithm)
+    ops.reset_launches()
+    h1 = fused.run(eval_every=1)
+    want = ops.launch_counts()
+    elastic, h2, got = _elastic_run("cuda", algorithm)
+    assert got == want and got["weight_update_product"] == 0
+    key = ("round", "f1", "epsilon", "alpha", "chosen")
+    assert [{k: r[k] for k in key} for r in h2] == [{k: r[k] for k in key} for r in h1]
+    assert elastic.per_round() == fused.per_round()
+    assert torch.equal(elastic.state.weights, fused.state.weights)
+    for a, b in zip(elastic.state.ensemble.params, fused.state.ensemble.params):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("algorithm", ["adaboost_f", "distboost_f"])
+def test_elastic_partial_rounds_on_the_card_launch_the_product(dev, algorithm):
+    """Drops and a kill: one weight_update_product a partial round, one
+    weight_update a full one; the CPU's responders and dropouts, its
+    round-0 member and F1 within 0.02."""
+    out = {d: _elastic_run(d, algorithm, **ELASTIC_CHAOS) for d in ("cuda", "cpu")}
+    (card, h_card, launches), (cpu, h_cpu, _) = out["cuda"], out["cpu"]
+    e = card.elastic
+    partial = sum(1 for n in e.responders_log if 0 < n < 4)
+    full = sum(1 for n in e.responders_log if n == 4)
+    assert partial > 0
+    assert launches["weight_update_product"] == partial and launches["weight_update"] == full
+    assert e.responders_log == cpu.elastic.responders_log
+    assert dict(e.dropouts) == dict(cpu.elastic.dropouts)
+    assert card.per_round()[0]["chosen"] == cpu.per_round()[0]["chosen"]
+    assert abs(h_card[-1]["f1"] - h_cpu[-1]["f1"]) <= 0.02
+
+
+def test_elastic_late_merges_on_the_card_match_the_cpu(dev):
+    out = {d: _elastic_run(d, "adaboost_f", **ELASTIC_LATE) for d in ("cuda", "cpu")}
+    card, cpu = out["cuda"][0].elastic, out["cpu"][0].elastic
+    key = ("src_round", "merged_round", "collaborator", "lateness", "discount")
+    assert card.late_log and [{k: r[k] for k in key} for r in card.late_log] == \
+        [{k: r[k] for k in key} for r in cpu.late_log]
+    for r in card.late_log:
+        assert r["alpha"] == r["base_alpha"] * r["discount"]
+        assert abs(r["alpha"]) <= abs(r["base_alpha"])
+    skipped = sum(1 for n in card.responders_log if n == 0)
+    assert card.state.ensemble.count == 6 - skipped + len(card.late_log)
+
+
+def test_masked_update_weights_on_the_card_matches_the_cpu(dev):
+    from repro_torch.core import scoring
+
+    g = torch.Generator().manual_seed(0)
+    w = torch.rand(8, 4070, generator=g)
+    w = w / w.sum()
+    mis = (torch.rand(8, 4070, generator=g) < 0.3).float()
+    mask = torch.ones(8, 4070)
+    part = [1, 0, 1, 1, 0, 1, 1, 1]
+    alpha = torch.tensor(0.37)
+    before = ops.launch_counts()
+    got = scoring.masked_update_weights(w.to(dev), mis.to(dev), mask.to(dev),
+                                        scoring.participation(part, dev), alpha.to(dev))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["weight_update_product"] == before["weight_update_product"] + 1
+    assert after["weight_update"] == before["weight_update"]
+    want = scoring.masked_update_weights(w, mis, mask, scoring.participation(part, "cpu"), alpha)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
+
+
+def test_registry_on_the_card_swaps_rebuilds_and_serves_through_the_kernel(dev, tmp_path):
+    """A lockstep stream swaps, a DistBoost.F committee stream rebuilds; one
+    vote_argmax launch a served batch; the CPU's votes."""
+    from repro_torch.core import boosting
+    from repro_torch.launch import fl_run
+    from repro_torch.serve import EngineConfig, ModelRegistry, ServeEngine, latest_artifact, load_artifact
+
+    reg = ModelRegistry(config=EngineConfig(batch_size=64))
+
+    def follow(path, version):
+        if not reg.tenants():
+            reg.add_tenant("v", tmp_path)
+        else:
+            reg.refresh()
+
+    for rounds, every, alg in [(4, 2, "adaboost_f"), (6, 6, "distboost_f")]:
+        fed = fl_run.build_federation("vehicle", 4, rounds, 4, 0, "cuda", algorithm=alg)
+        fed.run(eval_every=rounds, publish_every=every, publish_dir=str(tmp_path), on_checkpoint=follow)
+    t = reg.stats()["tenants"]["v"]
+    assert (t["swaps"], t["rebuilds"], t["version"]) == (1, 1, 6)
+    X = torch.randn(300, fed.spec.n_features, generator=torch.Generator().manual_seed(1)).numpy()
+    calls = dict(ref.device_calls)
+    before = ops.launch_counts()["vote_argmax"]
+    got = reg.predict("v", X)
+    assert ops.launch_counts()["vote_argmax"] == before + reg.engine("v").stats.batches == before + 5
+    assert ref.device_calls == calls
+    art = load_artifact(latest_artifact(tmp_path), "cpu")
+    cpu = ServeEngine.from_artifact(art).predict(X)
+    votes = boosting.ensemble_votes(art.learner, art.spec, art.ensemble, torch.from_numpy(X),
+                                    committee=True)
+    top2 = votes.topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1] <= 1e-5 * float(art.ensemble.alpha.abs().sum())).numpy()
+    assert not ((got != cpu) & ~near).any()  # the CPU's votes outside the near-tie gap

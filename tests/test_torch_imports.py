@@ -69,7 +69,11 @@ def test_fl_run_defaults_to_cuda_and_raises_without_a_card():
                                   ["--learners", "decision_tree,ridge,gaussian_nb"],
                                   ["--learners", "decision_tree,ridge", "--algorithm", "preweak_f"],
                                   ["--faithful"], ["--faithful", "--algorithm", "preweak_f"],
-                                  ["--algorithm", "fedavg", "--learner", "mlp"]])
+                                  ["--algorithm", "fedavg", "--learner", "mlp"],
+                                  ["--elastic"],
+                                  ["--elastic", "--deadline-ms", "100", "--fault-drop-p", "0.2",
+                                   "--fault-kill", "1:1"],
+                                  ["--elastic", "--elastic-realtime", "--deadline-ms", "20"]])
 def test_fl_run_new_paths_default_to_cuda_and_raise_without_a_card(argv):
     _no_card()
     from repro_torch.launch import fl_run
@@ -89,6 +93,23 @@ def test_federation_defaults_to_cuda_and_raises_without_a_card():
         Federation(adaboost_plan(rounds=1), X, torch.zeros(2, 4, dtype=torch.int32),
                    torch.ones(2, 4), X[0], torch.zeros(4, dtype=torch.int32),
                    LearnerSpec("decision_tree", 3, 2))
+
+
+def test_elastic_federation_and_registry_default_to_cuda_and_raise_without_a_card():
+    _no_card()
+    from repro_torch.core.plan import adaboost_plan
+    from repro_torch.fl.elastic import ElasticFederation, ParticipationPolicy
+    from repro_torch.learners import LearnerSpec
+    from repro_torch.serve import ModelRegistry
+
+    X = torch.zeros(2, 4, 3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ElasticFederation(adaboost_plan(rounds=1), X, torch.zeros(2, 4, dtype=torch.int32),
+                          torch.ones(2, 4), X[0], torch.zeros(4, dtype=torch.int32),
+                          LearnerSpec("decision_tree", 3, 2), policy=ParticipationPolicy())
+    with pytest.raises(RuntimeError, match="cuda"):
+        ModelRegistry()
+    assert ModelRegistry(device="cpu").device.type == "cpu"
 
 
 def test_serve_fl_defaults_to_cuda_and_raises_without_a_card():
