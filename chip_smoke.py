@@ -134,7 +134,23 @@ Phases, each of which raises (non-zero exit) on failure:
    ``vote_argmax`` a served batch, each tenant's votes those of a
    standalone engine and the CPU's outside the near-tie gap, rows/s and
    p50/p99 of 37-row ``predict`` calls and ``submit(deadline_s=)`` with
-   ``drain()`` under the deadline scheduler.
+   ``drain()`` under the deadline scheduler;
+13. run the multi-process federation through ``repro_torch.launch.fl_spawn``,
+   every process on the one card (adult, fl_run's defaults, seed 0): (a)
+   the lockstep runtime over gloo at P = 1, 2, 4 and 8 processes with the
+   packed broadcast and at P = 8 per leaf, 6 rounds a history row each:
+   every process exits 0, comm bytes, hypothesis bytes and collectives a
+   round equal ``BENCH_distributed.json``'s, round 0's chosen member the
+   fused card run's at C = P (the agreeing rounds printed), F1 within 0.02
+   of it, ms/round a P; (b) a 2-process run whose processes print their
+   launch counts (4 ``tree_hist``, 1 ``weighted_errors``, 1
+   ``weight_update`` a round each, set to 0 just before); (c) the elastic
+   socket star with collaborator 2 killed at round 3 (``--deadline-ms
+   3000``, 10 rounds, on the card and the CPU): evicted, every round
+   recorded, rounds from 3 on over at most 3 processes, F1 within 0.02 of
+   the CPU's and above 0.5; (d) delay-only stragglers past an 800 ms
+   deadline (5 rounds): deadline dropouts, late merges with lateness >= 1
+   and ``|alpha| <= |base|``.
 
 Each phase's seconds are printed at the end.  The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Without a card, or beside no copy of
@@ -1884,6 +1900,195 @@ def elastic_phase(torch, ops, ref, fl_run, card: str) -> dict:
     return {**chaos_launches, **registry_phase(torch, ops, ref, fl_run, card)}
 
 
+# -- phase 13: the multi-process federation ------------------------------------------------
+
+# fl_spawn runs: (processes, packed broadcast); adult, fl_run's defaults (depth 4, 16 bins,
+# IID, seed 0), 6 rounds, a history row every round
+DIST_RUNS = [(1, True), (2, True), (4, True), (8, True), (8, False)]
+DIST_ROUNDS = 6
+DIST_TIMEOUT_S = 170.0  # each process group's deadline
+# the elastic runs: (c) collaborator 2 killed at round 3, (d) delay-only stragglers
+DIST_KILL = ["--elastic", "--dataset", "adult", "--rounds", "10", "--deadline-ms", "3000",
+             "--fault-kill", "2:3"]
+DIST_LATE = ["--elastic", "--dataset", "adult", "--rounds", "5", "--deadline-ms", "800",
+             "--fault-delay-p", "0.4", "--fault-delay-ms", "1500:2000", "--fault-seed", "3"]
+# a process of the lockstep runtime under fl_run's own entry point, its launch
+# counts printed as one line when it returns (the counters live in the process)
+COUNTING_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import ops
+from repro_torch.launch import fl_run
+ops.reset_launches()
+fl_run.main(sys.argv[2:])
+print("LAUNCHES " + json.dumps(ops.launch_counts()), flush=True)
+"""
+
+
+def spawn_run(fl_spawn, P: int, argv: list, tag: str, min_f1=None) -> tuple:
+    """``fl_spawn -n P -- argv --history-out ...`` as a user runs it; returns
+    (process 0's history file, seconds).  Any process failing fails the phase."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / f"dist_{tag}.json"
+    path.unlink(missing_ok=True)
+    argv = [*argv, "--eval-every", "1", "--history-out", str(path)]
+    log(f"$ python -m repro_torch.launch.fl_spawn -n {P} -- {' '.join(argv)}")
+    t0 = time.perf_counter()
+    rc = fl_spawn.spawn(P, argv, timeout=DIST_TIMEOUT_S, min_f1=min_f1)
+    dt = time.perf_counter() - t0
+    check(rc == 0, f"fl_spawn -n {P} ({tag}) exited {rc}")
+    return json.loads(path.read_text()), dt
+
+
+DIST_SPANS = ("round.fit", "round.broadcast", "round.score", "round.exchange", "round.aggregate",
+              "round.eval")
+
+
+def span_breakdown(trace_path: Path) -> str:
+    """Process 0's ms a round in each span of a traced run, rounds 1 to the
+    last (round 0 holds the start-up), and the rest of the round."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    late = [e for e in events if e["args"].get("round", 0) >= 1]
+    n = DIST_ROUNDS - 1
+    total = sum(e["dur"] for e in late if e["name"] == "round") / 1e3 / n
+    parts = {k: sum(e["dur"] for e in late if e["name"] == k) / 1e3 / n for k in DIST_SPANS}
+    rest = total - sum(parts.values())
+    return (", ".join(f"{k[len('round.'):]} {v:.3f}" for k, v in parts.items())
+            + f", rest {rest:.3f} of {total:.3f}")
+
+
+def lockstep_sweep(torch, fl_run, fl_spawn, card: str) -> None:
+    """(a) P = 1, 2, 4, 8 packed and P = 8 per leaf on the card: the wire
+    counts of ``BENCH_distributed.json``, and each P against the fused run
+    at C = P in this call; each run traced (``--trace``), its spans
+    broken down."""
+    bench = {(b["processes"], b["packed_broadcast"]): b
+             for b in json.loads((ROOT / "BENCH_distributed.json").read_text())}
+    fused = {}
+    rows, spans = [], []
+    for P, packed in DIST_RUNS:
+        tag = f"p{P}_{'packed' if packed else 'per_leaf'}"
+        trace_path = OUT / f"dist_{tag}_trace.json"
+        argv = ["--dataset", "adult", "--rounds", str(DIST_ROUNDS), "--seed", "0", "--device", DEV,
+                "--trace", str(trace_path)]
+        run, secs = spawn_run(fl_spawn, P, argv + ([] if packed else ["--no-packed-broadcast"]), tag)
+        spans.append(f"P={P} {'packed' if packed else 'per-leaf'}: {span_breakdown(trace_path)}")
+        want = bench[(P, packed)]
+        hist = run["history"]
+        check(len(hist) == DIST_ROUNDS and run["processes"] == P, f"P={P}: {len(hist)} history rows")
+        per_round = {h["comm_bytes"] for h in hist}
+        check(per_round == {want["comm_bytes_per_round"]},
+              f"P={P}: comm bytes a round {sorted(per_round)} != {want['comm_bytes_per_round']}")
+        hyp = run["comm_breakdown"]["hypotheses"] / DIST_ROUNDS
+        check(hyp == want["broadcast_bytes_per_round"],
+              f"P={P}: hypothesis bytes a round {hyp} != {want['broadcast_bytes_per_round']}")
+        calls = run["collective_calls"] / DIST_ROUNDS
+        check(calls == want["collectives_per_round"],
+              f"P={P}: {calls} collectives a round != {want['collectives_per_round']}")
+        if P not in fused:
+            fed = fl_run.build_federation("adult", P, DIST_ROUNDS, DEPTH, 0, DEV)
+            fhist = fed.run(eval_every=1)
+            torch.cuda.synchronize()
+            fused[P] = (fed.per_round(), fhist)
+        frounds, fhist = fused[P]
+        check(run["rounds"][0]["chosen"] == frounds[0]["chosen"],
+              f"P={P}: round 0 chosen {run['rounds'][0]['chosen']} vs fused {frounds[0]['chosen']}")
+        agree = sum(a["chosen"] == b["chosen"] for a, b in zip(run["rounds"], frounds))
+        f1, f1_fused = hist[-1]["f1"], fhist[-1]["f1"]
+        check(abs(f1 - f1_fused) <= 0.02, f"P={P}: final F1 {f1} vs fused {f1_fused}")
+        ms = sorted(1e3 * h["round_seconds"] for h in hist[1:])
+        rows.append(f"P={P} {'packed' if packed else 'per-leaf'}: {ms[len(ms) // 2]:.3f} ms/round "
+                    f"(median of rounds 1-{DIST_ROUNDS - 1}; round 0 {1e3 * hist[0]['round_seconds']:.3f}; "
+                    f"fused C={P} {1e3 * fhist[-1]['round_seconds']:.3f}), comm "
+                    f"{want['comm_bytes_per_round']} B, hypotheses {hyp:.0f} B, {calls:.0f} "
+                    f"collectives a round (= BENCH_distributed.json); chosen = fused in {agree}/"
+                    f"{DIST_ROUNDS} rounds, F1 {f1:.4f} vs {f1_fused:.4f}; group {secs:.1f} s")
+    log(f"phase 13 (a) lockstep runtime on {card}, every process on the one card:\n  "
+        + "\n  ".join(rows))
+    log("phase 13 (a) process 0's ms a round by span (rounds 1-5, traced):\n  " + "\n  ".join(spans))
+
+
+def counted_launches(fl_spawn, P: int = 2) -> dict:
+    """(b) a P-process run through ``fl_run.main`` in children that print
+    their launch counts; each process must make 4 / 1 / 1 a round."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    coord = f"127.0.0.1:{fl_spawn.free_port()}"
+    procs, logs = [], []
+    for i in range(P):
+        log_path = OUT / f"dist_count_p{i}.log"
+        argv = ["--distributed", "--coordinator", coord, "--num-processes", str(P),
+                "--process-id", str(i), "--collaborators", str(P), "--dataset", "adult",
+                "--rounds", str(DIST_ROUNDS), "--eval-every", "1", "--seed", "0", "--device", DEV]
+        with open(log_path, "w") as f:
+            procs.append(subprocess.Popen([sys.executable, "-c", COUNTING_CHILD, str(ROOT / "src"),
+                                           *argv], stdout=f, stderr=subprocess.STDOUT))
+        logs.append(str(log_path))
+    rcs = fl_spawn._join_all(procs, logs, timeout=DIST_TIMEOUT_S)
+    check(rcs == [0] * P, f"counting run exited {rcs}: {[fl_spawn._tail(p, 600) for p in logs]}")
+    per_process = []
+    for p in logs:
+        line = [ln for ln in Path(p).read_text().splitlines() if ln.startswith("LAUNCHES ")]
+        check(len(line) == 1, f"{p}: no launch line")
+        per_process.append(json.loads(line[0][len("LAUNCHES "):]))
+    want = {"tree_hist": DEPTH * DIST_ROUNDS, "weighted_errors": DIST_ROUNDS,
+            "weight_update": DIST_ROUNDS, "weight_update_product": 0, "vote_argmax": 0,
+            "flash_attention": 0}
+    for i, got in enumerate(per_process):
+        check(got == want, f"process {i} of {P}: launches {got} != {want}")
+    log(f"phase 13 (b) launches of each of {P} processes over {DIST_ROUNDS} rounds: {per_process} "
+        f"(4 tree_hist, 1 weighted_errors, 1 weight_update a round)")
+    return {k: sum(c[k] for c in per_process) for k in want}
+
+
+def elastic_kill(fl_spawn, card: str) -> None:
+    """(c) collaborator 2's process exits at round 3: evicted, every round
+    recorded, rounds from 3 on over at most 3 processes; F1 the CPU's."""
+    runs = {}
+    for dev in (DEV, "cpu"):
+        runs[dev], secs = spawn_run(fl_spawn, 4, [*DIST_KILL, "--device", dev], f"kill_{dev}",
+                                    min_f1=0.5)
+        run = runs[dev]
+        check(run["evicted"] == [2] and run["dropouts"].get("dead") == 1,
+              f"kill on {dev}: evicted {run['evicted']}, dropouts {run['dropouts']}")
+        check(len(run["history"]) == 10, f"kill on {dev}: {len(run['history'])} rounds recorded")
+        check(all(n <= 3 for n in run["responders"][3:]) and all(n >= 1 for n in run["responders"]),
+              f"kill on {dev}: responders {run['responders']}")
+    gpu, cpu = runs[DEV], runs["cpu"]
+    check(abs(gpu["final_f1"] - cpu["final_f1"]) <= 0.02,
+          f"kill: final F1 card {gpu['final_f1']} vs CPU {cpu['final_f1']}")
+    ms = sorted(1e3 * h["round_seconds"] for h in gpu["history"])
+    log(f"phase 13 (c) elastic kill 2:3 on {card}: evicted {gpu['evicted']}, dropouts "
+        f"{gpu['dropouts']}, responders {gpu['responders']} (CPU {cpu['responders']}), final F1 "
+        f"{gpu['final_f1']:.4f} vs CPU {cpu['final_f1']:.4f}, {ms[len(ms) // 2]:.3f} ms/round (median)")
+
+
+def elastic_late(fl_spawn, card: str) -> None:
+    """(d) delayed uploads past an 800 ms deadline merge late, discounted."""
+    run, _ = spawn_run(fl_spawn, 4, [*DIST_LATE, "--device", DEV], "late_cuda")
+    check(run["dropouts"].get("deadline", 0) > 0, f"late: no deadline dropouts {run['dropouts']}")
+    check(bool(run["late"]), "late: no late merges")
+    for r in run["late"]:
+        check(r["lateness"] >= 1 and abs(r["alpha"]) <= abs(r["base_alpha"]),
+              f"late merge {r}: lateness < 1 or |alpha| > |base|")
+    check(len(run["history"]) == 5, f"late: {len(run['history'])} rounds recorded")
+    negative = sum(1 for r in run["late"] if r["base_alpha"] < 0)
+    log(f"phase 13 (d) elastic late merges on {card}: dropouts {run['dropouts']}, responders "
+        f"{run['responders']}, {len(run['late'])} late merges (lateness "
+        f"{sorted({r['lateness'] for r in run['late']})}, {negative} with a base below 0), "
+        f"|alpha| <= |base| on each; final F1 {run['final_f1']:.4f}")
+
+
+def distributed_phase(torch, fl_run, card: str) -> dict:
+    """Phase 13; returns the summed launches of (b)'s processes."""
+    from repro_torch.launch import fl_spawn
+
+    lockstep_sweep(torch, fl_run, fl_spawn, card)
+    launches = counted_launches(fl_spawn)
+    elastic_kill(fl_spawn, card)
+    elastic_late(fl_spawn, card)
+    return launches
+
+
 # -- phase 8: LLM serving -----------------------------------------------------------
 
 
@@ -2199,6 +2404,10 @@ def main() -> int:
     # multi-tenant registry
     elastic_launches = elastic_phase(torch, ops, ref, fl_run, card)
     phase_done(12)
+
+    # 13. the multi-process federation (fl_spawn, fl_run --distributed [--elastic])
+    dist_launches = distributed_phase(torch, fl_run, card)
+    phase_done(13)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
 
@@ -2215,6 +2424,8 @@ def main() -> int:
             "launches_per_prefill": launches[name] if name == "flash_attention" else None,
             # phase 12: the chaos run's training launches, the registry's votes
             "launches_elastic": elastic_launches.get(name, 0),
+            # phase 13 (b): both processes of the 2-process lockstep run, 6 rounds
+            "launches_distributed": dist_launches[name],
             "max_abs_err": worst, "max_err": worst,
             "ms": main_shape["ms"], "kernel_ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],

@@ -114,8 +114,15 @@ def init_boost_state(
     )
 
 
+def _row(x: Any, i: int) -> Any:
+    """Row ``i`` (kept as a leading axis of 1) of a tensor or a bundle."""
+    if isinstance(x, tuple):
+        return type(x)(*(t[i:i + 1] for t in x))
+    return x[i:i + 1]
+
+
 def _local_fits(learner, spec, w, X, y, fit_cache, generator=None, *, batched: bool = True,
-                **draws):
+                own: Tuple[int, int] | None = None, **draws):
     """Train one weak hypothesis per collaborator (paper step 2).
 
     Two routes, as the JAX package's ``_local_fits``:
@@ -129,7 +136,13 @@ def _local_fits(learner, spec, w, X, y, fit_cache, generator=None, *, batched: b
         level.  A randomised learner draws for all C in one call first
         and hands each fit its row, so both routes draw the same numbers.
     A randomised learner draws from ``generator``, or takes ``draws``
-    injected (``learners/base.py``)."""
+    injected (``learners/base.py``).  ``own=(C, i)`` says the inputs are
+    collaborator i's row alone of a C-collaborator federation (one process
+    of ``fl/distributed.py``): a randomised learner then draws for all C
+    and fits on row i's draws, so the fit is row i of the batched one."""
+    if own is not None and learner.draw is not None and not draws:
+        C, i = own
+        draws = {k: _row(v, i) for k, v in learner.draw(spec, C, generator, X.device).items()}
     if learner.fit_batched is None:
         return learner.fit(spec, None, X, y, w, generator=generator, **draws)
     if batched or fit_cache is None:
@@ -267,7 +280,8 @@ def distboost_f_round(learner, spec, state, X, y, mask, *,
 
 
 def _preweak_local_space(learner, spec, X, y, mask, fit_cache, T: int,
-                         generator: torch.Generator | None = None):
+                         generator: torch.Generator | None = None,
+                         own: Tuple[int, int] | None = None):
     """Steps 1+2 of PreWeak.F: every collaborator runs T rounds of LOCAL
     AdaBoost on its own shard; returns the flat ``[C*T, ...]`` hypothesis
     block (collaborator-major, as the JAX package's ``reshape``).
@@ -275,14 +289,15 @@ def _preweak_local_space(learner, spec, X, y, mask, fit_cache, T: int,
     Each local round fits all C collaborators as one ``fit_batched`` (one
     ``tree_hist`` launch a level).  The local error and update stay plain
     tensor operations, renormalised per collaborator: the fused
-    ``weight_update`` kernel renormalises over all collaborators."""
+    ``weight_update`` kernel renormalises over all collaborators.  ``own``
+    as :func:`_local_fits` takes it (one collaborator's T rounds)."""
     C = y.shape[0]
     w = mask / torch.clamp_min(torch.sum(mask, dim=1, keepdim=True), 1.0)
     rounds = []
     for _ in range(T):
-        p = _local_fits(learner, spec, w, X, y, fit_cache, generator)
-        own = torch.diagonal(scoring.predict_tensor(learner, spec, p, X)).T  # [C, n]: own tree, own shard
-        mis = (own != y).to(torch.float32)
+        p = _local_fits(learner, spec, w, X, y, fit_cache, generator, own=own)
+        pred = torch.diagonal(scoring.predict_tensor(learner, spec, p, X)).T  # [C, n]: own tree, own shard
+        mis = (pred != y).to(torch.float32)
         e = torch.sum(w * mis, dim=1) / torch.clamp_min(torch.sum(w, dim=1), 1e-30)
         a = _samme_alpha(e, spec.n_classes)
         w = w * torch.exp(a.unsqueeze(1) * mis) * mask

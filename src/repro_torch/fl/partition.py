@@ -97,3 +97,13 @@ def dirichlet_partition(
         mask[i, : len(idx)] = 1.0
     return (torch.from_numpy(Xs).to(X.device), torch.from_numpy(ys).to(X.device),
             torch.from_numpy(mask).to(X.device))
+
+
+def partition(name: str, X, y, n_collaborators: int, generator: torch.Generator, **kw):
+    """The split named ``name`` (``"iid"`` or ``"dirichlet"``; ``kw`` goes
+    to :func:`dirichlet_partition`); an unknown name raises ``KeyError``."""
+    if name == "iid":
+        return iid_partition(X, y, n_collaborators, generator)
+    if name == "dirichlet":
+        return dirichlet_partition(X, y, n_collaborators, generator=generator, **kw)
+    raise KeyError(f"unknown partitioner {name!r}")

@@ -6,13 +6,17 @@ shared library with a plain C interface, loaded with ``ctypes``.  That
 takes seconds, against minutes for an extension that includes PyTorch's
 headers.  The library lands in ``<repo>/build/repro_torch/`` under a name
 keyed by a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is reused.
+and an unchanged one is reused.  Processes that start together (the
+multi-process federation's, one per collaborator) build it once: the
+first takes a file lock beside the library and builds, the others wait
+on the lock and load what it built.
 
 Nothing here runs at import: the first call to :func:`library` builds.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -112,13 +116,25 @@ def _build(target: Path) -> None:
     build_seconds = time.perf_counter() - t0
 
 
+def ensure_built(target: Path) -> None:
+    """Build ``target`` unless it exists, under an exclusive lock on a file
+    in ``BUILD_DIR``: of several processes at first use, one builds and
+    the others find the library when the lock comes to them."""
+    if target.exists():
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not target.exists():
+            _build(target)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     if _lib is None:
         target = library_path()
-        if not target.exists():
-            _build(target)
+        ensure_built(target)
         lib = ctypes.CDLL(str(target))
         for fn, (restype, argtypes) in _SIGNATURES.items():
             f = getattr(lib, fn)

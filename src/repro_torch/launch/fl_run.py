@@ -20,6 +20,11 @@
   PYTHONPATH=src python -m repro_torch.launch.fl_run --dataset adult --elastic \
       --deadline-ms 1000 --fault-seed 7 --fault-drop-p 0.2 --fault-kill 2:3
 
+  # one process of a process-per-collaborator federation (launch all N
+  # locally with launch/fl_spawn.py)
+  PYTHONPATH=src python -m repro_torch.launch.fl_run --distributed \
+      --coordinator 127.0.0.1:9781 --num-processes 4 --process-id 0 --collaborators 4
+
 Runs AdaBoost.F (``--algorithm``: also ``distboost_f``, ``preweak_f``,
 ``bagging`` and ``fedavg``) over oblivious ``decision_tree`` learners (``--learner``:
 any of the six registered families; ``--learners``: a comma-separated
@@ -39,7 +44,12 @@ run's spans and metrics.  ``--elastic`` runs the rounds through
 ``--deadline-ms``, staleness-discounted late merges, ``--fault-*``
 injection; ``--elastic-realtime`` waits on the wall clock), and
 ``--history-out`` then writes the elastic summary (responders, dropouts by
-reason, late merges).
+reason, late merges).  ``--distributed`` makes this process collaborator
+``--process-id`` of a ``--num-processes`` federation exchanging rounds
+over gloo collectives (``fl/distributed.py``; ``--no-packed-broadcast``
+gathers a hypothesis leaf by leaf), or, with ``--elastic``, over the
+fault-tolerant socket star (``fl/elastic_dist.py``); process 0 prints,
+evaluates and writes ``--history-out``.
 """
 from __future__ import annotations
 
@@ -54,7 +64,7 @@ from repro_torch.core.plan import (
     fedavg_plan,
 )
 from repro_torch.data import PAPER_DATASETS, get_dataset
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.fl.elastic import FaultPlan, ParticipationPolicy
 from repro_torch.fl.federation import Federation, history_summary
 from repro_torch.fl.partition import dirichlet_partition, iid_partition
@@ -89,18 +99,13 @@ def parse_learners(ap: argparse.ArgumentParser, value: str | None) -> tuple:
     return names
 
 
-def build_federation(dataset: str, collaborators: int, rounds: int, depth: int,
-                     seed: int, device, *, algorithm: str = "adaboost_f",
-                     learner: str = "decision_tree", learners: tuple = (),
-                     split: str = "iid", dirichlet_alpha: float = 0.5,
-                     optimizations: OptimizationFlags | None = None) -> Federation:
-    """Data, split and ``Federation`` for one run; the data are drawn on
-    the CPU from ``seed`` and moved to ``device``, the split draws from
-    the same generator, and the run's own draws come from a generator
-    seeded with ``seed``.  ``learners`` (registry keys) makes the
-    federation heterogeneous, cycling them over the collaborators;
-    ``optimizations`` sets the §5.1 flags (default: all on)."""
-    device = resolve_device(device)
+def build_inputs(dataset: str, collaborators: int, rounds: int, depth: int, seed: int, *,
+                 algorithm: str = "adaboost_f", learner: str = "decision_tree",
+                 learners: tuple = (), split: str = "iid", dirichlet_alpha: float = 0.5,
+                 optimizations: OptimizationFlags | None = None) -> tuple:
+    """``(plan, Xs, ys, masks, X_test, y_test, spec)`` of one run, on the
+    CPU: the data are drawn from ``seed`` and the split draws from the same
+    generator, so every process of a multi-process run builds the same."""
     g = torch.Generator().manual_seed(seed)
     dspec, (Xtr, ytr, Xte, yte) = get_dataset(dataset, g)
     data = DataPlan(dataset=dataset, n_collaborators=collaborators, split=split,
@@ -119,7 +124,20 @@ def build_federation(dataset: str, collaborators: int, rounds: int, depth: int,
     else:
         Xs, ys, masks = iid_partition(Xtr, ytr, collaborators, g)
     lspec = LearnerSpec(learner, dspec.n_features, dspec.n_classes, default_hparams(learner, depth))
-    return Federation(plan, Xs, ys, masks, Xte, yte, lspec, device=device, seed=seed)
+    return plan, Xs, ys, masks, Xte, yte, lspec
+
+
+def build_federation(dataset: str, collaborators: int, rounds: int, depth: int,
+                     seed: int, device, **kw) -> Federation:
+    """Data, split and ``Federation`` for one run (:func:`build_inputs`'
+    keywords): the data move to ``device`` and the run's own draws come
+    from a generator seeded with ``seed``.  ``learners`` (registry keys)
+    makes the federation heterogeneous, cycling them over the
+    collaborators; ``optimizations`` sets the §5.1 flags (default: all
+    on)."""
+    device = resolve_device(device)
+    return Federation(*build_inputs(dataset, collaborators, rounds, depth, seed, **kw),
+                      device=device, seed=seed)
 
 
 def main(argv=None):
@@ -188,6 +206,19 @@ def main(argv=None):
     ap.add_argument("--fault-flaky", action="append", default=[], metavar="C:OFF:REJOIN",
                     help="collaborator C offline for rounds [OFF, REJOIN) then rejoins "
                          "(repeatable)")
+    # -- the multi-process runtime (fl/distributed.py, fl/elastic_dist.py) --
+    ap.add_argument("--distributed", action="store_true",
+                    help="process-per-collaborator runtime: this process is collaborator "
+                         "--process-id of a --num-processes federation exchanging rounds "
+                         "over gloo collectives (with --elastic: the fault-tolerant "
+                         "socket star with dead-process eviction)")
+    ap.add_argument("--coordinator", default="127.0.0.1:9781", metavar="HOST:PORT",
+                    help="the process group's address (process 0 hosts it)")
+    ap.add_argument("--num-processes", type=int, default=1)
+    ap.add_argument("--process-id", type=int, default=0)
+    ap.add_argument("--no-packed-broadcast", action="store_true",
+                    help="gather the hypothesis bundle leaf by leaf instead of as one "
+                         "packed wire buffer")
     args = ap.parse_args(argv)
     if args.publish_every is not None and not args.publish_dir:
         ap.error("--publish-every requires --publish-dir")
@@ -198,9 +229,19 @@ def main(argv=None):
         ap.error("--learners is fused-mode only; drop --faithful")
     if args.algorithm == "fedavg" and get_learner(args.learner).warm_fit is None:
         ap.error(f"learner {args.learner!r} has no warm_fit; FedAvg needs one")
+    if args.distributed:
+        if args.faithful or learners:
+            ap.error("--distributed replaces --faithful and is homogeneous-only (no --learners)")
+        if args.algorithm == "fedavg":
+            ap.error("--distributed covers the MAFL boosting algorithms, not fedavg")
+        if args.collaborators != args.num_processes:
+            ap.error(f"--distributed is process-per-collaborator: --collaborators "
+                     f"{args.collaborators} != --num-processes {args.num_processes}")
     device = resolve_device(args.device)
     if args.trace:
         trace.enable()
+    if args.distributed:
+        return _run_distributed(args, device)
 
     fed = build_federation(args.dataset, args.collaborators, args.rounds, args.depth,
                            args.seed, device, algorithm=args.algorithm, learner=args.learner,
@@ -214,8 +255,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     history = fed.run(eval_every=args.eval_every, publish_every=args.publish_every,
                       publish_dir=args.publish_dir, policy=policy, faults=faults)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    synchronize(device)
     dt = time.perf_counter() - t0
     _print_history(history)
     print(f"total {dt:.1f}s  comm {fed.comm_bytes/1e6:.2f} MB  final F1 {history[-1]['f1']:.4f}")
@@ -224,6 +264,57 @@ def main(argv=None):
         with open(args.history_out, "w") as f:
             json.dump(summary, f, indent=2)
     finish_obs(args)
+    return history
+
+
+def _run_distributed(args, device):
+    """One process of the process-per-collaborator federation (the local
+    N-process launch is ``launch/fl_spawn.py``).  ``--elastic`` skips the
+    gloo group: the socket star needs none."""
+    from repro_torch.fl import distributed as dist
+
+    plan, Xs, ys, masks, Xte, yte, lspec = build_inputs(
+        args.dataset, args.collaborators, args.rounds, args.depth, args.seed,
+        algorithm=args.algorithm, learner=args.learner, split=args.split,
+        dirichlet_alpha=args.dirichlet_alpha)
+    if args.elastic:
+        from repro_torch.fl.elastic_dist import run_elastic_distributed
+
+        policy, faults = build_policy_faults(args)
+        t0 = time.perf_counter()
+        coord, history = run_elastic_distributed(args, policy, faults, lspec, Xs, ys, masks,
+                                                 Xte, yte, device=device)
+        if coord is not None:  # process 0
+            dt = time.perf_counter() - t0
+            _print_history(history)
+            print(f"elastic distributed ({args.num_processes} processes, evicted "
+                  f"{len(coord.evicted)}): total {dt:.1f}s  comm {coord.comm_bytes/1e6:.2f} MB  "
+                  f"final F1 {history[-1]['f1']:.4f}")
+            if args.history_out:
+                with open(args.history_out, "w") as f:
+                    json.dump(coord.summary(), f, indent=2)
+            finish_obs(args)
+        return history
+
+    dist.initialize(args.coordinator, args.num_processes, args.process_id)
+    fed = dist.DistributedFederation(plan, Xs, ys, masks, Xte, yte, lspec, device=device,
+                                     seed=args.seed,
+                                     packed_broadcast=not args.no_packed_broadcast)
+    t0 = time.perf_counter()
+    history = fed.run(eval_every=args.eval_every, publish_every=args.publish_every,
+                      publish_dir=args.publish_dir)
+    synchronize(device)
+    dt = time.perf_counter() - t0
+    if dist.is_main():
+        _print_history(history)
+        print(f"distributed ({fed.C} processes, "
+              f"{'packed' if fed.packed_broadcast else 'per-leaf'} broadcast): total {dt:.1f}s  "
+              f"comm {fed.comm_bytes/1e6:.2f} MB  final F1 {history[-1]['f1']:.4f}")
+        if args.history_out:
+            with open(args.history_out, "w") as f:
+                json.dump(fed.summary(), f, indent=2)
+        finish_obs(args)
+    dist.shutdown()
     return history
 
 

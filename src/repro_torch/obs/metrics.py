@@ -3,7 +3,7 @@ log-spaced latency histograms with a Prometheus-text exposition dump
 (the port's own copy of ``repro/obs/metrics.py``, same family names).
 
   * ``Counter``   — monotone float, ``inc(n)``;
-  * ``Gauge``     — last-write value, ``set``;
+  * ``Gauge``     — last-write value, ``set`` / ``inc`` / ``dec``;
   * ``Histogram`` — FIXED-memory log-spaced buckets with quantile
     estimation (see the class docstring for the error bound);
   * ``MetricsRegistry`` — named families, optional Prometheus-style
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Any, Dict, Iterable, List, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 
 class Counter:
@@ -45,6 +45,10 @@ class Counter:
         with self._lock:
             return self._value
 
+    def _reset(self) -> None:
+        with self._lock:
+            self._value = 0.0
+
 
 class Gauge:
     """Last-write value that may go up or down (Prometheus ``gauge``)."""
@@ -61,10 +65,22 @@ class Gauge:
         with self._lock:
             self._value = float(v)
 
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    def dec(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value -= n
+
     @property
     def value(self) -> float:
         with self._lock:
             return self._value
+
+    def _reset(self) -> None:
+        with self._lock:
+            self._value = 0.0
 
 
 # one edge table per (lo, hi, growth) — histograms of the same shape
@@ -159,10 +175,36 @@ class Histogram:
                     i += 1
                 self._counts[i] += 1
 
+    append = observe  # deque-compat, as the JAX package's
+
+    def merge(self, other: "Histogram") -> "Histogram":
+        """Fold another histogram of the same shape into this one (the
+        cross-engine aggregation of a latency read-out)."""
+        if (self.lo, self.hi, self.growth) != (other.lo, other.hi, other.growth):
+            raise ValueError("cannot merge histograms with different bucket shapes")
+        with other._lock:
+            counts = list(other._counts)
+            u, o = other._under, other._over
+            c, s, mn, mx = other._count, other._sum, other._min, other._max
+        with self._lock:
+            for i, n in enumerate(counts):
+                self._counts[i] += n
+            self._under += u
+            self._over += o
+            self._count += c
+            self._sum += s
+            self._min = min(self._min, mn)
+            self._max = max(self._max, mx)
+        return self
+
     # -- read side ----------------------------------------------------------
     # Readers take the lock too: `observe` updates count/sum/min/max as
     # one transaction, and an unlocked reader could pair a fresh _sum
     # with a stale _count (a torn mean).
+    def __len__(self) -> int:
+        with self._lock:
+            return self._count
+
     @property
     def count(self) -> int:
         with self._lock:
@@ -172,6 +214,21 @@ class Histogram:
     def sum(self) -> float:
         with self._lock:
             return self._sum
+
+    @property
+    def min(self) -> float:
+        with self._lock:
+            return self._min
+
+    @property
+    def max(self) -> float:
+        with self._lock:
+            return self._max
+
+    @property
+    def mean(self) -> float:
+        with self._lock:
+            return self._sum / self._count if self._count else float("nan")
 
     def quantile(self, q: float) -> float:
         """Estimated q-quantile, q in [0, 1] (see class error bound)."""
@@ -211,6 +268,15 @@ class Histogram:
                     out.append((self._edges[i + 1], cum))
             out.append((math.inf, self._count))
             return out
+
+    def _reset(self) -> None:
+        with self._lock:
+            self._counts = [0] * len(self._counts)
+            self._under = self._over = 0
+            self._count = 0
+            self._sum = 0.0
+            self._min = math.inf
+            self._max = -math.inf
 
 
 class _Family:
@@ -293,6 +359,10 @@ class MetricsRegistry:
         return self._register(name, Histogram, help, labels,
                               lo=lo, hi=hi, growth=growth)
 
+    def get(self, name: str) -> Optional[_Family]:
+        with self._lock:
+            return self._families.get(name)
+
     def families(self) -> List[_Family]:
         with self._lock:
             return [self._families[k] for k in sorted(self._families)]
@@ -326,6 +396,13 @@ class MetricsRegistry:
 
         Path(path).write_text(self.prometheus_text())
 
+    def reset(self) -> None:
+        """Zero every metric (tests, benches, repeated runs in one
+        process); the families stay registered."""
+        for fam in self.families():
+            for child in fam.children():
+                child._reset()
+
 
 def _label_str(pairs: Tuple[Tuple[str, str], ...]) -> str:
     if not pairs:
@@ -353,3 +430,7 @@ def histogram(name: str, help: str = "", labels: Iterable[str] = (), **kw: Any):
 
 def dump(path) -> None:
     REGISTRY.dump(path)
+
+
+def reset() -> None:
+    REGISTRY.reset()

@@ -546,18 +546,22 @@ def publish_artifact(
     version: int,
     committee_size: int | None = None,
     extra: dict | None = None,
+    quantize: str | None = None,
+    calibrate: Any = None,
 ) -> Path:
     """One checkpoint of a still-training federation: write a fresh
     versioned artifact, then atomically repoint ``LATEST`` at it.
 
     The version lands in the manifest (``publish_version``) and the file
-    name.  The pointer swap is an ``os.replace``: a concurrent reader
+    name; ``quantize`` and ``calibrate`` go to :func:`save_artifact`.  The
+    pointer swap is an ``os.replace``: a concurrent reader
     sees the old complete artifact or the new one, never a partial write."""
     publish_dir = Path(publish_dir)
     path = publish_dir / f"ensemble_v{version:06d}.mafl"
     save_artifact(
         path, spec, ensemble, committee_size=committee_size,
         extra={"publish_version": int(version), **(extra or {})},
+        quantize=quantize, calibrate=calibrate,
     )
     tmp = publish_dir / (LATEST + ".tmp")
     tmp.write_text(path.name)

@@ -822,3 +822,67 @@ def test_registry_on_the_card_swaps_rebuilds_and_serves_through_the_kernel(dev, 
     top2 = votes.topk(2, dim=-1).values
     near = (top2[:, 0] - top2[:, 1] <= 1e-5 * float(art.ensemble.alpha.abs().sum())).numpy()
     assert not ((got != cpu) & ~near).any()  # the CPU's votes outside the near-tie gap
+
+
+# -- the multi-process federation on the card ------------------------------------------
+
+
+def _spawn_on_the_card(P, argv, tmp_path):
+    """``fl_spawn -n P -- argv`` on the card (fl_run's default device);
+    returns process 0's history file."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    hist = tmp_path / "h.json"
+    src = str(Path(__file__).resolve().parent.parent / "src")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(p for p in [src, os.environ.get("PYTHONPATH", "")] if p))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.fl_spawn", "-n", str(P),
+                           "--timeout", "150", "--", *argv, "--eval-every", "1",
+                           "--history-out", str(hist)],
+                          env=env, capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return json.loads(hist.read_text())
+
+
+def test_two_processes_on_the_card_choose_the_fused_members(dev, tmp_path):
+    """``fl_spawn -n 2`` on the card: the fused card run's chosen member
+    every round and its F1 within 0.02; 3 collectives a round."""
+    from repro_torch.launch import fl_run
+
+    run = _spawn_on_the_card(2, ["--dataset", "vehicle", "--rounds", "4"], tmp_path)
+    assert run["device"].startswith("cuda") and run["collective_calls"] == 3 * 4
+    fed = fl_run.build_federation("vehicle", 2, 4, 4, 0, "cuda")
+    hist = fed.run(eval_every=1)
+    assert [r["chosen"] for r in run["rounds"]] == [r["chosen"] for r in fed.per_round()]
+    assert abs(run["history"][-1]["f1"] - hist[-1]["f1"]) <= 0.02
+
+
+def test_pack_and_unpack_cuda_tensors(dev):
+    """The packed buffer of CUDA tensors is the CPU's bytes and unpacks on
+    the card, a gathered [P, L] buffer too."""
+    from repro_torch.fl.sharded import _pack_leaves, _unpack_leaves
+    from repro_torch.learners.tree import TreeParams
+
+    g = torch.Generator().manual_seed(0)
+    tree = TreeParams(torch.randint(-9, 2**20, (5, 4), generator=g, dtype=torch.int32),
+                      torch.randn(5, 4, generator=g), torch.randn(5, 16, 2, generator=g))
+    buf, fmt = _pack_leaves(TreeParams(*(x.to(dev) for x in tree)))
+    assert buf.is_cuda
+    assert buf.cpu().numpy().tobytes() == _pack_leaves(tree)[0].numpy().tobytes()
+    out = _unpack_leaves(torch.stack([buf, buf]), fmt, lead=(2,))
+    for a, b in zip(out, tree):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a[1].cpu(), b)
+
+
+def test_elastic_kill_on_the_card(dev, tmp_path):
+    """Three processes of the socket star on the card, collaborator 2
+    killed at round 2: evicted, every round recorded."""
+    run = _spawn_on_the_card(3, ["--elastic", "--dataset", "vehicle", "--rounds", "4",
+                                 "--deadline-ms", "3000", "--fault-kill", "2:2"], tmp_path)
+    assert run["evicted"] == [2] and run["dropouts"].get("dead") == 1
+    assert len(run["history"]) == 4 and all(n <= 2 for n in run["responders"][2:])
+    assert run["device"].startswith("cuda")

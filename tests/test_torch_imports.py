@@ -32,6 +32,9 @@ def _forbidden(module: str) -> bool:
 
 def test_port_imports_neither_jax_nor_the_jax_package_nor_ml_dtypes():
     assert len(PORT_FILES) > 10
+    walked = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for mod in ("fl/distributed.py", "fl/elastic_dist.py", "fl/sharded.py", "launch/fl_spawn.py"):
+        assert f"src/repro_torch/{mod}" in walked, mod
     bad = [
         f"{p.relative_to(REPO)}:{line}: import {mod}"
         for p in PORT_FILES
@@ -73,7 +76,11 @@ def test_fl_run_defaults_to_cuda_and_raises_without_a_card():
                                   ["--elastic"],
                                   ["--elastic", "--deadline-ms", "100", "--fault-drop-p", "0.2",
                                    "--fault-kill", "1:1"],
-                                  ["--elastic", "--elastic-realtime", "--deadline-ms", "20"]])
+                                  ["--elastic", "--elastic-realtime", "--deadline-ms", "20"],
+                                  ["--distributed", "--collaborators", "1"],
+                                  ["--distributed", "--no-packed-broadcast", "--collaborators", "1",
+                                   "--algorithm", "preweak_f"],
+                                  ["--distributed", "--elastic", "--collaborators", "1"]])
 def test_fl_run_new_paths_default_to_cuda_and_raise_without_a_card(argv):
     _no_card()
     from repro_torch.launch import fl_run
@@ -110,6 +117,39 @@ def test_elastic_federation_and_registry_default_to_cuda_and_raise_without_a_car
     with pytest.raises(RuntimeError, match="cuda"):
         ModelRegistry()
     assert ModelRegistry(device="cpu").device.type == "cpu"
+
+
+def test_multiprocess_runtime_defaults_to_cuda_and_raises_without_a_card():
+    """``DistributedFederation`` and an elastic shard land on the card unless
+    the caller asks for the CPU."""
+    _no_card()
+    from repro_torch.core.plan import adaboost_plan
+    from repro_torch.fl.distributed import DistributedFederation
+    from repro_torch.fl.elastic_dist import _Shard
+    from repro_torch.learners import LearnerSpec
+
+    X, y, m = torch.zeros(1, 4, 3), torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, 4)
+    spec = LearnerSpec("decision_tree", 3, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DistributedFederation(adaboost_plan(rounds=1), X, y, m, X[0], y[0], spec)
+    assert DistributedFederation(adaboost_plan(rounds=1), X, y, m, X[0], y[0], spec,
+                                 device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        _Shard(0, spec, X, y, m)
+
+
+def test_fl_spawn_passes_the_default_device_through_and_fails_without_a_card():
+    """``fl_spawn`` adds no ``--device``: its processes take fl_run's default,
+    the card, and without one every process exits non-zero."""
+    _no_card()
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        p for p in [str(REPO / "src"), os.environ.get("PYTHONPATH", "")] if p))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.fl_spawn", "-n", "1",
+                           "--timeout", "90", "--", "--dataset", "vehicle", "--rounds", "1"],
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is False" in proc.stdout + proc.stderr
+    assert "final F1" not in proc.stdout
 
 
 def test_serve_fl_defaults_to_cuda_and_raises_without_a_card():
