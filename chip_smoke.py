@@ -144,13 +144,21 @@ Phases, each of which raises (non-zero exit) on failure:
    fused card run's at C = P (the agreeing rounds printed), F1 within 0.02
    of it, ms/round a P; (b) a 2-process run whose processes print their
    launch counts (4 ``tree_hist``, 1 ``weighted_errors``, 1
-   ``weight_update`` a round each, set to 0 just before); (c) the elastic
+   ``weight_update`` a round each, set to 0 just before), and a fault-free
+   4-process run of the elastic socket star the same way (4 ``tree_hist``
+   a round and 4 in its warm-up, 1 ``weight_update_product`` a round each,
+   every round over all 4); (c) the elastic
    socket star with collaborator 2 killed at round 3 (``--deadline-ms
    3000``, 10 rounds, on the card and the CPU): evicted, every round
    recorded, rounds from 3 on over at most 3 processes, F1 within 0.02 of
    the CPU's and above 0.5; (d) delay-only stragglers past an 800 ms
    deadline (5 rounds): deadline dropouts, late merges with lateness >= 1
-   and ``|alpha| <= |base|``.
+   and ``|alpha| <= |base|``, each round's ms.  Phase 3 holds each
+   process's shapes too, at P = 1, 2, 4 and 8: ``tree_hist`` at H = 1
+   (``[1, 32 561 // P, 14]``, L = 1, 2, 4, 8) under skewed weights,
+   ``weighted_errors`` at ``[1, P, 32 561 // P]``, the renormalised
+   ``weight_update`` over ``[P · (32 561 // P)]`` and
+   ``weight_update_product`` over ``[32 561 // P]``.
 
 Each phase's seconds are printed at the end.  The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Without a card, or beside no copy of
@@ -913,17 +921,29 @@ def check_dirichlet_shapes(torch, ops, ref, g, mask) -> dict:
             "vote_argmax": {"hetero_pendigits": vote}}
 
 
-def check_interpreted_shapes(torch, ops, ref, g) -> dict:
-    """Phase 11's new shapes of the existing kernels: ``tree_hist`` at
-    H = 1, adult's shard (``[1, 4 070, 14]``, L = 1, 2, 4, 8, K = 2) under
-    AdaBoost's skewed weights (atol 1e-4, the plain version's split, each
-    output on a NaN-filled block, the plan's grid in one wave), and
-    ``weighted_errors`` at ``[1, 8, 4 070]`` (rtol 1e-4, the same bits
-    twice).  Returns {kernel: {shape name: record}}."""
+# phase 13's process counts; at P processes each holds an adult shard of
+# 32 561 // P rows (P = 8's is phase 11's collaborator shard)
+DIST_PROCESSES = (1, 2, 4, 8)
+
+
+def dist_shards(fl_run) -> dict:
+    """{P: rows of a process's adult shard} at phase 13's process counts,
+    split on the CPU as ``fl_run`` splits them (IID, seed 0)."""
+    shards = {P: int(fl_run.build_inputs("adult", P, 1, DEPTH, 0)[1].shape[1])
+              for P in DIST_PROCESSES}
+    check(shards[C] == SHAPES["adult"][0], f"adult's shard at P = {C}: {shards[C]} rows")
+    return shards
+
+
+def h1_hist(torch, ops, ref, g, n: int) -> tuple:
+    """``tree_hist`` at H = 1 over an adult shard of ``n`` rows, L = 1, 2,
+    4, 8, K = 2, under AdaBoost's skewed weights: atol 1e-4, the plain
+    version's split, each output on a NaN-filled block, the same bits
+    twice.  Returns (record, worst error, the plans)."""
     from repro_torch.kernels import tree_hist as tree_hist_mod
     from repro_torch.learners.tree import _split_scores
 
-    n, d, K = SHAPES["adult"]
+    _, d, K = SHAPES["adult"]
     B1 = N_BINS + 1
     levels, worst, plans = {}, 0.0, []
     for L in (1, 2, 4, 8):
@@ -936,12 +956,12 @@ def check_interpreted_shapes(torch, ops, ref, g) -> dict:
         got = poisoned(torch, (1, L, d, B1, K),
                        lambda: ops.tree_hist(bins, leaf, wy, n_leaves=L, n_bins_p1=B1))
         want = ref.tree_hist_batched_ref(bins, leaf, wy, L, B1)
-        err = assert_close(torch, "tree_hist", got, want, f"H=1 adult L={L}, skewed weights")
+        err = assert_close(torch, "tree_hist", got, want, f"H=1 [1, {n}, {d}] L={L}, skewed weights")
         check(torch.equal(got, ops.tree_hist(bins, leaf, wy, n_leaves=L, n_bins_p1=B1)),
-              f"tree_hist H=1 L={L}: two calls differ")
+              f"tree_hist H=1 [1, {n}, {d}] L={L}: two calls differ")
         check(torch.equal(torch.argmax(_split_scores(got).flatten(1), dim=1),
                           torch.argmax(_split_scores(want).flatten(1), dim=1)),
-              f"tree_hist H=1 L={L}: the split differs from the plain version's")
+              f"tree_hist H=1 [1, {n}, {d}] L={L}: the split differs from the plain version's")
         worst = max(worst, err)
         p = tree_hist_mod.launch_plan(1, n, d, L, B1, K)
         plans.append(f"L={L} dblk {p.dblk} cs {p.cs} {p.threads} threads")
@@ -958,25 +978,91 @@ def check_interpreted_shapes(torch, ops, ref, g) -> dict:
             for k in ("ms", "plain_ms", "library_ms", "eager_ms", "bound_ms")}
     hist.update(shape=f"bin_idx [1, {n}, {d}], L=1,2,4,8, K={K}, skewed weights", levels=levels,
                 max_abs_err=worst, bound_by=levels[8]["bound_by"])
+    return hist, worst, plans
 
-    H = C
+
+def shard_errors(torch, ops, ref, g, H: int, n: int) -> dict:
+    """``weighted_errors`` over one shard's ``[1, H, n]`` predictions:
+    rtol 1e-4, the output on a NaN-filled block, the same bits twice."""
+    K = SHAPES["adult"][2]
     preds = torch.randint(0, K, (1, H, n), generator=g, dtype=torch.int32).to(DEV)
     yy = torch.randint(0, K, (1, n), generator=g, dtype=torch.int32).to(DEV)
     ww = (torch.rand(1, n, generator=g) / n).to(DEV)
     got = poisoned(torch, (1, H), lambda: ops.weighted_errors(preds, yy, ww))
     err = assert_close(torch, "weighted_errors", got, ref.weighted_errors_ref(preds, yy, ww),
                        f"one shard [1, {H}, {n}]")
-    check(torch.equal(got, ops.weighted_errors(preds, yy, ww)), "weighted_errors [1, 8, n]: two calls differ")
+    check(torch.equal(got, ops.weighted_errors(preds, yy, ww)),
+          f"weighted_errors [1, {H}, {n}]: two calls differ")
     bms, by = bound_ms(4 * (H * n + 2 * n + H), 2 * H * n)
-    errors = {"shape": f"preds [1, {H}, {n}]", "max_abs_err": err, "bound_ms": bms, "bound_by": by,
-              **timings(torch, lambda: ops.weighted_errors(preds, yy, ww),
-                        lambda: ref.weighted_errors_ref(preds, yy, ww))}
-    log(f"phase 11 shapes: tree_hist H=1 adult, skewed weights, the plain version's split at every "
-        f"level (worst {worst:.3g}; {'; '.join(plans)}): mean {hist['ms']:.5f} ms (bound "
-        f"{hist['bound_ms']:.6f}, plain {hist['plain_ms']:.5f}, index_add_ {hist['library_ms']:.5f}); "
-        f"weighted_errors [1, {H}, {n}] {errors['ms']:.5f} ms (bound {errors['bound_ms']:.6f}, plain "
-        f"{errors['plain_ms']:.5f})")
-    return {"tree_hist": {"adult_h1": hist}, "weighted_errors": {"adult_c1": errors}}
+    return {"shape": f"preds [1, {H}, {n}]", "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+            **timings(torch, lambda: ops.weighted_errors(preds, yy, ww),
+                      lambda: ref.weighted_errors_ref(preds, yy, ww))}
+
+
+def update_record(torch, ops, ref, g, name: str, N: int) -> dict:
+    """``weight_update`` (renormalised, rtol 1e-5) or
+    ``weight_update_product`` (rtol 1e-6) over ``[N]`` against its plain
+    version: three alphas, a mask with zeros, each output on a NaN-filled
+    block, the same bits twice."""
+    fn, plain, ops_each = {
+        # operations an element: the product (an exp and three multiplies),
+        # and for the renormalised entry an add and a division
+        "weight_update": (ops.weight_update, ref.renormalised_weight_update_ref, 6),
+        "weight_update_product": (ops.weight_update_product, ref.boost_weight_update_ref, 4),
+    }[name]
+    w = (torch.rand(N, generator=g) / N).to(DEV)
+    mis = (torch.rand(N, generator=g) < 0.3).float().to(DEV)
+    mask = torch.ones(N)
+    mask[3::7] = 0.0
+    mask = mask.to(DEV)
+    err = 0.0
+    for a in (0.37, -2.0, 10.0):
+        alpha = torch.tensor(a, device=DEV)
+        got = poisoned(torch, (N,), lambda: fn(w, mis, mask, alpha))
+        err = max(err, assert_close(torch, name, got, plain(w, mis, mask, alpha), f"[{N}] alpha={a}"))
+        check(torch.equal(got, fn(w, mis, mask, alpha)), f"{name} [{N}] alpha={a}: two calls differ")
+    alpha = torch.tensor(0.37, device=DEV)
+    # bytes: w, mis, mask and alpha read once, out written once; no single
+    # PyTorch call computes either entry: no library time
+    bms, by = bound_ms(4 * (4 * N + 1), ops_each * N)
+    return {"shape": f"w [{N}]", "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+            **timings(torch, lambda: fn(w, mis, mask, alpha), lambda: plain(w, mis, mask, alpha))}
+
+
+def check_shard_shapes(torch, ops, ref, g, shards: dict) -> dict:
+    """The kernels at one collaborator's shard, as phase 11's interpreted
+    round (C = 8) and each process of phase 13's runs at P processes give
+    them (``shards``: {P: n}; P = 8's n is phase 11's): ``tree_hist`` at
+    H = 1 (``[1, n, 14]``, :func:`h1_hist`), ``weighted_errors`` at
+    ``[1, P, n]`` (:func:`shard_errors`; its cluster plan depends on the
+    row count), and each process's updates (:func:`update_record`): the
+    renormalised ``weight_update`` over the replicated ``[P·n]`` (the
+    lockstep runtime) and ``weight_update_product`` over its own ``[n]``
+    (the elastic star).  Returns {kernel: {shape name: record}}."""
+    out = {"tree_hist": {}, "weighted_errors": {}, "weight_update": {}, "weight_update_product": {}}
+    rows = []
+    for P, n in shards.items():
+        hist, worst, plans = h1_hist(torch, ops, ref, g, n)
+        errors = shard_errors(torch, ops, ref, g, P, n)
+        update = update_record(torch, ops, ref, g, "weight_update", P * n)
+        product = update_record(torch, ops, ref, g, "weight_update_product", n)
+        # phase 11's names for its shard
+        hist_key, errors_key = ("adult_h1", "adult_c1") if P == C else (f"dist_p{P}", f"dist_p{P}")
+        out["tree_hist"][hist_key] = hist
+        out["weighted_errors"][errors_key] = errors
+        out["weight_update"][f"dist_p{P}"] = update
+        out["weight_update_product"][f"dist_p{P}"] = product
+        rows.append(f"P={P}: tree_hist [1, {n}, 14] worst {worst:.3g} ({'; '.join(plans)}), mean "
+                    f"{hist['ms']:.5f} ms (bound {hist['bound_ms']:.6f}, plain {hist['plain_ms']:.5f}, "
+                    f"index_add_ {hist['library_ms']:.5f}); weighted_errors [1, {P}, {n}] "
+                    f"{errors['ms']:.5f} ms (bound {errors['bound_ms']:.6f}, plain "
+                    f"{errors['plain_ms']:.5f}); weight_update [{P * n}] {update['ms']:.5f} ms (bound "
+                    f"{update['bound_ms']:.6f}, plain {update['plain_ms']:.5f}); weight_update_product "
+                    f"[{n}] {product['ms']:.5f} ms (bound {product['bound_ms']:.6f}, plain "
+                    f"{product['plain_ms']:.5f})")
+    log("phase 11 and 13 shard shapes against the plain versions, skewed weights for tree_hist, "
+        "the plain version's split at every level:\n  " + "\n  ".join(rows))
+    return out
 
 
 def visible_pairs(S: int, T: int, causal: bool, window) -> int:
@@ -2008,35 +2094,66 @@ def lockstep_sweep(torch, fl_run, fl_spawn, card: str) -> None:
     log("phase 13 (a) process 0's ms a round by span (rounds 1-5, traced):\n  " + "\n  ".join(spans))
 
 
-def counted_launches(fl_spawn, P: int = 2) -> dict:
-    """(b) a P-process run through ``fl_run.main`` in children that print
-    their launch counts; each process must make 4 / 1 / 1 a round."""
+def counted_launches(fl_spawn, P: int, flags: list, want: dict, tag: str) -> tuple:
+    """A P-process ``fl_run --distributed`` run of ``flags`` through
+    ``fl_run.main`` in children that set their launch counts to 0 just
+    before and print them when it returns; each process's counts must
+    equal ``want``.  Returns (each process's counts, process 0's history
+    file)."""
     OUT.mkdir(parents=True, exist_ok=True)
     coord = f"127.0.0.1:{fl_spawn.free_port()}"
+    history = OUT / f"dist_count_{tag}.json"
+    history.unlink(missing_ok=True)
     procs, logs = [], []
     for i in range(P):
-        log_path = OUT / f"dist_count_p{i}.log"
+        log_path = OUT / f"dist_count_{tag}_p{i}.log"
         argv = ["--distributed", "--coordinator", coord, "--num-processes", str(P),
-                "--process-id", str(i), "--collaborators", str(P), "--dataset", "adult",
-                "--rounds", str(DIST_ROUNDS), "--eval-every", "1", "--seed", "0", "--device", DEV]
+                "--process-id", str(i), "--collaborators", str(P), *flags, "--eval-every", "1",
+                "--seed", "0", "--device", DEV, "--history-out", str(history)]
         with open(log_path, "w") as f:
             procs.append(subprocess.Popen([sys.executable, "-c", COUNTING_CHILD, str(ROOT / "src"),
                                            *argv], stdout=f, stderr=subprocess.STDOUT))
         logs.append(str(log_path))
     rcs = fl_spawn._join_all(procs, logs, timeout=DIST_TIMEOUT_S)
-    check(rcs == [0] * P, f"counting run exited {rcs}: {[fl_spawn._tail(p, 600) for p in logs]}")
+    check(rcs == [0] * P, f"counting run {tag} exited {rcs}: {[fl_spawn._tail(p, 600) for p in logs]}")
     per_process = []
     for p in logs:
         line = [ln for ln in Path(p).read_text().splitlines() if ln.startswith("LAUNCHES ")]
         check(len(line) == 1, f"{p}: no launch line")
         per_process.append(json.loads(line[0][len("LAUNCHES "):]))
+    for i, got in enumerate(per_process):
+        check(got == want, f"{tag}: process {i} of {P}: launches {got} != {want}")
+    return per_process, json.loads(history.read_text())
+
+
+def lockstep_launches(fl_spawn, P: int = 2) -> dict:
+    """(b) the lockstep runtime at P processes: each makes 4 ``tree_hist``,
+    1 ``weighted_errors`` and 1 ``weight_update`` a round, nothing else."""
     want = {"tree_hist": DEPTH * DIST_ROUNDS, "weighted_errors": DIST_ROUNDS,
             "weight_update": DIST_ROUNDS, "weight_update_product": 0, "vote_argmax": 0,
             "flash_attention": 0}
-    for i, got in enumerate(per_process):
-        check(got == want, f"process {i} of {P}: launches {got} != {want}")
+    per_process, _ = counted_launches(
+        fl_spawn, P, ["--dataset", "adult", "--rounds", str(DIST_ROUNDS)], want, "lockstep")
     log(f"phase 13 (b) launches of each of {P} processes over {DIST_ROUNDS} rounds: {per_process} "
         f"(4 tree_hist, 1 weighted_errors, 1 weight_update a round)")
+    return {k: sum(c[k] for c in per_process) for k in want}
+
+
+def elastic_launches(fl_spawn, P: int = 4) -> dict:
+    """(b) the elastic socket star at P processes, no faults: each makes
+    4 ``tree_hist`` a round and 4 in its warm-up fit, and 1
+    ``weight_update_product`` a round (its shard's un-renormalised step),
+    nothing else; every round closes over all P."""
+    want = {"tree_hist": DEPTH * (DIST_ROUNDS + 1), "weighted_errors": 0, "weight_update": 0,
+            "weight_update_product": DIST_ROUNDS, "vote_argmax": 0, "flash_attention": 0}
+    per_process, run = counted_launches(
+        fl_spawn, P, ["--elastic", "--dataset", "adult", "--rounds", str(DIST_ROUNDS)], want,
+        "elastic")
+    check(run["responders"] == [P] * DIST_ROUNDS and run["evicted"] == [] and not run["late"],
+          f"fault-free elastic run: responders {run['responders']}, evicted {run['evicted']}")
+    log(f"phase 13 (b) launches of each of {P} processes of the fault-free elastic star over "
+        f"{DIST_ROUNDS} rounds: {per_process} (4 tree_hist a round and 4 in the warm-up, 1 "
+        f"weight_update_product a round); responders {run['responders']}")
     return {k: sum(c[k] for c in per_process) for k in want}
 
 
@@ -2063,7 +2180,8 @@ def elastic_kill(fl_spawn, card: str) -> None:
 
 
 def elastic_late(fl_spawn, card: str) -> None:
-    """(d) delayed uploads past an 800 ms deadline merge late, discounted."""
+    """(d) delayed uploads past an 800 ms deadline merge late, discounted;
+    each round's ms, its responders and its wait for uploads printed."""
     run, _ = spawn_run(fl_spawn, 4, [*DIST_LATE, "--device", DEV], "late_cuda")
     check(run["dropouts"].get("deadline", 0) > 0, f"late: no deadline dropouts {run['dropouts']}")
     check(bool(run["late"]), "late: no late merges")
@@ -2072,18 +2190,21 @@ def elastic_late(fl_spawn, card: str) -> None:
               f"late merge {r}: lateness < 1 or |alpha| > |base|")
     check(len(run["history"]) == 5, f"late: {len(run['history'])} rounds recorded")
     negative = sum(1 for r in run["late"] if r["base_alpha"] < 0)
+    rounds = [f"{h['round']}: {1e3 * h['round_seconds']:.1f} ms ({h['responders']} responders, "
+              f"uploads waited {1e3 * h['wait_s']:.1f} ms)" for h in run["history"]]
     log(f"phase 13 (d) elastic late merges on {card}: dropouts {run['dropouts']}, responders "
         f"{run['responders']}, {len(run['late'])} late merges (lateness "
         f"{sorted({r['lateness'] for r in run['late']})}, {negative} with a base below 0), "
-        f"|alpha| <= |base| on each; final F1 {run['final_f1']:.4f}")
+        f"|alpha| <= |base| on each; final F1 {run['final_f1']:.4f}; rounds: " + "; ".join(rounds))
 
 
 def distributed_phase(torch, fl_run, card: str) -> dict:
-    """Phase 13; returns the summed launches of (b)'s processes."""
+    """Phase 13; returns the summed launches of (b)'s processes, of the
+    lockstep run and of the elastic star."""
     from repro_torch.launch import fl_spawn
 
     lockstep_sweep(torch, fl_run, fl_spawn, card)
-    launches = counted_launches(fl_spawn)
+    launches = {"lockstep": lockstep_launches(fl_spawn), "elastic": elastic_launches(fl_spawn)}
     elastic_kill(fl_spawn, card)
     elastic_late(fl_spawn, card)
     return launches
@@ -2294,8 +2415,10 @@ def main() -> int:
     }
     for name, rows in check_dirichlet_shapes(torch, ops, ref, g, dirichlet_mask(fl_run)).items():
         per_kernel[name][0].update(rows)
-    for name, rows in check_interpreted_shapes(torch, ops, ref, g).items():
+    for name, rows in check_shard_shapes(torch, ops, ref, g, dist_shards(fl_run)).items():
         per_kernel[name][0].update(rows)
+    for name, (res, worst) in per_kernel.items():  # every shape checked counts in the worst error
+        per_kernel[name] = (res, max([worst] + [r.get("max_abs_err", 0.0) for r in res.values()]))
     detail = {k: v[0] for k, v in per_kernel.items()}
     log("kernel_detail " + json.dumps({"card": card, "launch_floor_ms": floor, "kernels": detail}))
     log(f"kernel ms / bound ms / launch floor ms at the main paths' shapes ({card}): " + "; ".join(
@@ -2424,8 +2547,10 @@ def main() -> int:
             "launches_per_prefill": launches[name] if name == "flash_attention" else None,
             # phase 12: the chaos run's training launches, the registry's votes
             "launches_elastic": elastic_launches.get(name, 0),
-            # phase 13 (b): both processes of the 2-process lockstep run, 6 rounds
-            "launches_distributed": dist_launches[name],
+            # phase 13 (b): both processes of the 2-process lockstep run, 6 rounds,
+            # and the 4 processes of the fault-free elastic star, 6 rounds
+            "launches_distributed": dist_launches["lockstep"][name],
+            "launches_elastic_dist": dist_launches["elastic"][name],
             "max_abs_err": worst, "max_err": worst,
             "ms": main_shape["ms"], "kernel_ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],

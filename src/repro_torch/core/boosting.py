@@ -174,6 +174,25 @@ def _samme_alpha(eps: torch.Tensor, n_classes: int) -> torch.Tensor:
     return torch.clamp(torch.log((1.0 - eps) / eps) + math.log(n_classes - 1.0), -10.0, 10.0)
 
 
+def choose_member(errs: torch.Tensor, n_classes: int):
+    """Step 4's choice over the ``[C, H]`` error matrix (the weights are
+    globally normalised, so a column sum is a member's error): the member
+    with the least error, that error and its SAMME alpha, all on the
+    device.  The fused stages and ``fl/distributed.py``'s replicated
+    aggregation both call this, so they choose by the same operations."""
+    eps = torch.sum(errs, dim=0)
+    c = torch.argmin(eps)
+    eps_c = torch.take(eps, c)
+    return c, eps_c, _samme_alpha(eps_c, n_classes)
+
+
+def committee_alpha(weights: torch.Tensor, mis: torch.Tensor, n_classes: int):
+    """DistBoost.F's step 4: the committee's weighted error over the
+    ``[C, n]`` mispredictions and its SAMME alpha."""
+    eps = torch.sum(weights * mis)
+    return eps, _samme_alpha(eps, n_classes)
+
+
 def run_stages(stages, state: BoostState, X, y, mask):
     """Compose a round's named stages ``fn(state, carry, X, y, mask) ->
     (state, carry)``; the last leaves the round metrics in
@@ -209,11 +228,8 @@ def adaboost_f_stages(learner: WeakLearner, spec: LearnerSpec, *,
 
     def aggregate(state, carry, X, y, mask):
         # step 4 (aggregator): globally weighted error, best hypothesis, alpha
-        hyps, preds, errs = carry["hyps"], carry["preds"], carry["errs"]
-        eps = torch.sum(errs, dim=0)  # w globally normalised
-        c = torch.argmin(eps)  # stays on the device
-        eps_c = torch.take(eps, c)
-        alpha = _samme_alpha(eps_c, spec.n_classes)
+        hyps, preds = carry["hyps"], carry["preds"]
+        c, eps_c, alpha = choose_member(carry["errs"], spec.n_classes)  # stays on the device
         ens = _append(state.ensemble, scoring.take_slot(hyps, c), alpha)
         mis = scoring.chosen_mis(preds, y, c)  # row slice of preds
         w = scoring.update_weights(state.weights, mis, mask, alpha)
@@ -257,8 +273,7 @@ def distboost_f_stages(learner: WeakLearner, spec: LearnerSpec, *,
 
     def aggregate(state, carry, X, y, mask):
         committee, mis = carry["committee"], carry["mis"]
-        eps = torch.sum(state.weights * mis)
-        alpha = _samme_alpha(eps, spec.n_classes)
+        eps, alpha = committee_alpha(state.weights, mis, spec.n_classes)
         ens = _append(state.ensemble, committee, alpha)
         w = scoring.update_weights(state.weights, mis, mask, alpha)
         metrics = {"epsilon": eps, "alpha": alpha,
@@ -338,10 +353,7 @@ def preweak_f_stages(learner, spec, hyp_space, pred_cache: torch.Tensor | None =
 
     def aggregate(state, carry, X, y, mask):
         pred_cache = carry["preds"]
-        eps = torch.sum(carry["errs"], dim=0)
-        c = torch.argmin(eps)  # stays on the device
-        eps_c = torch.take(eps, c)
-        alpha = _samme_alpha(eps_c, spec.n_classes)
+        c, eps_c, alpha = choose_member(carry["errs"], spec.n_classes)  # stays on the device
         ens = _append(state.ensemble, scoring.take_slot(hyp_space, c), alpha)
         mis = scoring.chosen_mis(pred_cache, y, c)  # row slice of the predictions
         w = scoring.update_weights(state.weights, mis, mask, alpha)

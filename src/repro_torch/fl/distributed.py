@@ -63,7 +63,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import boosting, scoring
-from repro_torch.core.boosting import BoostState, _append, _samme_alpha
+from repro_torch.core.boosting import BoostState, _append
 from repro_torch.core.hetero import HeterogeneousSpec
 from repro_torch.core.metrics import f1_macro
 from repro_torch.core.plan import Plan
@@ -318,11 +318,8 @@ class DistributedFederation:
                 local_errs = scoring.shard_errors(preds, self.yi, state.weights[i])
                 synchronize(self.device)
             errs = exchange(local_errs, r, "errors")  # [C, H]
-            # replicated aggregation: the fused aggregate stage's operations
-            eps = torch.sum(errs, dim=0)
-            c = torch.argmin(eps)
-            eps_c = torch.take(eps, c)
-            alpha = _samme_alpha(eps_c, spec.n_classes)
+            # replicated aggregation: the fused aggregate stage's choice
+            c, eps_c, alpha = boosting.choose_member(errs, spec.n_classes)
             mis = exchange(scoring.chosen_mis(preds, self.yi, c), r, "mis")  # [C, n]
             with trace.span("round.aggregate", round=r):
                 w = scoring.update_weights(state.weights, mis, self.masks, alpha)
@@ -345,8 +342,7 @@ class DistributedFederation:
                 synchronize(self.device)
             mis = exchange(local_mis, r, "mis")
             with trace.span("round.aggregate", round=r):
-                eps = torch.sum(state.weights * mis)
-                alpha = _samme_alpha(eps, spec.n_classes)
+                eps, alpha = boosting.committee_alpha(state.weights, mis, spec.n_classes)
                 w = scoring.update_weights(state.weights, mis, self.masks, alpha)
                 ens = _append(state.ensemble, hyps, alpha)  # the slot is the whole committee
             metrics = {"epsilon": eps, "alpha": alpha,
