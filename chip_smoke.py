@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
   python3 chip_smoke.py            # on a machine with one NVIDIA H100
+  python3 chip_smoke.py --lm-only  # phases 1-2, phase 3's flash_attention cases and phase 14
 
 Phases, each of which raises (non-zero exit) on failure:
 
@@ -158,7 +159,33 @@ Phases, each of which raises (non-zero exit) on failure:
    (``[1, 32 561 // P, 14]``, L = 1, 2, 4, 8) under skewed weights,
    ``weighted_errors`` at ``[1, P, 32 561 // P]``, the renormalised
    ``weight_update`` over ``[P · (32 561 // P)]`` and
-   ``weight_update_product`` over ``[32 561 // P]``.
+   ``weight_update_product`` over ``[32 561 // P]``;
+14. train and serve the LM side's windowed paths on the card: (a)
+   gemma-2b at its published width (18 layers, bf16, random weights from a
+   seed, no cut) through ``models.model.train_step`` at batch 2 x 1024
+   tokens from ``token_batches``: one step twice from the same seeded state
+   (the bits compared), three more steps (ms/step, tokens/s, share of the
+   step's bound, peak memory) and one at ``accum = 2``; every loss and
+   grad-norm finite, the parameters moved, no ``flash_attention`` launch
+   (the training forward runs the plain attention, 36 calls a step: 18
+   layers and their recompute); (b) a 2-layer float32 cut at ``reduced()``
+   widths in the ``full`` and ``local_global`` patterns, 3 steps on the
+   card and on the CPU from the same state (losses, grad-norms and every
+   parameter within ``TRAIN_TOL``); (c) ``repro_torch.launch.train
+   --preset lm100m --steps 300 --checkpoint`` (its own assertion: the loss
+   falls), the checkpoint loaded bit for bit, then ``--resume`` (the step
+   counter continues from 300, the loss falls again), and a bf16
+   ``TrainState`` of reduced gemma-2b round-tripped bit for bit; (d)
+   gemma-2b with gemma2's local/global layers (window 4096) prefilling an
+   8192-token prompt (18 ``flash_attention`` launches) and decoding 32
+   greedy tokens past every local layer's ring, the last step's logits
+   against a cache-free forward over the same 8224 tokens at
+   ``DECODE_TOL``, and a 2-layer float32 windowed cut (window 256, prompt
+   1024, 32 steps) against the CPU at ``CPU_TOL``.  Phase 3 holds
+   ``flash_attention`` at that prefill's two shapes (``q [1, 8, 8192,
+   256]``, ``k``/``v [1, 1, 8192, 256]``, causal, with and without the
+   4096 window), timed against the plain version and SDPA (the window's
+   given as a boolean mask).
 
 Each phase's seconds are printed at the end.  The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Without a card, or beside no copy of
@@ -167,6 +194,7 @@ the repo, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -254,9 +282,12 @@ FLASH_CASES = {
     "chunk_40x200_bf16": (1, 4, 1, 40, 200, 128, True, None, None, True),
     "gemma_serve": (4, 8, 1, 64, 64, 256, True, None, None, True),
     "gemma_2048": (1, 8, 1, 2048, 2048, 256, True, None, None, True),
+    # phase 14's windowed gemma-2b prefill: its local layers and its full ones
+    "gemma_window_8192": (1, 8, 1, 8192, 8192, 256, True, 4096, None, True),
+    "gemma_8192": (1, 8, 1, 8192, 8192, 256, True, None, None, True),
 }
 # timed: both routes, bf16 at gemma-2b's shapes and float32 at "ragged"
-FLASH_TIMED = ("gemma_serve", "gemma_2048", "ragged")
+FLASH_TIMED = ("gemma_serve", "gemma_2048", "ragged", "gemma_window_8192", "gemma_8192")
 LLM = {"arch": "gemma-2b", "batch": 4, "prompt_len": 64, "tokens": 32, "layers": 18}
 # bf16 keeps 8 bits, and prefill(S + 1) and prefill(S) + one decode step
 # round at different places through 18 layers.  Measured at full width: at
@@ -267,6 +298,21 @@ DECODE_TOL = {"atol": 0.2, "rtol": 0.0}
 # float32 on the card and on the CPU: the same sums in other orders, about
 # 1e-5 on logits of up to about 35 (float32 against float64 on the CPU)
 CPU_TOL = {"atol": 1e-3, "rtol": 0.0}
+# phase 14 (a): gemma-2b's training step at full width, bf16, batch x tokens
+# from token_batches; an optimizer whose first step already moves bf16
+# weights (lr 3e-4 after a 1-step warm-up)
+TRAIN = {"batch": 2, "seq": 1024, "timed_steps": 3}
+TRAIN_OPT = {"lr": 3e-4, "warmup_steps": 1, "total_steps": 100}
+# (b) float32 card against CPU after 3 steps: tests/test_torch_train.py's
+# tolerances against the JAX package (measured there at most 1.2e-7, 7.2e-7
+# and 2.9e-5)
+TRAIN_TOL = {"loss_rtol": 1e-5, "gnorm_atol": 1e-4, "param_atol": 1e-4}
+# (c) the training driver: 300 steps of lm100m, then 600 more from its checkpoint (a
+# schedule of 600 steps entered at step 301: 1.7e-3 decaying to its 3e-4 floor)
+CLI_STEPS, RESUME_STEPS = 300, 600
+# (d) gemma2's local/global layout on gemma-2b: the window Gemma 2 publishes
+# (arXiv:2408.00118), a prompt of two windows, decode steps past the ring
+WINDOWED = {"window": 4096, "prompt": 8192, "steps": 32}
 
 
 class SmokeFailure(RuntimeError):
@@ -1108,18 +1154,26 @@ def check_flash_attention(torch, ops, ref, g):
             failed.append(f"{name} ({err:.4g})")
         worst = max(worst, err)
         if name in FLASH_TIMED:
+            mask = None
+            if window:  # SDPA takes the window as a boolean mask (S == T here)
+                i = torch.arange(S, device=DEV)[:, None]
+                j = torch.arange(T, device=DEV)[None, :]
+                mask = (j <= i) & (i - j < window)
             elt = q.element_size()
             nbytes = elt * (2 * q.numel() + k.numel() + v.numel())
             flops = 4 * D * B * H * visible_pairs(S, T, causal, window)
             bms, by = bound_ms(nbytes, flops, BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
             results[name] = {
                 "shape": f"q [{B}, {H}, {S}, {D}], k/v [{B}, {Hkv}, {T}, {D}], "
-                         f"{'bf16' if bf16 else 'f32'}, causal", "max_abs_err": err,
+                         f"{'bf16' if bf16 else 'f32'}, causal"
+                         + (f", window {window}" if window else ""), "max_abs_err": err,
                 "bound_ms": bms, "bound_by": by,
                 **timings(torch, lambda: ops.flash_attention(q, k, v, **kw),
                           lambda: ref.attention_ref(q, k, v, **kw),
-                          lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                                 enable_gqa=True)),
+                          (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                  enable_gqa=True)) if window else
+                          (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                  enable_gqa=True))),
             }
     check(not failed, f"flash_attention disagrees with its plain version in: {', '.join(failed)}")
     log(f"flash_attention: {len(FLASH_CASES)} cases agree, worst max_abs_err {worst:.3g}; "
@@ -2323,6 +2377,327 @@ def profile_llm(torch, model, tokens, card: str) -> None:
             log(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:110]}")
 
 
+# -- phase 14: the LM training step and windowed serving ------------------------------
+
+
+def train_full_width(torch, ops, ref, card: str) -> dict:
+    """(a) gemma-2b at its published width: one step twice from one seeded
+    state (bits compared), ``TRAIN["timed_steps"]`` more timed, one at
+    ``accum = 2``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStreamConfig, token_batches
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import AdamWConfig
+
+    cfg = get_arch("gemma-2b")
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    opt = AdamWConfig(**TRAIN_OPT)
+    stream = token_batches(TokenStreamConfig(cfg.vocab_size, S, B, seed=1), device=DEV)
+    batches = [next(stream) for _ in range(TRAIN["timed_steps"] + 2)]
+
+    def fresh():
+        return M.init_train_state(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+
+    state = fresh()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    ops.reset_launches()
+    plain0 = ref.device_calls["flash_attention"]
+    state, m = M.train_step(cfg, state, batches[0], opt)
+    torch.cuda.synchronize()
+    plain = ref.device_calls["flash_attention"] - plain0
+    launched = ops.launch_counts()
+    check(not any(launched.values()), f"gemma-2b train step launched kernels: {launched}")
+    check(plain == 2 * cfg.n_layers, f"gemma-2b train step: {plain} plain attention calls, not "
+          f"{2 * cfg.n_layers} (a forward and its recompute a layer)")
+    first = {"loss": m["loss"].clone(), "grad_norm": m["grad_norm"].clone(),
+             "params": {k: p.detach().clone() for k, p in M.param_tree(state.params).items()},
+             "mu": {k: v.clone() for k, v in state.opt.mu.items()}}
+    del state, m
+    torch.cuda.empty_cache()
+    state = fresh()
+    state, m = M.train_step(cfg, state, batches[0], opt)
+    torch.cuda.synchronize()
+    differ = [k for k, p in M.param_tree(state.params).items() if not torch.equal(p, first["params"][k])]
+    differ_mu = [k for k, v in state.opt.mu.items() if not torch.equal(v, first["mu"][k])]
+    same = (torch.equal(m["loss"], first["loss"]) and torch.equal(m["grad_norm"], first["grad_norm"])
+            and not differ and not differ_mu)
+    log(f"phase 14 (a) gemma-2b step 1 twice from one seeded state on {card}: "
+        + ("the same bits (loss, grad norm, every parameter and first moment)" if same else
+           f"bits differ: loss {float(first['loss'])!r} vs {float(m['loss'])!r}, grad norm "
+           f"{float(first['grad_norm'])!r} vs {float(m['grad_norm'])!r}; {len(differ)} parameters "
+           f"{differ[:6]}, {len(differ_mu)} moments {differ_mu[:6]}"))
+    del first
+    torch.cuda.empty_cache()
+
+    losses, gnorms = [float(m["loss"])], [float(m["grad_norm"])]
+    params = M.param_tree(state.params)
+    watched = ("embed.embedding", "layers.0.mixer.wq", f"layers.{cfg.n_layers - 1}.ffn.w_down",
+               "final_norm.gamma")
+    before = {k: params[k].detach().clone() for k in watched}
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for b in batches[1:-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = M.train_step(cfg, state, b, opt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    state, m = profile_train_step(torch, cfg, state, batches[1], opt, card)
+    losses.append(float(m["loss"]))
+    gnorms.append(float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = M.train_step(cfg, state, batches[-1], opt, accum=2)
+    torch.cuda.synchronize()
+    accum_s = time.perf_counter() - t0
+    losses.append(float(m["loss"]))
+    gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses + gnorms)), f"gemma-2b training: non-finite loss or grad norm {losses} {gnorms}")
+    moved = {k: float((params[k] != before[k]).float().mean()) for k in watched}
+    check(all(v > 0 for v in moved.values()), f"gemma-2b training: parameters did not move {moved}")
+    check(int(state.opt.step) == len(batches) + 1, f"gemma-2b training: step {int(state.opt.step)}")
+    ms = 1e3 * sum(step_s) / len(step_s)
+    tokens = B * S
+    bound = 1e3 * 6 * n_params * tokens / BF16_OPS_PER_S
+    bound_remat = 1e3 * 8 * n_params * tokens / BF16_OPS_PER_S
+    log(f"phase 14 (a) gemma-2b training at full width on {card} ({n_params / 1e9:.3f} G parameters, "
+        f"bf16, batch {B} x {S} tokens): losses {', '.join(f'{v:.4f}' for v in losses)}; grad norms "
+        f"{', '.join(f'{v:.4f}' for v in gnorms)} (the fifth profiled, the last at accum = 2); steps 2-{len(step_s) + 1} "
+        f"{ms:.1f} ms/step ({', '.join(f'{1e3 * t:.1f}' for t in step_s)}), {tokens / ms * 1e3:.0f} "
+        f"tokens/s, bound {bound:.1f} ms (6·N·tokens over the bf16 peak; {bound_remat:.1f} with the "
+        f"recompute) = {100 * bound / ms:.1f}% of it; accum = 2 step {1e3 * accum_s:.1f} ms; peak "
+        f"memory {peak / 2**30:.2f} GiB (steps 2 on); share of weights moved {moved}; "
+        f"{plain} plain attention calls a step, 0 kernel launches")
+    del state, m, before, params
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3, "bound_ms": bound, "peak_bytes": peak,
+            "same_bits": same, "losses": losses, "flash_launches": launched["flash_attention"],
+            "plain_attention_calls": plain}
+
+
+def profile_train_step(torch, cfg, state, batch, opt, card: str):
+    """Device busy share and the top kernels of one full-width train step,
+    from torch.profiler (model warm); returns the advanced state and the
+    step's metrics."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = M.train_step(cfg, state, batch, opt)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    rows = [(e.key, e.count, getattr(e, "device_time_total", None) or e.cuda_time_total)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(r[2] for r in rows)
+    if not busy_us:
+        log(f"phase 14 (a) train step profile: no device time recorded on {card}; busy share not measured")
+        return state, metrics
+    rows.sort(key=lambda r: -r[2])
+    gemm_us = sum(r[2] for r in rows if any(t in r[0].lower() for t in ("gemm", "nvjet", "xmma", "cutlass")))
+    elementwise_us = sum(r[2] for r in rows if "elementwise" in r[0])
+    log(f"phase 14 (a) gemma-2b train step profile (profiler on, {card}): wall {wall_us / 1e3:.1f} ms, "
+        f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), GEMM kernels "
+        f"{gemm_us / 1e3:.1f} ms, elementwise kernels {elementwise_us / 1e3:.1f} ms, "
+        f"{sum(r[1] for r in rows)} device activities")
+    for key, count, us in rows[:10]:
+        log(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:110]}")
+    return state, metrics
+
+
+def train_card_vs_cpu(torch, card: str) -> None:
+    """(b) a 2-layer float32 cut at ``reduced()`` widths: 3 steps on the card
+    and on the CPU from the same state and batches."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStreamConfig, token_batches
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import AdamWConfig
+
+    rows = []
+    for pattern, changes in (("full", {}), ("local_global", {"layer_pattern": "local_global", "window": 4096})):
+        cfg = dataclasses.replace(dataclasses.replace(get_arch("gemma-2b"), **changes).reduced(), n_layers=2)
+        opt = AdamWConfig(warmup_steps=2, total_steps=10)
+        runs = {}
+        for dev in (DEV, "cpu"):
+            state = M.init_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
+            stream = token_batches(TokenStreamConfig(cfg.vocab_size, 128, 2, seed=1), device=dev)
+            metrics = []
+            for _ in range(3):
+                state, m = M.train_step(cfg, state, next(stream), opt)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[dev] = (metrics, {k: p.detach().cpu() for k, p in M.param_tree(state.params).items()})
+        (mg, pg), (mc, pc) = runs[DEV], runs["cpu"]
+        loss_err = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(mg, mc))
+        gnorm_err = max(abs(a[1] - b[1]) for a, b in zip(mg, mc))
+        param_err = max(max_err(pg[k], pc[k]) for k in pc)
+        check(loss_err <= TRAIN_TOL["loss_rtol"] and gnorm_err <= TRAIN_TOL["gnorm_atol"]
+              and param_err <= TRAIN_TOL["param_atol"],
+              f"phase 14 (b) {pattern}: card vs CPU loss {loss_err:.3g} (relative), grad norm "
+              f"{gnorm_err:.3g}, parameters {param_err:.3g} exceed {TRAIN_TOL}")
+        rows.append(f"{pattern}: losses {', '.join(f'{a[0]:.6f}' for a in mg)} (relative error at most "
+                    f"{loss_err:.3g}), grad norms at most {gnorm_err:.3g} apart, parameters {param_err:.3g}")
+    log(f"phase 14 (b) float32 2-layer cut, 3 steps, card ({card}) vs CPU (tol {TRAIN_TOL}): "
+        + "; ".join(rows))
+
+
+def train_cli(torch, card: str) -> dict:
+    """(c) ``launch/train.py`` on the card with a checkpoint and a resume,
+    and a bf16 ``TrainState`` through ``checkpoint.py``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.checkpoint import _flatten, load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+
+    path = OUT / "train" / "lm100m"
+    for suffix in (".npz", ".json"):
+        path.with_suffix(suffix).unlink(missing_ok=True)
+    argv = ["--preset", "lm100m", "--log-every", "100", "--checkpoint", str(path)]
+    log(f"$ python -m repro_torch.launch.train {' '.join(argv)} --steps {CLI_STEPS}")
+    t0 = time.perf_counter()
+    losses = train.main(argv + ["--steps", str(CLI_STEPS)])
+    cli_s = time.perf_counter() - t0
+    check(losses[-1] < losses[0], "launch.train: the loss did not fall")
+
+    def bits(t):
+        t = t.detach().cpu()
+        return t.view(torch.int16).numpy().view(np.uint16) if t.dtype == torch.bfloat16 else t.numpy()
+
+    cfg = train.PRESETS["lm100m"]
+    back = load_checkpoint(M.init_train_state(cfg, torch.Generator().manual_seed(1), device=DEV), path)
+    data = np.load(path.with_suffix(".npz"))
+    leaves = _flatten(back)[0]
+    check(len(leaves) == len(data.files) and all(
+        np.array_equal(bits(t), data[f"leaf_{i}"]) for i, t in enumerate(leaves)),
+        "launch.train checkpoint: the loaded state is not the saved bits")
+    check(int(back.opt.step) == CLI_STEPS, f"launch.train checkpoint: step {int(back.opt.step)}")
+    log(f"$ python -m repro_torch.launch.train {' '.join(argv)} --steps {RESUME_STEPS} --resume")
+    resumed = train.main(argv + ["--steps", str(RESUME_STEPS), "--resume"])
+    check(resumed[-1] < resumed[0], "launch.train --resume: the loss did not fall")
+    check(resumed[0] < losses[0] - 1.0, f"launch.train --resume started at loss {resumed[0]}, not from "
+          f"the trained state (the first run started at {losses[0]})")
+    after = load_checkpoint(M.init_train_state(cfg, torch.Generator().manual_seed(1), device=DEV), path)
+    check(int(after.opt.step) == CLI_STEPS + RESUME_STEPS,
+          f"launch.train --resume: step {int(after.opt.step)}, not {CLI_STEPS + RESUME_STEPS}")
+
+    # a bf16 TrainState of reduced gemma-2b, two steps in, bit for bit
+    cfg16 = dataclasses.replace(get_arch("gemma-2b").reduced(), dtype="bfloat16")
+    state = M.init_train_state(cfg16, torch.Generator().manual_seed(0), device=DEV)
+    tok = torch.randint(0, cfg16.vocab_size, (2, 65), generator=torch.Generator().manual_seed(3))
+    for _ in range(2):
+        state, _ = M.train_step(cfg16, state, {"tokens": tok.to(DEV)})
+    save_checkpoint(state, OUT / "train" / "bf16")
+    back16 = load_checkpoint(M.init_train_state(cfg16, torch.Generator().manual_seed(1), device=DEV),
+                             OUT / "train" / "bf16")
+    a, b = _flatten(state)[0], _flatten(back16)[0]
+    check(all(x.dtype == y.dtype and np.array_equal(bits(x), bits(y)) for x, y in zip(a, b)),
+          "bf16 TrainState: the checkpoint round trip changed bits")
+    n16 = sum(t.dtype == torch.bfloat16 for t in a)
+    log(f"phase 14 (c) launch.train --preset lm100m on {card}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"in {CLI_STEPS} steps ({1e3 * cli_s / CLI_STEPS:.2f} ms/step with start-up and logging); the "
+        f"checkpoint loads bit for bit at step {CLI_STEPS}; --resume: loss {resumed[0]:.4f} -> "
+        f"{resumed[-1]:.4f}, step {int(after.opt.step)}; bf16 TrainState ({len(a)} leaves, {n16} bf16) "
+        "round-trips bit for bit")
+    return {"ms_per_step": 1e3 * cli_s / CLI_STEPS}
+
+
+def windowed_serving(torch, ops, ref, card: str) -> dict:
+    """(d) gemma-2b with local/global layers: an 8192-token prefill, 32
+    greedy steps past every local ring, against a cache-free forward; a
+    float32 2-layer windowed cut against the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import unembed
+
+    cfg = dataclasses.replace(get_arch("gemma-2b"), layer_pattern="local_global", window=WINDOWED["window"])
+    S, N = WINDOWED["prompt"], WINDOWED["steps"]
+    model = serve.build(cfg, 0, torch.device(DEV))
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=torch.Generator().manual_seed(2)).to(DEV)
+    M.prefill(model, {"tokens": prompt[:, :WINDOWED["window"]]})  # warm the allocator at this size
+    ops.reset_launches()
+    calls = dict(ref.device_calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, st = M.prefill(model, {"tokens": prompt}, cache_len=S + N)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    launches = ops.launch_counts()
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = cfg.n_layers
+    check(launches == want, f"windowed prefill launches {launches} != {want}")
+    check(ref.device_calls == calls, f"windowed prefill: a plain version ran on CUDA tensors: {ref.device_calls}")
+    slots = [c.k.shape[1] for c in st.caches]
+    check(slots == [WINDOWED["window"], S + N] * (cfg.n_layers // 2), f"windowed caches' slots {slots}")
+    fed = [torch.argmax(logits, -1)[:, None]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N):
+        logits, st = M.serve_step(model, st, fed[-1])
+        fed.append(torch.argmax(logits, -1)[:, None])
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / N
+    check(bool(torch.isfinite(logits).all()), "windowed decode: non-finite logits")
+    seq = torch.cat([prompt] + fed[:-1], 1)  # the prompt and the 32 tokens fed
+    with torch.no_grad():
+        want_logits = unembed(cfg, model.embed, model(seq)[:, -1:])[:, 0]
+    d = (logits - want_logits).abs()
+    check(bool(torch.isclose(logits, want_logits, **DECODE_TOL).all()),
+          f"windowed decode vs cache-free forward: max |diff| {float(d.max()):.4g} exceeds {DECODE_TOL}")
+    same = bool(torch.equal(logits.argmax(-1), want_logits.argmax(-1)))
+    log(f"phase 14 (d) gemma-2b local/global (window {WINDOWED['window']}) on {card}: prefill 1x{S} "
+        f"{prefill_ms:.1f} ms ({launches['flash_attention']} flash_attention launches), {N} greedy steps "
+        f"{decode_ms:.2f} ms/step (positions {S}-{S + N - 1}: ring slots 0-{N - 1} of every local layer); "
+        f"last step vs a cache-free forward over {seq.shape[1]} tokens: max |diff| {float(d.max()):.4g}, "
+        f"mean {float(d.mean()):.4g} (tol {DECODE_TOL}), greedy token {'agrees' if same else 'differs'}")
+    del model, st, logits, want_logits
+    torch.cuda.empty_cache()
+
+    # a float32 2-layer cut with a 256-token window: prefill 1024, 32 fed steps, card vs CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32", window=256)
+    model2 = serve.build(cfg2, 0, torch.device(DEV))
+    tok = torch.randint(0, cfg2.vocab_size, (1, 1024 + N), generator=torch.Generator().manual_seed(4))
+
+    def run(m, t):
+        out, st2 = M.prefill(m, {"tokens": t[:, :1024]}, cache_len=1024 + N)
+        outs = [out]
+        for i in range(N):
+            out, st2 = M.serve_step(m, st2, t[:, 1024 + i:1025 + i])
+            outs.append(out)
+        return torch.stack(outs).cpu()
+
+    on_card = run(model2, tok.to(DEV))
+    model2.to("cpu")
+    on_cpu = run(model2, tok)
+    d = (on_card - on_cpu).abs()
+    check(bool(torch.isclose(on_card, on_cpu, **CPU_TOL).all()),
+          f"windowed 2-layer f32: card vs CPU max |diff| {float(d.max()):.4g} exceeds {CPU_TOL}")
+    log(f"phase 14 (d) 2-layer float32 cut (window 256, prompt 1024, {N} steps past the ring), card vs "
+        f"CPU: max |diff| {float(d.max()):.4g} over the prefill and every step (tol {CPU_TOL})")
+    return {"launches": launches["flash_attention"], "prefill_ms": prefill_ms, "decode_ms": decode_ms}
+
+
+def lm_phase(torch, ops, ref, card: str) -> dict:
+    full = train_full_width(torch, ops, ref, card)
+    train_card_vs_cpu(torch, card)
+    cli = train_cli(torch, card)
+    windowed = windowed_serving(torch, ops, ref, card)
+    return {"train": full, "cli": cli, "windowed": windowed}
+
+
 def main() -> int:
     try:
         import torch
@@ -2401,6 +2776,16 @@ def main() -> int:
           f"tree_hist's shared atomics are not single integer adds: {sorted(atoms)}")
 
     phase_done(2)
+
+    if "--lm-only" in sys.argv[1:]:  # a short call after a change to the LM side
+        flash, worst = check_flash_attention(torch, ops, ref, torch.Generator().manual_seed(0))
+        phase_done(3)
+        lm = lm_phase(torch, ops, ref, card)
+        phase_done(14)
+        log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
+        log("lm_only " + json.dumps({"card": card, "flash_worst_abs_err": worst, "lm": lm, "flash": {
+            k: flash[k] for k in ("gemma_window_8192", "gemma_8192", "gemma_2048")}}))
+        return 0
 
     # 3. kernels against their plain versions
     g = torch.Generator().manual_seed(0)
@@ -2531,6 +2916,11 @@ def main() -> int:
     # 13. the multi-process federation (fl_spawn, fl_run --distributed [--elastic])
     dist_launches = distributed_phase(torch, fl_run, card)
     phase_done(13)
+
+    # 14. the LM training step at full width, the training driver and its
+    # checkpoints, and windowed serving (an 8192-token prefill, ring decode)
+    lm = lm_phase(torch, ops, ref, card)
+    phase_done(14)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
 
@@ -2558,6 +2948,14 @@ def main() -> int:
             "eager_ms": main_shape["eager_ms"], "shape": main_shape["shape"],
             "launch_floor_ms": floor,
         })
+        if name == "flash_attention":  # phase 14: the windowed prefill's shapes and launches
+            kernels[-1]["launches_windowed_prefill"] = lm["windowed"]["launches"]
+            # the training forward runs the plain attention, as the JAX package's does
+            kernels[-1]["launches_training"] = lm["train"]["flash_launches"]
+            kernels[-1]["windowed_prefill"] = {
+                case: {k: res[case][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms", "eager_ms")}
+                for case in ("gemma_window_8192", "gemma_8192")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                "count": torch.cuda.device_count()}}))

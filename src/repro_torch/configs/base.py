@@ -1,28 +1,43 @@
 """Architecture configuration schema and registry.
 
 The port's own copy of ``repro/configs/base.py``, cut to the fields that
-the dense full-attention serving path reads: an ``ArchConfig`` holds a
-published architecture's exact dimensions (source cited in ``source``),
-and ``reduced()`` gives its smoke-test variant (2 layers, d_model 128,
-float32) for CPU tests.  ``arch_type``, ``n_experts``, ``layer_pattern``
-and ``post_norm`` are kept so that the model can refuse what it does not
-serve yet (``models/transformer.py``); the MoE, window, SSM, front-end and
-distribution fields, ``LayerDesc`` and ``pattern()`` arrive with the
-architectures that read them.  Only gemma-2b is registered; the others
-raise in :func:`get_arch`.
+the dense attention path reads: an ``ArchConfig`` holds a published
+architecture's exact dimensions (source cited in ``source``), and
+``reduced()`` gives its smoke-test variant (``2·period`` layers, d_model
+128, windows of at most 64, float32) for CPU tests.  ``pattern()``
+expands the architecture into a repeating unit of per-layer descriptors
+(``LayerDesc``) for the ``full``, ``local_global`` (gemma2: a sliding-window
+layer, then a full one) and ``chunked_global`` (llama4's layout without
+its MoE: ``pattern_period - 1`` window layers, then a full layer without
+RoPE) patterns.  ``arch_type``, ``n_experts`` and ``post_norm`` are kept
+so that the model can refuse what it does not run yet
+(``models/transformer.py``); the MoE, SSM, front-end and distribution
+fields arrive with the architectures that read them.  Only gemma-2b is
+registered; the others raise in :func:`get_arch`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 13)"
+
+def not_ported(item: str) -> str:
+    """The refusal's tail, naming the ROADMAP item that ports the feature:
+    13d MoE, 13e the recurrent mixers, 13f gemma2's post-norms and the
+    audio and VLM front ends."""
+    return f"is not ported yet (ROADMAP Queue 1 item {item})"
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerDesc:
+    mixer: str  # attn_full | attn_local (mamba | mlstm | slstm: item 13e)
+    ffn: str  # swiglu | geglu | gelu (moe: item 13d)
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str  # dense (served); ssm | moe | audio | vlm | hybrid raise
+    arch_type: str  # dense (run); ssm | moe | audio | vlm | hybrid raise
     n_layers: int
     d_model: int
     n_heads: int
@@ -32,7 +47,9 @@ class ArchConfig:
     source: str
     head_dim: Optional[int] = None  # default d_model // n_heads
     n_experts: int = 0  # MoE layers raise
-    layer_pattern: str = "full"  # every other pattern raises
+    layer_pattern: str = "full"  # full | local_global | chunked_global (mamba_attn | xlstm raise)
+    window: Optional[int] = None  # sliding-window size of the local layers
+    pattern_period: int = 1  # layers per repeating unit (chunked_global)
     logit_softcap: Optional[float] = None
     final_softcap: Optional[float] = None
     mlp_type: str = "swiglu"  # swiglu | geglu | gelu
@@ -43,6 +60,7 @@ class ArchConfig:
     norm_eps: float = 1e-6
     post_norm: bool = False  # gemma2 extra post-norms; raise
     dtype: str = "bfloat16"
+    remat: bool = True  # recompute each layer's activations in the backward
 
     @property
     def hd(self) -> int:
@@ -51,13 +69,37 @@ class ArchConfig:
     def padded_vocab(self, multiple: int = 2048) -> int:
         return -(-self.vocab_size // multiple) * multiple
 
+    def pattern(self) -> Tuple[Tuple[LayerDesc, ...], int]:
+        """(repeating unit of layer descriptors, n_repeats)."""
+        if self.layer_pattern == "full":
+            return (LayerDesc("attn_full", self.mlp_type),), self.n_layers
+        if self.layer_pattern == "local_global":
+            unit = (LayerDesc("attn_local", self.mlp_type), LayerDesc("attn_full", self.mlp_type))
+            return unit, self._repeats(2)
+        if self.layer_pattern == "chunked_global":
+            p = self.pattern_period
+            unit = tuple(LayerDesc("attn_local" if i < p - 1 else "attn_full", self.mlp_type)
+                         for i in range(p))
+            return unit, self._repeats(p)
+        if self.layer_pattern in ("mamba_attn", "xlstm"):
+            raise NotImplementedError(
+                f"{self.name}: the {self.layer_pattern!r} layer pattern {not_ported('13e')}")
+        raise ValueError(f"unknown layer_pattern {self.layer_pattern!r}")
+
+    def _repeats(self, period: int) -> int:
+        if self.n_layers % period:
+            raise ValueError(f"{self.name}: {self.n_layers} layers do not repeat a unit of {period}")
+        return self.n_layers // period
+
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: same family, tiny dims, two layers, float32
-        (the JAX package's ``reduced()`` for the ``full`` pattern)."""
+        """Smoke-test variant: same family, tiny dims (the JAX package's
+        ``reduced()`` over the fields the port has)."""
+        unit, _ = self.pattern()
+        period = len(unit)
         heads = max(2, min(4, self.n_heads))
         return dataclasses.replace(
             self,
-            n_layers=2,
+            n_layers=period * (2 if period <= 4 else 1),
             d_model=128,
             n_heads=heads,
             n_kv_heads=max(1, min(self.n_kv_heads, heads)),
@@ -65,14 +107,14 @@ class ArchConfig:
             d_ff=0 if self.d_ff == 0 else 256,
             vocab_size=512,
             n_experts=min(self.n_experts, 4),
+            window=min(self.window, 64) if self.window else None,
             dtype="float32",
         )
 
 
-# Architectures the JAX package has and the port does not yet serve; each
-# arrives with ROADMAP Queue 1 item 13's later parts (MoE, recurrent mixers,
-# chunked-local attention).
-UNPORTED = ("grok-1-314b", "llama4-scout-17b-a16e", "xlstm-1.3b")
+# Architectures the JAX package has and the port does not yet run, with the
+# ROADMAP item that brings each
+UNPORTED = {"grok-1-314b": "13d", "llama4-scout-17b-a16e": "13d", "xlstm-1.3b": "13e"}
 
 _ARCH_REGISTRY: Dict[str, ArchConfig] = {}
 
@@ -86,7 +128,8 @@ def get_arch(name: str) -> ArchConfig:
     if not _ARCH_REGISTRY:
         _load_all()
     if name in UNPORTED:
-        raise NotImplementedError(f"arch {name!r} {NOT_PORTED}; the port has {sorted(_ARCH_REGISTRY)}")
+        raise NotImplementedError(
+            f"arch {name!r} {not_ported(UNPORTED[name])}; the port has {sorted(_ARCH_REGISTRY)}")
     if name not in _ARCH_REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_ARCH_REGISTRY)}")
     return _ARCH_REGISTRY[name]

@@ -109,30 +109,26 @@ def boost_state_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> BoostS
                       fit_cache=cache)
 
 
-def model_params_from_numpy(cfg: ArchConfig, tree: Mapping, device="cuda"):
-    """A JAX model's params pytree as numpy -> the port's ``Transformer``.
-
-    ``tree`` is ``repro.models.transformer.init_params``'s layout:
-    ``embed`` (``embedding``, and ``unembed`` unless tied), ``final_norm``,
-    and ``unit``, whose ``L0`` leaves are stacked ``[n_layers, ...]`` (the
-    port's architectures repeat a one-layer unit): layer ``r`` of the port
-    takes slice ``r``.  A norm's array becomes its module's ``gamma``.
-    Every port parameter must be assigned, each with the shape it has."""
-    from repro_torch.models.layers import RMSNorm
-    from repro_torch.models.transformer import Transformer
-
-    model = Transformer(cfg, torch.Generator(device=resolve_device(device)).manual_seed(0))
+def _assign(targets: Dict[str, torch.Tensor], tree: Mapping, cfg: ArchConfig) -> None:
+    """Copy a JAX params-shaped tree into ``targets`` (port parameter name
+    -> tensor): ``embed`` and ``final_norm`` by name, and port layer ``r``
+    from ``unit["L{r % p}"]`` at slice ``r // p`` (``p`` layers a unit).  A
+    norm's array goes to its ``.gamma``.  Every target must be assigned,
+    each with its own shape."""
+    period = len(cfg.pattern()[0])
     assigned = set()
 
-    def put(module: torch.nn.Module, prefix: str, sub: Mapping, index=None) -> None:
+    def put(prefix: str, sub: Mapping, index=None) -> None:
         for name, leaf in sub.items():
-            target = getattr(module, name)
-            if isinstance(leaf, Mapping):
-                put(target, f"{prefix}{name}.", leaf, index)
-                continue
             full = f"{prefix}{name}"
-            if isinstance(target, RMSNorm):
-                target, full = target.gamma, full + ".gamma"
+            if isinstance(leaf, Mapping):
+                put(full + ".", leaf, index)
+                continue
+            if full + ".gamma" in targets:
+                full += ".gamma"
+            if full not in targets:
+                raise ValueError(f"{full}: no counterpart in the port")
+            target = targets[full]
             a = np.asarray(leaf if index is None else leaf[index], np.float32)
             if tuple(a.shape) != tuple(target.shape):
                 raise ValueError(f"{full}: shape {a.shape} != the port's {tuple(target.shape)}")
@@ -140,10 +136,45 @@ def model_params_from_numpy(cfg: ArchConfig, tree: Mapping, device="cuda"):
                 target.copy_(torch.tensor(a))
             assigned.add(full)
 
-    put(model, "", {"embed": tree["embed"], "final_norm": tree["final_norm"]})
-    for r, layer in enumerate(model.layers):
-        put(layer, f"layers.{r}.", tree["unit"]["L0"], r)
-    missing = {name for name, _ in model.named_parameters()} - assigned
+    put("", {"embed": tree["embed"], "final_norm": tree["final_norm"]})
+    for r in range(cfg.n_layers):
+        put(f"layers.{r}.", tree["unit"][f"L{r % period}"], r // period)
+    missing = set(targets) - assigned
     if missing:
         raise ValueError(f"parameters with no counterpart in the tree: {sorted(missing)}")
+
+
+def model_params_from_numpy(cfg: ArchConfig, tree: Mapping, device="cuda"):
+    """A JAX model's params pytree as numpy -> the port's ``Transformer``.
+
+    ``tree`` is ``repro.models.transformer.init_params``'s layout:
+    ``embed`` (``embedding``, and ``unembed`` unless tied), ``final_norm``,
+    and ``unit``, whose ``L{i}`` leaves (one per layer of the repeating
+    unit of ``p`` layers) are stacked ``[n_layers // p, ...]``: port layer
+    ``r`` takes ``unit["L{r % p}"]`` at slice ``r // p``."""
+    from repro_torch.models.transformer import Transformer
+
+    model = Transformer(cfg, torch.Generator(device=resolve_device(device)).manual_seed(0))
+    _assign(dict(model.named_parameters()), tree, cfg)
     return model
+
+
+def train_state_from_numpy(cfg: ArchConfig, params_tree: Mapping, opt_tree, device="cuda"):
+    """A JAX ``TrainState`` as numpy -> the port's ``TrainState``:
+    ``params_tree`` as :func:`model_params_from_numpy` takes it, and the
+    JAX ``AdamWState`` (or a mapping) with ``step`` and the float32 moments
+    ``mu``, ``nu`` in the parameters' layout."""
+    from repro_torch.models.model import TrainState, param_tree
+    from repro_torch.optim.optimizers import AdamWState
+
+    model = model_params_from_numpy(cfg, params_tree, device)
+    params = param_tree(model)
+    step, mu, nu = (opt_tree[k] if isinstance(opt_tree, Mapping) else getattr(opt_tree, k)
+                    for k in ("step", "mu", "nu"))
+
+    def moments(tree: Mapping) -> Dict[str, torch.Tensor]:
+        out = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
+        _assign(out, tree, cfg)
+        return out
+
+    return TrainState(model, AdamWState(_t(step, torch.int32, device), moments(mu), moments(nu)))

@@ -1,24 +1,32 @@
-"""Attention sublayers: GQA/MQA with RoPE and logit soft-capping, over the
-full sequence (prefill, through the ``flash_attention`` kernel) and for one
-decoded token against a KV cache.  The port's counterpart of
-``repro/models/attention.py`` for full-attention layers.
+"""Attention sublayers: GQA/MQA with RoPE, sliding-window local layers and
+logit soft-capping, over the full sequence (training and prefill) and for
+one decoded token against a full or ring-buffer KV cache.  The port's
+counterpart of ``repro/models/attention.py``.
 
-The decode cache of a layer is ``[B, T, Kv, D]``; slot ``j`` holds position
-``j``.  Unlike the JAX package, :func:`attend_decode` writes the new
-token's K/V into the cache in place: a step then copies nothing of the
-cache, and the caller's ``LayerCache`` is the updated one.  Sliding-window
-layers (ring-buffer caches, ``_chunked_local_attention``) arrive with the
-windowed architectures (ROADMAP Queue 1 item 13).
+The full-sequence attention takes one of two routes, as in the JAX package:
+prefill runs the ``flash_attention`` kernel (the JAX ``use_pallas=True``
+route), and the training forward, which the JAX package runs without
+Pallas, runs that route's plain functions with ``plain_attention=True``:
+``kernels/ref.py::attention_ref``, or ``_chunked_local_attention`` on a
+window layer whose sequence is a multiple (at least 2) of the window.  The
+kernel has no backward; this is the JAX route that has none, not a
+fallback.
+
+Decode caches: a full layer's is ``[B, T, Kv, D]`` and slot ``j`` holds
+position ``j``; a local layer's is a ring buffer of ``min(window, T)``
+slots, slot ``pos % T``.  Unlike the JAX package, :func:`attend_decode`
+writes the new token's K/V into the cache in place: a step then copies
+nothing of the cache, and the caller's ``LayerCache`` is the updated one.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import make_param, pdtype, rope
 
 
@@ -49,23 +57,76 @@ def _out(p: Attention, o: torch.Tensor) -> torch.Tensor:
     return o.reshape(*o.shape[:2], -1) @ p.wo.flatten(0, 1)
 
 
+# Block-local computation for sliding-window layers: O(S * 2w) instead of
+# O(S^2).  Semantically identical to masked full attention (every query in
+# chunk i only sees keys in chunks i-1, i under ``pos_q - pos_k < w``).
+CHUNKED_LOCAL = True
+
+
+def set_chunked_local(value: bool) -> None:
+    global CHUNKED_LOCAL
+    CHUNKED_LOCAL = value
+
+
+def _chunked_local_attention(cfg: ArchConfig, q, k, v, window: int) -> torch.Tensor:
+    """q/k/v: [B, S, H|Kv, D] with S % window == 0.  Causal sliding window,
+    float32 logits and softmax, cast to ``q.dtype``."""
+    B, S, H, D = q.shape
+    Kv = k.shape[2]
+    g = H // Kv
+    w = window
+    nc = S // w
+    qc = q.reshape(B, nc, w, H, D)
+    # keys for chunk i = [chunk i-1 ; chunk i]  (zero-pad chunk -1)
+    kc = k.reshape(B, nc, w, Kv, D)
+    vc = v.reshape(B, nc, w, Kv, D)
+    k2 = torch.cat([torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], 1), kc], 2)  # [B, nc, 2w, Kv, D]
+    v2 = torch.cat([torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], 1), vc], 2)
+
+    scale = float(1.0 / torch.tensor(float(D)).sqrt())  # in float32, as the JAX package's
+    qg = qc.reshape(B, nc, w, Kv, g, D)
+    logits = torch.einsum("bcsKgd,bctKd->bcKgst", qg.float(), k2.float()) * scale  # [B, nc, Kv, g, w, 2w]
+    if cfg.logit_softcap is not None:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    dev = q.device
+    qpos = torch.arange(w, device=dev)[:, None] + w  # position within the 2w key span
+    kpos = torch.arange(2 * w, device=dev)[None, :]
+    mask = (kpos <= qpos) & ((qpos - kpos) < w)  # causal + window
+    first = torch.arange(nc, device=dev) == 0  # chunk 0 has no (real) previous chunk
+    mask = mask[None, :, :] & ~(first[:, None, None] & (kpos < w)[None])
+    logits = logits.masked_fill(~mask[None, :, None, None, :, :], -1e30)
+    att = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bcKgst,bctKd->bcsKgd", att, v2.float())
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
 def attend_full(
     cfg: ArchConfig,
     p: Attention,
     x: torch.Tensor,  # [B, S, d]
     positions: torch.Tensor,  # [S]
+    *,
+    window: Optional[int] = None,
+    use_rope: bool = True,
+    plain_attention: bool = False,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Causal full-sequence self-attention; returns (out [B, S, d], (k, v)
     [B, S, Kv, D]) so that prefill can cache.  The kernel takes the
-    ``[B, H, S, D]`` transposes as strided views: nothing is copied for it."""
+    ``[B, H, S, D]`` transposes as strided views: nothing is copied for it.
+    ``plain_attention`` (the training forward's) takes the plain route."""
     q, k, v = _project_qkv(p, x)
-    if cfg.pos_emb == "rope":
+    if use_rope and cfg.pos_emb == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=True, softcap=cfg.logit_softcap,
-    ).transpose(1, 2)  # [B, S, H, D]
+    S = q.shape[1]
+    if plain_attention and CHUNKED_LOCAL and window is not None and S % window == 0 and S // window >= 2:
+        out = _chunked_local_attention(cfg, q, k, v, window)
+    else:
+        attend = ref.attention_ref if plain_attention else ops.flash_attention
+        out = attend(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=window, softcap=cfg.logit_softcap,
+        ).transpose(1, 2)  # [B, S, H, D]
     return _out(p, out), (k, v)
 
 
@@ -76,8 +137,12 @@ class LayerCache(NamedTuple):
     v: torch.Tensor  # [B, T_cache, Kv, D]
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype, device) -> LayerCache:
-    shape = (batch, seq_len, cfg.n_kv_heads, cfg.hd)
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, window: Optional[int], dtype,
+               device) -> LayerCache:
+    """Zeros of ``[B, T, Kv, D]``: ``T = seq_len``, or a ring of
+    ``min(window, seq_len)`` slots for a window layer."""
+    T = min(window, seq_len) if window else seq_len
+    shape = (batch, T, cfg.n_kv_heads, cfg.hd)
     return LayerCache(torch.zeros(shape, dtype=dtype, device=device),
                       torch.zeros(shape, dtype=dtype, device=device))
 
@@ -88,23 +153,29 @@ def attend_decode(
     x: torch.Tensor,  # [B, 1, d]
     cache: LayerCache,
     pos: int,  # position of the new token
+    *,
+    window: Optional[int] = None,
+    use_rope: bool = True,
 ) -> Tuple[torch.Tensor, LayerCache]:
     """One decode step in plain PyTorch (the JAX package's decode never
-    reaches the kernel either).  Writes slot ``pos`` of ``cache`` in place
-    and attends over slots ``<= pos``; logits and softmax in float32."""
+    reaches the kernel either).  Writes slot ``pos`` (a window layer's
+    ring: ``pos % T``) of ``cache`` in place and attends over the valid
+    slots: ``<= pos``, and every slot of a ring once ``pos >= T``; logits
+    and softmax in float32."""
     B = x.shape[0]
     T = cache.k.shape[1]
-    if not 0 <= pos < T:
+    if pos < 0 or (not window and pos >= T):
         raise ValueError(f"decode position {pos} outside the cache's {T} slots")
     q = _heads(x, p.wq)  # [B, 1, H, D]
     kn, vn = _heads(x, p.wk), _heads(x, p.wv)  # [B, 1, Kv, D]
-    if cfg.pos_emb == "rope":
+    if use_rope and cfg.pos_emb == "rope":
         at = torch.full((1,), pos, device=x.device)
         q = rope(q, at, cfg.rope_theta)
         kn = rope(kn, at, cfg.rope_theta)
-    cache.k[:, pos] = kn[:, 0].to(cache.k.dtype)
-    cache.v[:, pos] = vn[:, 0].to(cache.v.dtype)
-    valid = torch.arange(T, device=x.device) <= pos
+    slot = pos % T if window else pos
+    cache.k[:, slot] = kn[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = vn[:, 0].to(cache.v.dtype)
+    valid = torch.arange(T, device=x.device) <= pos  # a ring's every slot once pos >= T
 
     # grouped heads attend without a repeated K/V: q [B,1,H,D] -> [B,1,Kv,g,D]
     Kv, g, D = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd

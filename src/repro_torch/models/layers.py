@@ -5,7 +5,10 @@ The functions keep the JAX package's arithmetic (the float32 islands, the
 casts back to the activation type) and its layouts: activations
 ``[B, S, d]``, heads ``[B, S, H, D]``.  The modules only hold weights,
 initialised with ``make_param``'s scales from an explicit
-``torch.Generator``; the weights never need gradients on the serving path.
+``torch.Generator``, without ``requires_grad``: ``models/model.py``'s
+``train_step`` turns gradients on for the length of a step, and every
+function here is differentiable as written (the serving path runs the
+same operations).
 """
 from __future__ import annotations
 

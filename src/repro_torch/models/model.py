@@ -1,27 +1,193 @@
-"""Serving API over the decoder stack: ``prefill`` a batch of prompts into
-per-layer KV caches, then ``serve_step`` one token at a time.  The port's
-counterpart of the serving half of ``repro/models/model.py``; the loss,
-the train step and the dry-run input specs wait for the training slice.
+"""Public model API over the decoder stack, the port's counterpart of
+``repro/models/model.py``:
 
-The decode position is a host ``int``: the loop never reads it back from
-the device.  The caches are written in place by each step
-(``models/attention.py``), so a ``ServeState`` is consumed by the step
-that advances it.
+  * ``loss_fn``     — next-token CE, sequence-chunked (never
+                      materialises [B, S, V] logits);
+  * ``train_step``  — AdamW step, with micro-batch accumulation;
+  * ``prefill``     — full-sequence forward filling per-layer KV caches;
+  * ``serve_step``  — one token against the caches.
+
+The training forward runs the attention's plain route
+(``plain_attention=True``: ``attention_ref``, or ``_chunked_local_attention``
+on window layers), because the JAX training forward runs without Pallas;
+prefill runs the ``flash_attention`` kernel, which has no backward.
+
+A ``TrainState`` holds the model itself as its parameters, and
+``train_step`` updates them and the AdamW moments in place: a state is
+consumed by the step that advances it, as a ``ServeState`` is by the
+serving step (its caches are written in place).  The decode position is a
+host ``int``: the loop never reads it back from the device.  The dry-run
+input specs are item 13g.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import LayerCache
-from repro_torch.models.layers import unembed
+from repro_torch.configs.base import ArchConfig, not_ported
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import LayerCache, init_cache
+from repro_torch.models.layers import pdtype, unembed
 from repro_torch.models.transformer import Transformer, init_caches
+from repro_torch.optim.optimizers import AdamWConfig, AdamWState, Tree, adamw_update, init_adamw
+
+MOE_AUX_WEIGHT = 0.01
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def _chunk_loss(cfg: ArchConfig, embed, h, t, m):
+    logits = unembed(cfg, embed, h)  # [B, c, V] f32
+    lse = torch.logsumexp(logits, dim=-1)
+    # the JAX package contracts with a one-hot (for sharding); the gather
+    # picks the same value exactly
+    ll = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+    return torch.sum((lse - ll) * m), torch.sum(m)
+
+
+def _chunked_ce(cfg: ArchConfig, model: Transformer, hidden: torch.Tensor, targets: torch.Tensor,
+                mask: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy over sequence chunks; each chunk is recomputed in the
+    backward, so its [B, c, V] logits are transient in both passes, which
+    is what makes 256k-vocab training fit."""
+    S = hidden.shape[1]
+    chunk = min(chunk, S)
+    tot = cnt = torch.zeros((), device=hidden.device)
+    for lo in range(0, S, chunk):  # S // chunk whole chunks, then the remainder
+        hi = min(lo + chunk, S)
+        args = (cfg, model.embed, hidden[:, lo:hi], targets[:, lo:hi], mask[:, lo:hi])
+        if torch.is_grad_enabled():
+            l, c = checkpoint(_chunk_loss, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            l, c = _chunk_loss(*args)
+        tot, cnt = tot + l, cnt + c
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def loss_fn(cfg: ArchConfig, model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"] [B, S+1]`` (and
+    its optional float ``loss_mask [B, S]``)."""
+    if batch.get("prefix") is not None or batch.get("frames") is not None:
+        raise NotImplementedError(f"{cfg.name}: VLM prefixes and audio frames {not_ported('13f')}")
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    hidden = model(inputs, plain_attention=True)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
+    aux = 0.0  # the MoE load-balance loss: no MoE layer until item 13d
+    return _chunked_ce(cfg, model, hidden, targets, mask) + MOE_AUX_WEIGHT * aux
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+
+def _jax_key(name: str, period: int):
+    """Where the JAX package's params pytree holds the port parameter
+    ``name``: (key path, slice of the stacked unit leaf).  Layer ``r`` is
+    unit position ``L{r % period}`` at slice ``r // period``."""
+    parts = [p for p in name.split(".") if p != "gamma"]
+    if parts[0] == "layers":
+        r = int(parts[1])
+        return ("unit", f"L{r % period}", *parts[2:]), r // period
+    return tuple(parts), 0
+
+
+def param_tree(model: Transformer) -> Tree:
+    """The model's parameters by name, in the JAX package's leaf order
+    (``jax.tree`` flattens dicts in sorted key order; a stacked unit leaf
+    holds its layers in order), the order the global norm sums them in."""
+    period = len(model.cfg.pattern()[0])
+    named = dict(model.named_parameters())
+    return {k: named[k] for k in sorted(named, key=lambda k: _jax_key(k, period))}
+
+
+class TrainState(NamedTuple):
+    params: Transformer
+    opt: AdamWState
+
+
+def init_train_state(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> TrainState:
+    """The model's weights drawn from ``generator`` (on its device), placed
+    on ``device``, and zero AdamW moments."""
+    dev = resolve_device(device)
+    model = Transformer(cfg, generator).to(dev)
+    return TrainState(model, init_adamw(param_tree(model)))
+
+
+@contextlib.contextmanager
+def _grads_of(params: List[torch.Tensor]):
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+
+
+def _loss_and_grads(cfg: ArchConfig, model: Transformer, params: Tree, batch):
+    with torch.enable_grad(), _grads_of(list(params.values())):
+        loss = loss_fn(cfg, model, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def train_step(
+    cfg: ArchConfig,
+    state: TrainState,
+    batch: Dict[str, torch.Tensor],
+    opt_cfg: AdamWConfig = AdamWConfig(),
+    accum: int = 1,
+) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One synchronous step: the gradient of ``loss_fn``, then AdamW.
+
+    ``accum`` > 1 splits the batch into micro-batches and sums their
+    gradients in float32 buffers from zeros, then divides by ``accum``, as
+    the JAX package's scan does; with ``accum == 1`` the gradients keep the
+    parameters' dtype.  Returns the advanced state (the same model and
+    moments, updated in place) and {"loss", "grad_norm"} as device
+    scalars."""
+    model = state.params
+    params = param_tree(model)
+    if accum == 1:
+        loss, grads = _loss_and_grads(cfg, model, params, batch)
+    else:
+        B = batch["tokens"].shape[0]
+        if B % accum:
+            raise ValueError(f"batch {B} does not split into {accum} micro-batches")
+        mb = B // accum
+        loss = torch.zeros((), device=batch["tokens"].device)
+        grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
+        for i in range(accum):
+            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            l, gi = _loss_and_grads(cfg, model, params, micro)
+            loss = loss + l
+            for k, g in gi.items():
+                grads[k].add_(g.float())
+            del gi
+        loss = loss / accum
+        for g in grads.values():
+            g.div_(accum)
+    _, opt, gnorm = adamw_update(opt_cfg, params, grads, state.opt)
+    return TrainState(model, opt), {"loss": loss, "grad_norm": gnorm}
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
 
 
 class ServeState(NamedTuple):
-    caches: List[LayerCache]  # one [B, T, Kv, D] cache per layer
+    caches: List[LayerCache]  # one cache per layer: [B, T, Kv, D] or a window's ring
     pos: int  # next absolute position
 
 
@@ -29,24 +195,39 @@ def init_serve_state(cfg: ArchConfig, batch: int, cache_len: int, device) -> Ser
     return ServeState(init_caches(cfg, batch, cache_len, device), 0)
 
 
+def _grow_ok(layer) -> bool:
+    return layer.window is None  # ring buffers stay fixed
+
+
+def _prefill_caches(model: Transformer, batch: int, cache_len: int, device) -> List[LayerCache]:
+    """The state prefill fills: full layers at ``cache_len`` slots (zero
+    past the prompt; the decode mask ``j <= pos`` ignores them), window
+    layers at ``window`` slots whatever the prompt, as the JAX package's
+    prefill pads or trims them and ``_pad_caches`` grows only full
+    layers."""
+    cfg = model.cfg
+    return [init_cache(cfg, batch, cache_len if _grow_ok(layer) else layer.window, None,
+                       pdtype(cfg), device) for layer in model.layers]
+
+
+@torch.no_grad()
 def prefill(
     model: Transformer,
     batch: Dict[str, torch.Tensor],
     cache_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, ServeState]:
     """Full-sequence forward over ``batch["tokens"] [B, S]``; returns the
-    last position's logits [B, V] (float32) and the state.  The caches are
-    allocated at ``max(S, cache_len)`` slots, zero past the prompt (the
-    decode mask ``j <= pos`` ignores them), and the forward writes the
-    prompt's K/V into them."""
+    last position's logits [B, V] (float32) and the state, its full
+    layers' caches at ``max(S, cache_len)`` slots."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    state = init_serve_state(model.cfg, B, max(S, cache_len or S), tokens.device)
+    state = ServeState(_prefill_caches(model, B, max(S, cache_len or S), tokens.device), S)
     hidden = model(tokens, caches=state.caches)
     logits = unembed(model.cfg, model.embed, hidden[:, -1:, :])[:, 0]
-    return logits, state._replace(pos=S)
+    return logits, state
 
 
+@torch.no_grad()
 def serve_step(
     model: Transformer, state: ServeState, token: torch.Tensor
 ) -> Tuple[torch.Tensor, ServeState]:

@@ -3,25 +3,34 @@
 The port's counterpart of ``repro/models/transformer.py`` for attention
 mixers and MLP FFNs.
 
-The JAX package scans one repeating unit over ``[R, ...]``-stacked
-weights; here the layers are a ``ModuleList`` walked in a Python loop, so
-each layer's full-sequence attention is one ``flash_attention`` launch.
-Two entry points: ``forward`` (prefill; given caches it also writes each
-layer's K/V into them, where the JAX ``collect_cache`` returns them) and
-``decode_step`` (one token against the caches).  Architectures other than
-dense, MoE layers, layer patterns other than ``full`` and gemma2's
-post-norms raise ``NotImplementedError`` (ROADMAP Queue 1 item 13).  The
-JAX ``forward`` also returns the MoE auxiliary loss; with no MoE layers
-here it is always 0 and is left out.
+The JAX package scans one repeating unit of ``cfg.pattern()``'s layer
+descriptors over ``[R, ...]``-stacked weights; here layer ``r`` is built
+from descriptor ``r % len(unit)`` and the layers are a ``ModuleList`` walked
+in a Python loop, so each layer's full-sequence attention is one
+``flash_attention`` launch.  A layer keeps its descriptor's sliding window
+(``attn_local``) and whether it applies RoPE (not a ``chunked_global``
+full layer: llama4's NoPE layers).  Two entry points: ``forward`` (training
+and prefill; given caches it also writes each layer's K/V into them, where
+the JAX ``collect_cache`` returns them) and ``decode_step`` (one token
+against the caches).  Under autograd and ``cfg.remat`` each layer is
+recomputed in the backward (``torch.utils.checkpoint``), as the JAX
+package checkpoints its scanned unit.
+
+Architectures other than dense and MoE layers (items 13d, 13e), and
+gemma2's post-norms (13f) raise ``NotImplementedError``.  The JAX
+``forward`` also returns the MoE auxiliary loss; with no MoE layers here it
+is always 0 and is left out.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import NOT_PORTED, ArchConfig
+from repro_torch.configs.base import ArchConfig, LayerDesc, not_ported
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     MLP,
@@ -34,28 +43,43 @@ from repro_torch.models.layers import (
     unembed,
 )
 
+_ARCH_ITEM = {"moe": "13d", "ssm": "13e", "hybrid": "13e", "audio": "13f", "vlm": "13f"}
+
 
 def _check_ported(cfg: ArchConfig) -> None:
     if cfg.arch_type != "dense":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.arch_type!r} architecture {NOT_PORTED}")
+        item = _ARCH_ITEM.get(cfg.arch_type, "13")
+        raise NotImplementedError(f"{cfg.name}: the {cfg.arch_type!r} architecture {not_ported(item)}")
     if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE layers {NOT_PORTED}")
-    if cfg.layer_pattern != "full":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.layer_pattern!r} layer pattern {NOT_PORTED}")
+        raise NotImplementedError(f"{cfg.name}: MoE layers {not_ported('13d')}")
     if cfg.post_norm:
-        raise NotImplementedError(f"{cfg.name}: post-norms {NOT_PORTED}")
+        raise NotImplementedError(f"{cfg.name}: post-norms {not_ported('13f')}")
+    cfg.pattern()  # the recurrent patterns raise, naming 13e
+
+
+def _mixer_window(cfg: ArchConfig, desc: LayerDesc) -> Optional[int]:
+    return cfg.window if desc.mixer == "attn_local" else None
+
+
+def _use_rope(cfg: ArchConfig, desc: LayerDesc) -> bool:
+    # llama4 NoPE: the periodic global layers drop positional encoding
+    if cfg.layer_pattern == "chunked_global" and desc.mixer == "attn_full":
+        return False
+    return cfg.pos_emb == "rope"
 
 
 class Layer(nn.Module):
     """One decoder layer: ``norm1``, ``mixer`` (attention), ``norm2``,
-    ``ffn`` (MLP)."""
+    ``ffn`` (MLP); ``window`` and ``use_rope`` from its descriptor."""
 
-    def __init__(self, cfg: ArchConfig, gen: torch.Generator):
+    def __init__(self, cfg: ArchConfig, desc: LayerDesc, gen: torch.Generator):
         super().__init__()
         self.mixer = attn.Attention(cfg, gen)
         self.norm1 = RMSNorm(cfg, gen.device)
         self.ffn = MLP(cfg, gen)
         self.norm2 = RMSNorm(cfg, gen.device)
+        self.window = _mixer_window(cfg, desc)
+        self.use_rope = _use_rope(cfg, desc)
 
 
 class Transformer(nn.Module):
@@ -66,8 +90,10 @@ class Transformer(nn.Module):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
+        unit, _ = cfg.pattern()
         self.embed = Embed(cfg, generator)
-        self.layers = nn.ModuleList(Layer(cfg, generator) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Layer(cfg, unit[r % len(unit)], generator)
+                                    for r in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg, generator.device)
 
     def _embed(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -76,35 +102,49 @@ class Transformer(nn.Module):
             x = x + sinusoidal(positions, self.cfg.d_model)[None].to(x.dtype)
         return x
 
+    def _layer(self, layer: Layer, x: torch.Tensor, positions: torch.Tensor,
+               cache: Optional[attn.LayerCache], plain_attention: bool) -> torch.Tensor:
+        cfg = self.cfg
+        out, (k, v) = attn.attend_full(cfg, layer.mixer, layer.norm1(x), positions, window=layer.window,
+                                       use_rope=layer.use_rope, plain_attention=plain_attention)
+        x = x + out
+        x = x + apply_mlp(cfg, layer.ffn, layer.norm2(x))
+        if cache is not None:
+            _write_prefill(cache, k, v, layer.window)
+        return x
+
     def forward(
-        self, tokens: torch.Tensor, *, caches: Optional[List[attn.LayerCache]] = None
+        self, tokens: torch.Tensor, *, caches: Optional[List[attn.LayerCache]] = None,
+        plain_attention: bool = False,
     ) -> torch.Tensor:
         """tokens [B, S] -> final hidden [B, S, d].  With ``caches`` (one
-        per layer, at least S slots), each layer writes its K/V into slots
-        ``[:S]`` in place: prefill fills the decode state this way."""
-        cfg = self.cfg
+        per layer: a full layer's of at least S slots, a window layer's of
+        ``window``), each layer writes its K/V into them in place: prefill
+        fills the decode state this way.  ``plain_attention`` (set by
+        ``model.loss_fn``) runs the attention's plain route, as the JAX
+        training forward does."""
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)
         x = self._embed(tokens, positions)
+        remat = self.cfg.remat and caches is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            out, (k, v) = attn.attend_full(cfg, layer.mixer, layer.norm1(x), positions)
-            x = x + out
-            x = x + apply_mlp(cfg, layer.ffn, layer.norm2(x))
-            if caches is not None:
-                caches[i].k[:, :S] = k
-                caches[i].v[:, :S] = v
+            fn = functools.partial(self._layer, layer, positions=positions,
+                                   cache=None if caches is None else caches[i],
+                                   plain_attention=plain_attention)
+            x = checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False) if remat else fn(x)
         return self.final_norm(x)
 
     def decode_step(
         self, caches: List[attn.LayerCache], token: torch.Tensor, pos: int
     ) -> Tuple[torch.Tensor, List[attn.LayerCache]]:
         """token [B, 1] at position ``pos`` -> (logits [B, V] float32,
-        caches, each written in place at slot ``pos``)."""
+        caches, each written in place at its slot for ``pos``)."""
         cfg = self.cfg
         x = self._embed(token, torch.full((1,), pos, device=token.device))
         new_caches = []
         for layer, cache in zip(self.layers, caches):
-            out, cache = attn.attend_decode(cfg, layer.mixer, layer.norm1(x), cache, pos)
+            out, cache = attn.attend_decode(cfg, layer.mixer, layer.norm1(x), cache, pos,
+                                            window=layer.window, use_rope=layer.use_rope)
             x = x + out
             x = x + apply_mlp(cfg, layer.ffn, layer.norm2(x))
             new_caches.append(cache)
@@ -112,6 +152,24 @@ class Transformer(nn.Module):
         return unembed(cfg, self.embed, x)[:, 0, :], new_caches
 
 
+def _write_prefill(cache: attn.LayerCache, k: torch.Tensor, v: torch.Tensor,
+                   window: Optional[int]) -> None:
+    """A full layer's K/V go to slots ``[:S]``.  A window layer keeps its
+    last ``w`` rows (ring alignment: slot = pos % w, which needs S % w ==
+    0) or, from a shorter prompt, all S rows and zeros after them."""
+    S = k.shape[1]
+    if window and S > window:
+        if S % window:
+            raise ValueError(f"window must divide prefill length (window {window}, prompt {S})")
+        k, v = k[:, -window:], v[:, -window:]
+        S = window
+    cache.k[:, :S] = k
+    cache.v[:, :S] = v
+
+
 def init_caches(cfg: ArchConfig, batch: int, cache_len: int, device) -> List[attn.LayerCache]:
-    """Zero decode state: one ``[B, cache_len, Kv, D]`` cache per layer."""
-    return [attn.init_cache(cfg, batch, cache_len, pdtype(cfg), device) for _ in range(cfg.n_layers)]
+    """Zero decode state, one cache per layer: ``[B, cache_len, Kv, D]``,
+    or a ring of ``min(window, cache_len)`` slots for a window layer."""
+    unit, _ = cfg.pattern()
+    return [attn.init_cache(cfg, batch, cache_len, _mixer_window(cfg, unit[r % len(unit)]),
+                            pdtype(cfg), device) for r in range(cfg.n_layers)]

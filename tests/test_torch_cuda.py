@@ -886,3 +886,87 @@ def test_elastic_kill_on_the_card(dev, tmp_path):
     assert run["evicted"] == [2] and run["dropouts"].get("dead") == 1
     assert len(run["history"]) == 4 and all(n <= 2 for n in run["responders"][2:])
     assert run["device"].startswith("cuda")
+
+
+# -- the LM training step and window layers (ROADMAP items 13b, 13c) --------------------
+
+
+def test_train_step_on_the_card_matches_the_cpu_and_launches_no_kernel(dev):
+    """Reduced gemma-2b with local/global layers, float32: 3 steps from
+    the same state on the card and the CPU (tests/test_torch_train.py's
+    tolerances); the training forward runs the plain attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStreamConfig, token_batches
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import AdamWConfig
+
+    cfg = dataclasses.replace(get_arch("gemma-2b"), layer_pattern="local_global", window=4096).reduced()
+    opt = AdamWConfig(warmup_steps=2, total_steps=10)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        state = M.init_train_state(cfg, torch.Generator().manual_seed(0), device=d)
+        stream = token_batches(TokenStreamConfig(cfg.vocab_size, 128, 2, seed=1), device=d)
+        before = ops.launch_counts()
+        losses = []
+        for _ in range(3):
+            state, m = M.train_step(cfg, state, next(stream), opt)
+            losses.append(float(m["loss"]))
+        assert ops.launch_counts() == before
+        out[d.type] = (losses, {k: p.detach().cpu() for k, p in M.param_tree(state.params).items()})
+    (lg, pg), (lc, pc) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(torch.tensor(lg), torch.tensor(lc), rtol=1e-5, atol=0)
+    for k in pc:
+        torch.testing.assert_close(pg[k], pc[k], rtol=0, atol=1e-4)
+
+
+def test_windowed_prefill_launches_flash_per_layer_and_decode_wraps(dev):
+    """Reduced gemma-2b with local/global layers (window 64): one
+    flash_attention launch a layer of a 128-token prefill, then 80 decode
+    steps past the ring, equal to the CPU's at CPU_TOL's 1e-3."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_arch("gemma-2b"), layer_pattern="local_global", window=4096).reduced()
+    model = serve.build(cfg, 0, dev)
+    tok = torch.randint(0, cfg.vocab_size, (2, 208), generator=torch.Generator().manual_seed(0))
+
+    def run(m, t):
+        before = ops.launch_counts()["flash_attention"]
+        out, st = M.prefill(m, {"tokens": t[:, :128]}, cache_len=208)
+        launched = ops.launch_counts()["flash_attention"] - before
+        outs = [out]
+        for s in range(128, 208):
+            out, st = M.serve_step(m, st, t[:, s:s + 1])
+            outs.append(out)
+        return torch.stack(outs).cpu(), launched
+
+    on_card, launched = run(model, tok.to(dev))
+    assert launched == cfg.n_layers
+    model.to("cpu")
+    on_cpu, _ = run(model, tok)
+    torch.testing.assert_close(on_card, on_cpu, rtol=0, atol=1e-3)
+
+
+def test_bf16_train_state_checkpoint_on_the_card_is_bit_exact(dev, tmp_path):
+    import dataclasses
+
+    from repro_torch.checkpoint import _flatten, load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_arch("gemma-2b").reduced(), dtype="bfloat16")
+    state = M.init_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(1)).to(dev)
+    state, _ = M.train_step(cfg, state, {"tokens": tok})
+    save_checkpoint(state, tmp_path / "s")
+    back = load_checkpoint(M.init_train_state(cfg, torch.Generator().manual_seed(1), device=dev),
+                           tmp_path / "s")
+    for a, b in zip(_flatten(state)[0], _flatten(back)[0]):
+        assert a.dtype == b.dtype and a.device == b.device
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                           b.view(torch.int16) if b.dtype == torch.bfloat16 else b)

@@ -33,7 +33,8 @@ def _forbidden(module: str) -> bool:
 def test_port_imports_neither_jax_nor_the_jax_package_nor_ml_dtypes():
     assert len(PORT_FILES) > 10
     walked = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
-    for mod in ("fl/distributed.py", "fl/elastic_dist.py", "fl/sharded.py", "launch/fl_spawn.py"):
+    for mod in ("fl/distributed.py", "fl/elastic_dist.py", "fl/sharded.py", "launch/fl_spawn.py",
+                "checkpoint.py", "optim/optimizers.py", "data/pipeline.py", "launch/train.py"):
         assert f"src/repro_torch/{mod}" in walked, mod
     bad = [
         f"{p.relative_to(REPO)}:{line}: import {mod}"
@@ -331,6 +332,54 @@ def test_llm_serve_cpu_runs_the_reduced_config_end_to_end(capsys):
     assert out["tokens"].shape == (2, 6) and out["tokens"].device.type == "cpu"
     assert int(out["tokens"].min()) >= 0 and int(out["tokens"].max()) < 2048  # reduced padded vocab
     assert "arch=gemma-2b prefill 2x24 in" in capsys.readouterr().out
+
+
+def _train_entry(name):
+    """(call with the default device, the same call asking for the CPU)."""
+    import jax
+    import numpy as np
+
+    from repro.configs import get_arch as jax_get_arch
+    from repro.models import model as JM
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+
+    cfg = get_arch("gemma-2b").reduced()
+    stream = pipeline.TokenStreamConfig(512, 8, 2)
+    if name == "launch.train":
+        argv = ["--preset", "lm10m", "--steps", "2", "--seq", "16", "--log-every", "1"]
+        return (lambda: train.main(argv)), (lambda: train.main(argv + ["--device", "cpu"]))
+    if name == "token_batches":
+        return (lambda: next(pipeline.token_batches(stream))["tokens"]), \
+            (lambda: next(pipeline.token_batches(stream, device="cpu"))["tokens"])
+    if name == "federated_token_batches":
+        return (lambda: pipeline.federated_token_batches(stream, 2)), \
+            (lambda: next(pipeline.federated_token_batches(stream, 2, device="cpu")[1])["tokens"])
+    if name == "init_train_state":
+        return (lambda: M.init_train_state(cfg, torch.Generator().manual_seed(0))), \
+            (lambda: M.init_train_state(cfg, torch.Generator().manual_seed(0), device="cpu"))
+    tree = jax.tree.map(np.asarray, JM.init_train_state(jax_get_arch("gemma-2b").reduced(),
+                                                        jax.random.PRNGKey(0)))
+    return (lambda: convert.train_state_from_numpy(cfg, tree.params, tree.opt)), \
+        (lambda: convert.train_state_from_numpy(cfg, tree.params, tree.opt, device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["launch.train", "token_batches", "federated_token_batches",
+                                  "init_train_state", "train_state_from_numpy"])
+def test_lm_training_entry_points_default_to_cuda_and_raise_without_a_card(name):
+    """The training driver, the token streams and the train state land on
+    the card unless the caller asks for the CPU."""
+    _no_card()
+    default, on_cpu = _train_entry(name)
+    with pytest.raises(RuntimeError, match=r"'cuda' requested.*pass device='cpu'"):
+        default()
+    out = on_cpu()
+    tensors = [out] if isinstance(out, torch.Tensor) else \
+        list(out.params.parameters()) + [out.opt.step] if hasattr(out, "opt") else []
+    assert all(t.device.type == "cpu" for t in tensors)
 
 
 @pytest.mark.parametrize("name", ["grok-1-314b", "llama4-scout-17b-a16e", "xlstm-1.3b"])
