@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-  python3 chip_smoke.py            # on a machine with one NVIDIA H100
-  python3 chip_smoke.py --lm-only  # phases 1-2, phase 3's flash_attention cases and phase 14
+  python3 chip_smoke.py   # on a machine with one NVIDIA H100
 
 Phases, each of which raises (non-zero exit) on failure:
 
@@ -2426,6 +2425,7 @@ def train_full_width(torch, ops, ref, card: str) -> dict:
            f"bits differ: loss {float(first['loss'])!r} vs {float(m['loss'])!r}, grad norm "
            f"{float(first['grad_norm'])!r} vs {float(m['grad_norm'])!r}; {len(differ)} parameters "
            f"{differ[:6]}, {len(differ_mu)} moments {differ_mu[:6]}"))
+    check(same, "gemma-2b train step: one step from one seeded state gave different bits twice")
     del first
     torch.cuda.empty_cache()
 
@@ -2776,16 +2776,6 @@ def main() -> int:
           f"tree_hist's shared atomics are not single integer adds: {sorted(atoms)}")
 
     phase_done(2)
-
-    if "--lm-only" in sys.argv[1:]:  # a short call after a change to the LM side
-        flash, worst = check_flash_attention(torch, ops, ref, torch.Generator().manual_seed(0))
-        phase_done(3)
-        lm = lm_phase(torch, ops, ref, card)
-        phase_done(14)
-        log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
-        log("lm_only " + json.dumps({"card": card, "flash_worst_abs_err": worst, "lm": lm, "flash": {
-            k: flash[k] for k in ("gemma_window_8192", "gemma_8192", "gemma_2048")}}))
-        return 0
 
     # 3. kernels against their plain versions
     g = torch.Generator().manual_seed(0)

@@ -195,18 +195,15 @@ def init_serve_state(cfg: ArchConfig, batch: int, cache_len: int, device) -> Ser
     return ServeState(init_caches(cfg, batch, cache_len, device), 0)
 
 
-def _grow_ok(layer) -> bool:
-    return layer.window is None  # ring buffers stay fixed
-
-
 def _prefill_caches(model: Transformer, batch: int, cache_len: int, device) -> List[LayerCache]:
     """The state prefill fills: full layers at ``cache_len`` slots (zero
     past the prompt; the decode mask ``j <= pos`` ignores them), window
-    layers at ``window`` slots whatever the prompt, as the JAX package's
-    prefill pads or trims them and ``_pad_caches`` grows only full
-    layers."""
+    layers at ``window`` slots whatever the prompt."""
     cfg = model.cfg
-    return [init_cache(cfg, batch, cache_len if _grow_ok(layer) else layer.window, None,
+    # A ring holds ``window`` slots here, not init_caches' min(window,
+    # cache_len): the JAX package's prefill pads a short prompt's window
+    # cache to the window, and its _pad_caches grows only full layers.
+    return [init_cache(cfg, batch, cache_len if layer.window is None else layer.window, None,
                        pdtype(cfg), device) for layer in model.layers]
 
 

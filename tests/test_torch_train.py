@@ -11,9 +11,12 @@ Pallas), the port's side the same functions in PyTorch.
 
 Tolerances: the schedule, the bias corrections and the token streams
 exactly; losses within 1e-5 relative (measured at most 1.2e-7), grad-norms
-within 1e-4 (measured at most 7.2e-7), parameters and moments within 1e-4
-absolute after 3 steps (measured at most 2.9e-5: AdamW's first steps move
-every weight by about the learning rate whatever the gradient's size).
+within 1e-4 (measured at most 7.2e-7), parameters within 1e-4 absolute
+after 3 steps (measured at most 2.9e-5: AdamW's first steps move every
+weight by about the learning rate whatever the gradient's size).  The
+moments are as small as the gradients (``nu`` peaks near 9e-5 here), so
+each leaf of ``mu`` and ``nu`` is held within 1e-4 of its own largest
+|value| (measured at most 8.4e-6 of it).
 """
 import dataclasses
 from types import SimpleNamespace
@@ -43,7 +46,7 @@ PATTERNS = {
     "local_global": {"layer_pattern": "local_global", "window": 4096},
     "chunked_global": {"layer_pattern": "chunked_global", "window": 4096, "pattern_period": 3},
 }
-LOSS_RTOL, GNORM_ATOL, PARAM_ATOL = 1e-5, 1e-4, 1e-4
+LOSS_RTOL, GNORM_ATOL, PARAM_ATOL, MOMENT_SCALED_TOL = 1e-5, 1e-4, 1e-4, 1e-4
 SEQ = 128  # twice the reduced window: the window layers take _chunked_local_attention
 
 
@@ -63,7 +66,8 @@ def _tokens(seed, shape, vocab=512):
 
 def _assert_state_close(state, state_j, cfg, atol=PARAM_ATOL):
     """Every parameter and moment of the port's ``state`` against the JAX
-    state's, carried across by the converter; the step exactly."""
+    state's, carried across by the converter (a moment leaf within
+    ``MOMENT_SCALED_TOL`` of its largest |value|); the step exactly."""
     tree = _numpy(state_j)
     want = train_state_from_numpy(cfg, tree.params, tree.opt, device="cpu")
     got_p, want_p = M.param_tree(state.params), M.param_tree(want.params)
@@ -71,8 +75,10 @@ def _assert_state_close(state, state_j, cfg, atol=PARAM_ATOL):
     for k in got_p:
         np.testing.assert_allclose(got_p[k].numpy(), want_p[k].numpy(), atol=atol, rtol=0, err_msg=k)
         for got_m, want_m in ((state.opt.mu, want.opt.mu), (state.opt.nu, want.opt.nu)):
-            np.testing.assert_allclose(got_m[k].numpy(), want_m[k].numpy(), atol=atol, rtol=0,
-                                       err_msg=k)
+            scale = float(want_m[k].abs().max())
+            assert scale > 0, k
+            np.testing.assert_allclose(got_m[k].numpy(), want_m[k].numpy(),
+                                       atol=MOMENT_SCALED_TOL * scale, rtol=0, err_msg=k)
     assert state.opt.step.dtype == torch.int32 and int(state.opt.step) == int(tree.opt.step)
 
 
