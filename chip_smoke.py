@@ -184,7 +184,49 @@ Phases, each of which raises (non-zero exit) on failure:
    ``flash_attention`` at that prefill's two shapes (``q [1, 8, 8192,
    256]``, ``k``/``v [1, 1, 8192, 256]``, causal, with and without the
    4096 window), timed against the plain version and SDPA (the window's
-   given as a boolean mask).
+   given as a boolean mask);
+15. run the SPMD round and the mesh engine on the card (adult, fl_run's
+   defaults, 10 rounds, seed 0): (a) ``fl_run --sharded`` on a (1, 1)
+   mesh in this process (every launch count set to 0 just before: 4
+   ``tree_hist``, 1 ``weighted_errors`` and 1 ``weight_update_product`` a
+   round, 1 ``vote_argmax`` for the sharded predict, no plain version on
+   the card); (b) 4 gloo ranks of a (4, 1) mesh, every rank on the one
+   card, under ``fl_run`` in children that print their launches (the same
+   counts each); each run's chosen sequence equal to the fused card run's
+   at the same C, its F1 on the truncated test split within 0.02 of the
+   fused run's there, ms/round; (c) ``EngineConfig(mesh=...)`` at (1, 1)
+   here and on 4 gloo ranks (children serving a saved artifact of the
+   fused C = 4 run) equal to the local engine bit for bit, one
+   ``vote_argmax`` a batch a rank.  A schedule over several cards is not
+   verified: the machine has one.  Phase 3 holds each rank's shapes
+   (vehicle's ``[1, n/4, 18]`` fits, ``[1, 4, n/4]`` errors, ``[n/4]``
+   product; ``vote_argmax`` over a rank's slice of a batch and of the
+   test split, equal to a member-by-member ``VoteTally``);
+16. serve and train the MoE architectures at their published widths,
+   cut in depth, bf16, random weights from seed 0: (a) grok-1-314b (4 of
+   64 layers) with an 8192-token prompt and llama4-scout-17b-a16e (one
+   period, 4 of 48 layers: 3 chunked-local, window 8192, and a NoPE global
+   layer) with a 16 384-token prompt, 32 greedy steps each, through
+   ``repro_torch.launch.serve --full --layers 4`` (every count set to 0
+   just before: one ``flash_attention`` launch a layer, nothing else, no
+   plain version on the card, tokens inside the vocabulary), then on a
+   model built the same way: two prefills with the same bits, warm
+   prefill ms and decode ms/step, peak memory, the (token, choice) pairs
+   the 1.25 capacity dropped, a profile split into the MoE stages
+   (route, dispatch, experts, combine), the attention and the rest, and
+   the last of 32 decode steps against a cache-free forward at a
+   drop-free capacity (``DECODE_TOL``); (c) llama4-scout's train step at
+   full width, one layer, batch 1 x 1024: step 1 twice from one seeded
+   state with the same bits, three more timed, peak memory, no
+   ``flash_attention`` launch; (d) ``reduced()`` grok-1 and llama4-scout
+   in float32 at capacity factor 1.25, 3 steps on the card and the CPU
+   within ``TRAIN_TOL``.  Phase 3 holds ``flash_attention`` at the
+   prefills' shapes (grok-1 ``q [1, 48, 8192, 128]``, ``k``/``v [1, 8,
+   8192, 128]``, causal, softcap 30; llama4-scout ``[1, 40, 16384, 128]``
+   over ``[1, 8, 16384, 128]``, causal, with and without the 8192
+   window): the plain version a KV head's group at a time, a CUDA-graph
+   replay with the eager bits, timed against the plain version and SDPA
+   (without the softcap; the window as a mask, K/V expanded).
 
 Each phase's seconds are printed at the end.  The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Without a card, or beside no copy of
@@ -284,9 +326,20 @@ FLASH_CASES = {
     # phase 14's windowed gemma-2b prefill: its local layers and its full ones
     "gemma_window_8192": (1, 8, 1, 8192, 8192, 256, True, 4096, None, True),
     "gemma_8192": (1, 8, 1, 8192, 8192, 256, True, None, None, True),
+    # phase 16's MoE prefills: grok-1's layers (softcap 30, 48 query heads
+    # over 8 KV heads), llama4-scout's chunked-local layers (window 8192, 40
+    # over 8) and its NoPE global layer
+    "grok_8192_softcap": (1, 48, 8, 8192, 8192, 128, True, None, 30.0, True),
+    "llama4_window_16384": (1, 40, 8, 16384, 16384, 128, True, 8192, None, True),
+    "llama4_16384": (1, 40, 8, 16384, 16384, 128, True, None, None, True),
 }
 # timed: both routes, bf16 at gemma-2b's shapes and float32 at "ragged"
-FLASH_TIMED = ("gemma_serve", "gemma_2048", "ragged", "gemma_window_8192", "gemma_8192")
+FLASH_TIMED = ("gemma_serve", "gemma_2048", "ragged", "gemma_window_8192", "gemma_8192",
+               "grok_8192_softcap", "llama4_window_16384", "llama4_16384")
+# the MoE prefills' shapes: the plain version runs a KV head's group at a time
+# (its float32 scores of one call would hold 13-43 GB), timed eagerly; the
+# kernel is also replayed from a CUDA graph and must give the eager bits
+FLASH_BIG = ("grok_8192_softcap", "llama4_window_16384", "llama4_16384")
 LLM = {"arch": "gemma-2b", "batch": 4, "prompt_len": 64, "tokens": 32, "layers": 18}
 # bf16 keeps 8 bits, and prefill(S + 1) and prefill(S) + one decode step
 # round at different places through 18 layers.  Measured at full width: at
@@ -312,6 +365,28 @@ CLI_STEPS, RESUME_STEPS = 300, 600
 # (d) gemma2's local/global layout on gemma-2b: the window Gemma 2 publishes
 # (arXiv:2408.00118), a prompt of two windows, decode steps past the ring
 WINDOWED = {"window": 4096, "prompt": 8192, "steps": 32}
+# phase 15: the SPMD round (fl_run --sharded) on adult at fl_run's defaults,
+# on a (1, 1) mesh in this process and on 4 gloo ranks of a (4, 1) mesh (4
+# processes on the one card); the mesh engine at serve_fl's batch
+SHARDED = {"rounds": 10, "ranks": 4, "batch": 256}
+# phase 16: grok-1 and llama4-scout at their published widths, cut in depth
+# to what one card's 80 GB holds (grok-1: 4 of 64 layers, about 21.3 G
+# parameters; llama4-scout: one pattern period, 4 of 48 layers, about 10.4 G),
+# weights in bf16 from seed 0; prompts long enough that llama4's 8192-token
+# window bites; decode past it
+MOE_SERVE = {
+    "grok": {"arch": "grok-1-314b", "layers": 4, "prompt": 8192, "tokens": 32},
+    "llama4": {"arch": "llama4-scout-17b-a16e", "layers": 4, "prompt": 16384, "tokens": 32},
+}
+# decode against a cache-free forward at a drop-free capacity (the served
+# capacity factor 1.25 may drop prompt tokens that one decoded token never
+# loses): grok at a 1024-token prompt (its drop-free expert buffers at 8192
+# tokens would not fit beside its weights), llama4 at the served prompt, past
+# its window ring
+MOE_DECODE_CHECK = {"grok": 1024, "llama4": 16384}
+# the MoE train step: llama4-scout at full width, one layer (a chunked-local
+# MoE layer), batch 1 x 1024 from token_batches
+MOE_TRAIN = {"arch": "llama4-scout-17b-a16e", "layers": 1, "batch": 1, "seq": 1024, "timed_steps": 3}
 
 
 class SmokeFailure(RuntimeError):
@@ -980,15 +1055,15 @@ def dist_shards(fl_run) -> dict:
     return shards
 
 
-def h1_hist(torch, ops, ref, g, n: int) -> tuple:
-    """``tree_hist`` at H = 1 over an adult shard of ``n`` rows, L = 1, 2,
-    4, 8, K = 2, under AdaBoost's skewed weights: atol 1e-4, the plain
-    version's split, each output on a NaN-filled block, the same bits
-    twice.  Returns (record, worst error, the plans)."""
+def h1_hist(torch, ops, ref, g, n: int, d: int = SHAPES["adult"][1], K: int = SHAPES["adult"][2]) -> tuple:
+    """``tree_hist`` at H = 1 over a shard of ``n`` rows and ``d`` features
+    (adult's by default), L = 1, 2, 4, 8, ``K`` classes, under AdaBoost's
+    skewed weights: atol 1e-4, the plain version's split, each output on a
+    NaN-filled block, the same bits twice.  Returns (record, worst error,
+    the plans)."""
     from repro_torch.kernels import tree_hist as tree_hist_mod
     from repro_torch.learners.tree import _split_scores
 
-    _, d, K = SHAPES["adult"]
     B1 = N_BINS + 1
     levels, worst, plans = {}, 0.0, []
     for L in (1, 2, 4, 8):
@@ -1074,6 +1149,48 @@ def update_record(torch, ops, ref, g, name: str, N: int) -> dict:
             **timings(torch, lambda: fn(w, mis, mask, alpha), lambda: plain(w, mis, mask, alpha))}
 
 
+def check_sharded_shapes(torch, ops, ref, g, fl_run) -> dict:
+    """The kernels at each rank's shapes in phase 15's SPMD round and mesh
+    engine, beyond phase 13's adult shards (a rank of the ``(4, 1)`` mesh
+    holds P = 4's, of the ``(1, 1)`` mesh P = 1's): vehicle at 4
+    collaborators (``tree_hist`` ``[1, n/4, 18]``, ``weighted_errors``
+    ``[1, 4, n/4]``, ``weight_update_product`` ``[n/4]``), and
+    ``vote_argmax`` over a rank's slice of a batch: the mesh engine's
+    ``[10, 256 / 4]`` and the sharded predict's ``[10, 16 281 // 4]`` (adult,
+    10 members, K = 2).  Returns {kernel: {shape name: record}}."""
+    _, Xs, _, _, Xte, _, spec = fl_run.build_inputs("vehicle", SHARDED["ranks"], 1, DEPTH, 0)
+    n, d, K = int(Xs.shape[1]), spec.n_features, spec.n_classes
+    hist, worst, plans = h1_hist(torch, ops, ref, g, n, d, K)
+    errors = shard_errors(torch, ops, ref, g, SHARDED["ranks"], n)
+    product = update_record(torch, ops, ref, g, "weight_update_product", n)
+    test_rows = int(fl_run.build_inputs("adult", 1, 1, DEPTH, 0)[4].shape[0])
+    votes = {}
+    for tag, rows in (("sharded_engine", SHARDED["batch"] // SHARDED["ranks"]),
+                      ("sharded_predict", test_rows // SHARDED["ranks"])):
+        T, Kv = SHARDED["rounds"], SHAPES["adult"][2]
+        preds = torch.randint(-1, Kv + 1, (T, rows), generator=g, dtype=torch.int32).to(DEV)
+        alpha = (torch.rand(T, generator=g) * 3.0).to(DEV)
+        got = poisoned(torch, (rows,), lambda: ops.vote_argmax(preds, alpha, n_classes=Kv))
+        want = tally_classes(torch, preds, alpha, Kv)
+        check(torch.equal(got, want), f"vote_argmax {tag} [{T}, {rows}]: {int((got != want).sum())} "
+              "rows differ from a member-by-member VoteTally")
+        clean = torch.randint(0, Kv, (T, rows), generator=g, dtype=torch.int32).to(DEV)
+        bms, by = bound_ms(4 * (T * rows + T + rows), 2 * T * rows)
+        votes[tag] = {"shape": f"preds [{T}, {rows}], K={Kv}", "max_abs_err": 0.0, "bound_ms": bms,
+                      "bound_by": by, **timings(torch, lambda: ops.vote_argmax(clean, alpha, n_classes=Kv),
+                                                lambda: ref.vote_argmax_ref(clean, alpha, Kv))}
+    log(f"phase 15 rank shapes against the plain versions: vehicle at {SHARDED['ranks']} collaborators: "
+        f"tree_hist [1, {n}, {d}] K={K} worst {worst:.3g} ({'; '.join(plans)}), mean {hist['ms']:.5f} ms "
+        f"(bound {hist['bound_ms']:.6f}, plain {hist['plain_ms']:.5f}); weighted_errors "
+        f"[1, {SHARDED['ranks']}, {n}] {errors['ms']:.5f} ms (bound {errors['bound_ms']:.6f}, plain "
+        f"{errors['plain_ms']:.5f}); weight_update_product [{n}] {product['ms']:.5f} ms (bound "
+        f"{product['bound_ms']:.6f}, plain {product['plain_ms']:.5f}); "
+        + "; ".join(f"vote_argmax {k} {v['shape']} = a member-by-member VoteTally, {v['ms']:.5f} ms "
+                    f"(bound {v['bound_ms']:.7f}, plain {v['plain_ms']:.5f})" for k, v in votes.items()))
+    return {"tree_hist": {"sharded_vehicle": hist}, "weighted_errors": {"sharded_vehicle": errors},
+            "weight_update_product": {"sharded_vehicle": product}, "vote_argmax": votes}
+
+
 def check_shard_shapes(torch, ops, ref, g, shards: dict) -> dict:
     """The kernels at one collaborator's shard, as phase 11's interpreted
     round (C = 8) and each process of phase 13's runs at P processes give
@@ -1122,14 +1239,61 @@ def visible_pairs(S: int, T: int, causal: bool, window) -> int:
     return total
 
 
+def grouped_attention_ref(torch, ref, q, k, v, **kw):
+    """The plain version over one KV head and its query heads at a time,
+    concatenated: the same arithmetic a head at a time, in a twelfth to a
+    fortieth of the memory (the MoE prefills' float32 scores would hold
+    13-43 GB in one call)."""
+    g = q.shape[1] // k.shape[1]
+    return torch.cat([ref.attention_ref(q[:, j * g:(j + 1) * g], k[:, j:j + 1], v[:, j:j + 1], **kw)
+                      for j in range(k.shape[1])], dim=1)
+
+
+def graph_bits(torch, fn) -> bool:
+    """Whether ``fn()`` replayed from a CUDA graph gives the bits of an
+    eager call (warmed up on a side stream first, as ``cuda_ms`` does)."""
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return torch.equal(out, eager)
+
+
+def big_timings(torch, kernel, plain, library) -> dict:
+    """``timings`` for the MoE prefills' shapes: the kernel and the library
+    call replayed from a CUDA graph (5 calls, 3 replays), the plain version,
+    which runs for tenths of a second a call, between CUDA events over 2
+    eager calls."""
+    return {
+        "ms": cuda_ms(torch, kernel, iters=5, reps=3),
+        "plain_ms": eager_ms(torch, plain, iters=2, warmup=1),
+        "library_ms": cuda_ms(torch, library, iters=5, reps=3),
+        "eager_ms": eager_ms(torch, kernel, iters=5, warmup=1),
+    }
+
+
 def check_flash_attention(torch, ops, ref, g):
     """Each case against the plain version on the card, at ``TOL`` (every
     case logged, then any that disagree named); at gemma-2b's shapes the kernel's, the plain
     version's and SDPA's device times (SDPA's causal mask aligns top-left,
     so it computes the same function only at S == T, as here) and the
     bound: 4·D flops per visible pair over the bf16 peak, against q, k, v
-    and o moved once."""
+    and o moved once.  At the MoE prefills' shapes (``FLASH_BIG``) the plain
+    version runs a KV head's group at a time, the kernel is replayed from a
+    CUDA graph with the eager bits, and SDPA is timed as the nearest library
+    call: without the softcap at grok-1's shape (SDPA has no score
+    modifier), and at llama4's window shape with K/V expanded to the 40
+    query heads beforehand (outside the timing) and the window as a boolean
+    mask, on its memory-efficient backend."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     results, worst, failed = {}, 0.0, []
     for name, (B, H, Hkv, S, T, D, causal, window, softcap, bf16) in FLASH_CASES.items():
@@ -1137,8 +1301,11 @@ def check_flash_attention(torch, ops, ref, g):
         q, k, v = (torch.randn(shape, generator=g).to(dt).to(DEV)
                    for shape in ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
         kw = {"causal": causal, "window": window, "softcap": softcap}
+        big = name in FLASH_BIG
+        plain = (lambda: grouped_attention_ref(torch, ref, q, k, v, **kw)) if big else \
+            (lambda: ref.attention_ref(q, k, v, **kw))
         got = ops.flash_attention(q, k, v, **kw).float()
-        want = ref.attention_ref(q, k, v, **kw).float()
+        want = plain().float()
         torch.cuda.synchronize()
         check(got.shape == want.shape and bool(torch.isfinite(got).all()),
               f"flash_attention {name}: shape {tuple(got.shape)} or non-finite output")
@@ -1147,11 +1314,16 @@ def check_flash_attention(torch, ops, ref, g):
         tol = TOL["flash_attention_bf16" if bf16 else "flash_attention"]
         err = max_err(got, want)
         use = float(((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())).max())
+        replay = graph_bits(torch, lambda: ops.flash_attention(q, k, v, **kw)) if big else None
         log(f"flash_attention {name}: max |kernel - plain| {err:.4g}, {use:.3f} of the limit {tol}, "
-            f"mean |plain| {float(want.abs().mean()):.4g}")
+            f"mean |plain| {float(want.abs().mean()):.4g}"
+            + ("" if replay is None else f"; CUDA graph replay = eager bits: {replay}"))
         if use > 1.0:
             failed.append(f"{name} ({err:.4g})")
+        if replay is False:
+            failed.append(f"{name} (a CUDA graph replay gave other bits)")
         worst = max(worst, err)
+        del got, want
         if name in FLASH_TIMED:
             mask = None
             if window:  # SDPA takes the window as a boolean mask (S == T here)
@@ -1160,20 +1332,37 @@ def check_flash_attention(torch, ops, ref, g):
                 mask = (j <= i) & (i - j < window)
             elt = q.element_size()
             nbytes = elt * (2 * q.numel() + k.numel() + v.numel())
-            flops = 4 * D * B * H * visible_pairs(S, T, causal, window)
-            bms, by = bound_ms(nbytes, flops, BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
+            pairs = visible_pairs(S, T, causal, window)
+            bms, by = bound_ms(nbytes, 4 * D * B * H * pairs, BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
+            kernel = lambda: ops.flash_attention(q, k, v, **kw)
+            if big and window:
+                ke, ve = (x.repeat_interleave(H // Hkv, dim=1) for x in (k, v))
+
+                def library():
+                    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                        return F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
+            elif window:
+                library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+            else:
+                library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
             results[name] = {
                 "shape": f"q [{B}, {H}, {S}, {D}], k/v [{B}, {Hkv}, {T}, {D}], "
                          f"{'bf16' if bf16 else 'f32'}, causal"
-                         + (f", window {window}" if window else ""), "max_abs_err": err,
-                "bound_ms": bms, "bound_by": by,
-                **timings(torch, lambda: ops.flash_attention(q, k, v, **kw),
-                          lambda: ref.attention_ref(q, k, v, **kw),
-                          (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                                  enable_gqa=True)) if window else
-                          (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                                  enable_gqa=True))),
+                         + (f", window {window}" if window else "")
+                         + (f", softcap {softcap}" if softcap else ""), "max_abs_err": err,
+                "bound_ms": bms, "bound_by": by, "visible_pairs": pairs,
+                **(big_timings(torch, kernel, plain, library) if big else timings(torch, kernel, plain, library)),
             }
+            if big:
+                results[name]["library_call"] = (
+                    "SDPA causal without the softcap" if softcap else
+                    "SDPA, K/V expanded to the query heads, window as a boolean mask, memory-efficient"
+                    if window else "SDPA causal, enable_gqa")
+                results[name]["graph_replay_same_bits"] = replay
+            if big and window:
+                del ke, ve
+        del q, k, v
+        torch.cuda.empty_cache()
     check(not failed, f"flash_attention disagrees with its plain version in: {', '.join(failed)}")
     log(f"flash_attention: {len(FLASH_CASES)} cases agree, worst max_abs_err {worst:.3g}; "
         + "; ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.5f}, plain {v['plain_ms']:.4f}, "
@@ -2698,6 +2887,494 @@ def lm_phase(torch, ops, ref, card: str) -> dict:
     return {"train": full, "cli": cli, "windowed": windowed}
 
 
+# -- phase 15: the SPMD round and the mesh engine ------------------------------------
+
+# a rank of the mesh engine over 4 gloo ranks: it serves adult's test split
+# from a saved artifact through EngineConfig(mesh=...) and through the local
+# engine, and prints whether the answers agree and the mesh engine's launches
+MESH_ENGINE_CHILD = """
+import json, sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from repro_torch.fl import distributed
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.serve import EngineConfig, ServeEngine, load_artifact
+coord, ranks, rank, artifact, rows, batch, out = sys.argv[2:9]
+ranks, rank, batch = int(ranks), int(rank), int(batch)
+distributed.initialize(coord, ranks, rank)
+mesh = make_mesh((ranks, 1), ("data", "model"))
+art = load_artifact(artifact, "cuda")
+X = np.load(rows)
+local = ServeEngine.from_artifact(art, batch_size=batch).predict(X)
+engine = ServeEngine.from_artifact(art, config=EngineConfig(batch_size=batch, mesh=mesh))
+ops.reset_launches()
+got = engine.predict(X)
+launches = ops.launch_counts()
+if rank == 0:
+    np.save(out, got)
+print("MESH " + json.dumps({"equal": bool(np.array_equal(got, local)), "launches": launches,
+                            "batches": engine.stats.batches}), flush=True)
+distributed.shutdown()
+"""
+
+
+def sharded_children(fl_spawn, P: int, argv_of, script: str, tag: str, marker: str) -> list:
+    """P children of ``script`` (each given ``argv_of(i)``) joined with a
+    deadline; every one must exit 0 and print one ``marker`` line, whose
+    JSON is returned in rank order."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs, logs = [], []
+    for i in range(P):
+        log_path = OUT / f"sharded_{tag}_r{i}.log"
+        with open(log_path, "w") as f:
+            procs.append(subprocess.Popen([sys.executable, "-c", script, str(ROOT / "src"), *argv_of(i)],
+                                          stdout=f, stderr=subprocess.STDOUT))
+        logs.append(str(log_path))
+    rcs = fl_spawn._join_all(procs, logs, timeout=DIST_TIMEOUT_S)
+    check(rcs == [0] * P, f"{tag}: ranks exited {rcs}: {[fl_spawn._tail(p, 600) for p in logs]}")
+    lines = []
+    for p in logs:
+        line = [ln for ln in Path(p).read_text().splitlines() if ln.startswith(marker + " ")]
+        check(len(line) == 1, f"{p}: no {marker} line")
+        lines.append(json.loads(line[0][len(marker) + 1:]))
+    return lines
+
+
+def fused_reference(torch, fl_run, C: int) -> tuple:
+    """The fused card run at C collaborators (adult, fl_run's defaults):
+    (its per-round metrics, its F1 on the test split truncated to a
+    multiple of C, as the sharded run scores it, the federation)."""
+    from repro_torch.core import boosting
+    from repro_torch.core.metrics import f1_macro
+
+    fed = fl_run.build_federation("adult", C, SHARDED["rounds"], DEPTH, 0, DEV)
+    fed.run(eval_every=SHARDED["rounds"])
+    *_, Xte, yte, spec = fl_run.build_inputs("adult", C, SHARDED["rounds"], DEPTH, 0)
+    n = Xte.shape[0] - Xte.shape[0] % C
+    pred = boosting.strong_predict(fed.learner, fed.spec, fed.state.ensemble, Xte[:n].to(DEV))
+    return fed.per_round(), float(f1_macro(yte[:n].to(DEV), pred, spec.n_classes)), fed
+
+
+def compare_to_fused(run: dict, fused_rounds: list, fused_f1: float, what: str) -> str:
+    """The sharded run's chosen sequence must be the fused card run's, its
+    F1 on the truncated split within 0.02; returns the log's words on alpha."""
+    chosen = [r["chosen"] for r in run["rounds"]]
+    check(chosen == [r["chosen"] for r in fused_rounds],
+          f"{what}: chosen {chosen} != the fused card run's {[r['chosen'] for r in fused_rounds]}")
+    check(abs(run["f1"] - fused_f1) <= 0.02, f"{what}: F1 {run['f1']} vs the fused run's {fused_f1}")
+    rel = max(abs(a["alpha"] - b["alpha"]) / abs(b["alpha"]) for a, b in zip(run["rounds"], fused_rounds))
+    return (f"chosen {chosen} = the fused card run's; alpha within {rel:.3g} (relative); F1 "
+            f"{run['f1']:.4f} vs {fused_f1:.4f} on the truncated split")
+
+
+def round_ms(run: dict) -> str:
+    """A sharded run's ms/round: the median of rounds 1 on (round 0 holds
+    the start-up), the mean of all and round 0's."""
+    each = [1e3 * t for t in run["each_round_seconds"]]
+    late = sorted(each[1:])
+    return (f"{late[len(late) // 2]:.3f} ms/round (median of rounds 1-{len(each) - 1}; mean of all "
+            f"{1e3 * run['round_seconds']:.3f}, round 0 {each[0]:.3f})")
+
+
+def sharded_phase(torch, ops, ref, fl_run, card: str) -> dict:
+    """Phase 15: (a) ``fl_run --sharded`` on a (1, 1) mesh in this process,
+    its launches set to 0 just before and read just after; (b) 4 gloo ranks
+    of a (4, 1) mesh under ``fl_run`` in children that print their
+    launches; each against the fused card run at the same C; (c) the mesh
+    engine, at (1, 1) here and on the 4 ranks, against the local engine.
+    Returns this phase's launches (the (1, 1) run's, and the 4 ranks'
+    summed)."""
+    import numpy as np
+
+    from repro_torch.core.boosting import ensemble_to
+    from repro_torch.launch import fl_spawn
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import EngineConfig, ServeEngine, save_artifact
+
+    R, P = SHARDED["rounds"], SHARDED["ranks"]
+    OUT.mkdir(parents=True, exist_ok=True)
+    base = ["--sharded", "--dataset", "adult", "--rounds", str(R), "--seed", "0", "--device", DEV]
+
+    # (a) the (1, 1) mesh
+    path = OUT / "sharded_1x1.json"
+    argv = [*base, "--collaborators", "1", "--num-processes", "1", "--history-out", str(path)]
+    log(f"$ python -m repro_torch.launch.fl_run {' '.join(argv)}")
+    calls = dict(ref.device_calls)
+    ops.reset_launches()
+    fl_run.main(argv)
+    launches = ops.launch_counts()
+    want = {"tree_hist": DEPTH * R, "weighted_errors": R, "weight_update": 0, "weight_update_product": R,
+            "vote_argmax": 1, "flash_attention": 0}
+    check(launches == want, f"sharded (1, 1) launches {launches} != {want}")
+    check(ref.device_calls == calls, f"sharded (1, 1): a plain version ran on CUDA tensors: {ref.device_calls}")
+    one = json.loads(path.read_text())
+    f_rounds, f_f1, _ = fused_reference(torch, fl_run, 1)
+    words = compare_to_fused(one, f_rounds, f_f1, "sharded (1, 1)")
+    log(f"phase 15 (a) fl_run --sharded on a (1, 1) mesh on {card}: {round_ms(one)}, sharded predict "
+        f"{1e3 * one['predict_seconds']:.3f} ms; {words}; "
+        f"launches {launches} (4 tree_hist, 1 weighted_errors, 1 weight_update_product a round, 1 "
+        f"vote_argmax a predict)")
+
+    # (b) 4 gloo ranks of a (4, 1) mesh, every rank on the one card
+    path = OUT / "sharded_4x1.json"
+    path.unlink(missing_ok=True)
+    coord = f"127.0.0.1:{fl_spawn.free_port()}"
+    argv = [*base, "--collaborators", str(P), "--num-processes", str(P), "--coordinator", coord,
+            "--history-out", str(path)]
+    log(f"$ python -m repro_torch.launch.fl_spawn -n {P} -- {' '.join(argv)}   (ranks printing their launches)")
+    t0 = time.perf_counter()
+    per_rank = sharded_children(fl_spawn, P, lambda i: [*argv, "--process-id", str(i)], COUNTING_CHILD,
+                                "round", "LAUNCHES")
+    group_s = time.perf_counter() - t0
+    for i, got in enumerate(per_rank):
+        check(got == want, f"sharded (4, 1): rank {i} launches {got} != {want}")
+    four = json.loads(path.read_text())
+    check(four["mesh"] == {"data": P, "model": 1} and four["ranks"] == P, f"sharded (4, 1): {four['mesh']}")
+    f_rounds, f_f1, fed = fused_reference(torch, fl_run, P)
+    words = compare_to_fused(four, f_rounds, f_f1, f"sharded ({P}, 1)")
+    log(f"phase 15 (b) fl_run --sharded on {P} gloo ranks of a ({P}, 1) mesh on {card} (one card; a "
+        f"schedule over several cards is not verified here): {round_ms(four)}, sharded predict "
+        f"{1e3 * four['predict_seconds']:.3f} ms, group {group_s:.1f} s; {words}; "
+        f"each rank's launches {per_rank}")
+
+    # (c) the mesh engine against the local engine, on the fused C = 4 run's ensemble
+    *_, Xte, _, _ = fl_run.build_inputs("adult", P, R, DEPTH, 0)
+    X = Xte.numpy()
+    ens = fed.state.ensemble
+    local = ServeEngine(fed.learner, fed.spec, ens, batch_size=SHARDED["batch"]).predict(X)
+    eng = ServeEngine(fed.learner, fed.spec, ens,
+                      config=EngineConfig(batch_size=SHARDED["batch"], mesh=make_host_mesh()))
+    ops.reset_launches()
+    got = eng.predict(X)
+    host_launches = ops.launch_counts()
+    check(np.array_equal(got, local), f"mesh engine (1, 1): {int((got != local).sum())} answers differ")
+    check(host_launches["vote_argmax"] == eng.stats.batches, f"mesh engine (1, 1): launches {host_launches}")
+    artifact = save_artifact(OUT / "sharded_engine.mafl", fed.spec, ensemble_to(ens, "cpu"))
+    rows = OUT / "sharded_engine_rows.npy"
+    np.save(rows, X)
+    answers = OUT / "sharded_engine_answers.npy"
+    coord = f"127.0.0.1:{fl_spawn.free_port()}"
+    engine_ranks = sharded_children(
+        fl_spawn, P, lambda i: [coord, str(P), str(i), str(artifact), str(rows), str(SHARDED["batch"]),
+                                str(answers)], MESH_ENGINE_CHILD, "engine", "MESH")
+    check(all(r["equal"] for r in engine_ranks), f"mesh engine ({P}, 1): a rank's answers differ: {engine_ranks}")
+    check(np.array_equal(np.load(answers), local), f"mesh engine ({P}, 1): answers differ from this process's")
+    batches = engine_ranks[0]["batches"]
+    check(all(r["launches"]["vote_argmax"] == batches for r in engine_ranks),
+          f"mesh engine ({P}, 1): vote_argmax launches {[r['launches'] for r in engine_ranks]}, {batches} batches")
+    log(f"phase 15 (c) mesh engine (batch {SHARDED['batch']}, adult's {len(X)} test rows, the fused C = {P} "
+        f"card run's {ens.count} members): (1, 1) = the local engine bit for bit, {eng.stats.batches} "
+        f"vote_argmax launches; ({P}, 1) over gloo: every rank = the local engine bit for bit, "
+        f"{batches} batches, one vote_argmax launch a batch a rank (over its {SHARDED['batch'] // P} rows)")
+    total = {k: launches[k] + sum(r[k] for r in per_rank) for k in launches}
+    return {"host_mesh": launches, "ranks": total}
+
+
+# -- phase 16: MoE layers, grok-1 and llama4-scout at full width ------------------------
+
+
+class DropCounter:
+    """While open, every ``models.moe.apply_moe`` call records how many
+    (token, choice) pairs its capacity dropped (read from the router: the
+    expert counts past ``capacity``)."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+
+        self.torch, self.moe, self.calls = torch, moe, []
+
+    def __enter__(self):
+        torch, moe, apply = self.torch, self.moe, self.moe.apply_moe
+
+        def counting(cfg, p, x):
+            B, S, d = x.shape
+            _, ids, _ = moe.route(cfg, p, x.reshape(1, B * S, d))
+            counts = torch.bincount(ids.reshape(-1), minlength=cfg.n_experts)
+            self.calls.append(int(torch.clamp_min(counts - moe.capacity(cfg, B * S), 0).sum()))
+            return apply(cfg, p, x)
+
+        self._apply, moe.apply_moe = apply, counting
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.apply_moe = self._apply
+
+
+def moe_profile(torch, model, tokens, card: str, tag: str) -> dict:
+    """Device time of one prefill and of one decode step after it, by the
+    MoE layers' profiler ranges (route, dispatch, experts, combine), the
+    ``flash_attention`` kernel, and the rest; device busy share of the
+    wall.  Returns {what: {part: ms}}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    labels = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+    S = tokens.shape[1]
+    out = {}
+    for what in ("prefill", "decode"):
+        _, st = M.prefill(model, {"tokens": tokens}, cache_len=S + 2)
+        token = tokens[:, -1:]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if what == "prefill":
+                M.prefill(model, {"tokens": tokens}, cache_len=S + 2)
+            else:
+                M.serve_step(model, st, token)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        events = prof.key_averages()
+
+        def dev_ms(e):
+            return (getattr(e, "device_time_total", None) or e.cuda_time_total) / 1e3
+
+        # a range's device time is its kernels' (the host-side range's total);
+        # the device-side range of the same name spans the idle gaps too
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in labels]
+        busy = sum(dev_ms(e) for e in kernels)
+        parts = {lab: sum(dev_ms(e) for e in events if e.key == lab and e.device_type == DeviceType.CPU)
+                 for lab in labels}
+        parts["attention (flash_attention)"] = sum(dev_ms(e) for e in kernels if "flash_attention" in e.key)
+        parts["rest"] = busy - sum(parts.values())
+        out[what] = {"wall_ms": wall_ms, "busy_ms": busy, **parts}
+        if not busy:
+            log(f"phase 16 {tag} {what} profile: no device time recorded on {card}; not measured")
+            continue
+        log(f"phase 16 {tag} {what} profile ({card}, profiler on): wall {wall_ms:.3f} ms, device busy "
+            f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%): "
+            + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)" for k, v in parts.items()))
+    return out
+
+
+def moe_serving(torch, ops, ref, card: str, tag: str) -> dict:
+    """One architecture of ``MOE_SERVE`` through ``launch.serve --full
+    --layers`` (every count set to 0 just before: one ``flash_attention``
+    launch a layer of the prefill, nothing else, no plain version on the
+    card), then on a model built the same way: two prefills with the same
+    bits, warm prefill and decode times, peak memory, the drops of the
+    served capacity, a profile, and decode against a cache-free forward at
+    a drop-free capacity."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models.layers import unembed
+
+    run = MOE_SERVE[tag]
+    L, S, N = run["layers"], run["prompt"], run["tokens"]
+    full = get_arch(run["arch"])
+    cfg = full.with_layers(L)
+    argv = ["--arch", run["arch"], "--full", "--layers", str(L), "--batch", "1", "--prompt-len", str(S),
+            "--tokens", str(N), "--seed", "0"]
+    log(f"$ python -m repro_torch.launch.serve {' '.join(argv)}")
+    calls = dict(ref.device_calls)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = serve.main(argv)
+    launches = ops.launch_counts()
+    served_peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = L
+    check(launches == want, f"{tag} serve launches {launches} != {want}")
+    check(ref.device_calls == calls, f"{tag} serve: a plain version ran on CUDA tensors: {ref.device_calls}")
+    toks = out["tokens"]
+    check(out["logits_finite"] and toks.shape == (1, N + 1), f"{tag} serve: tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.padded_vocab())).all()), f"{tag} serve: a token out of range")
+    served_prefill_s = out["prefill_seconds"]
+    del out
+    torch.cuda.empty_cache()
+
+    model = serve.build(cfg, 0, torch.device(DEV))
+    n_params = sum(p.numel() for p in model.parameters())
+    tok = torch.randint(0, cfg.vocab_size, (1, S + N), generator=torch.Generator().manual_seed(1)).to(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    with DropCounter(torch) as drops:
+        first, _ = M.prefill(model, {"tokens": tok[:, :S]}, cache_len=S + N)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, st = M.prefill(model, {"tokens": tok[:, :S]}, cache_len=S + N)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    same = torch.equal(first, again)
+    check(same, f"{tag}: two prefills of the same prompt differ (max |diff| {max_err(first, again):.3g})")
+    token = torch.argmax(again, dim=-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N):
+        logits, st = M.serve_step(model, st, token)
+        token = torch.argmax(logits, dim=-1)[:, None]
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / N
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(logits).all()), f"{tag}: non-finite decode logits")
+    prof = moe_profile(torch, model, tok[:, :S], card, tag)
+    del first, again, st, logits
+    torch.cuda.empty_cache()
+
+    # decode against a cache-free forward, at a drop-free capacity
+    Sc = MOE_DECODE_CHECK[tag]
+    model.cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    with DropCounter(torch) as free:
+        _, st = M.prefill(model, {"tokens": tok[:, :Sc]}, cache_len=Sc + N)
+        for s in range(Sc, Sc + N):
+            stepped, st = M.serve_step(model, st, tok[:, s:s + 1])
+        with torch.no_grad():
+            whole = unembed(model.cfg, model.embed, model(tok[:, :Sc + N])[:, -1:])[:, 0]
+    check(sum(free.calls) == 0, f"{tag}: the drop-free check dropped {free.calls}")
+    d = (stepped - whole).abs()
+    check(bool(torch.isclose(stepped, whole, **DECODE_TOL).all()),
+          f"{tag}: decode past {Sc} vs a cache-free forward: max |diff| {float(d.max()):.4g} > {DECODE_TOL}")
+    model.cfg = cfg
+    log(f"phase 16 {tag}: {run['arch']} at full width, depth cut to {L} of {full.n_layers} layers "
+        f"({n_params / 1e9:.3f} G parameters, bf16), on {card}: prefill 1x{S} {prefill_ms:.3f} ms "
+        f"(warm), decode {decode_ms:.3f} ms/step ({N} greedy steps); first call through launch.serve: "
+        f"prefill {1e3 * served_prefill_s:.3f} ms; two prefills the same bits: {same}; peak memory "
+        f"{peak / 2**30:.2f} GiB (launch.serve's run {served_peak / 2**30:.2f} GiB); capacity "
+        f"{moe.capacity(cfg, S)} slots an expert at {S} tokens, dropped (token, choice) pairs a layer "
+        f"{drops.calls}; launches {launches}; decode of {N} tokens past a {Sc}-token prompt vs a "
+        f"cache-free forward (drop-free capacity): max |diff| {float(d.max()):.4g}, mean "
+        f"{float(d.mean()):.4g} (tol {DECODE_TOL})")
+    del model, st, stepped, whole
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "peak_bytes": peak, "served_peak_bytes": served_peak, "same_bits": same,
+            "dropped": drops.calls, "decode_vs_forward_max": float(d.max()), "profile": prof,
+            "params": n_params}
+
+
+def moe_train(torch, ops, ref, card: str) -> dict:
+    """(c) llama4-scout's MoE train step at full width, one layer (a
+    chunked-local MoE layer), bf16, batch x tokens from token_batches: one
+    step twice from one seeded state (the first's state copied to the host,
+    every bit compared), ``timed_steps`` more timed; no ``flash_attention``
+    launch (the training forward runs the plain attention: a forward and
+    its recompute a layer), the loss with its aux term finite, the
+    parameters moved, peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStreamConfig, token_batches
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import AdamWConfig
+
+    full = get_arch(MOE_TRAIN["arch"])
+    cfg = full.with_layers(MOE_TRAIN["layers"])
+    B, S = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    opt = AdamWConfig(**TRAIN_OPT)
+    stream = token_batches(TokenStreamConfig(cfg.vocab_size, S, B, seed=1), device=DEV)
+    batches = [next(stream) for _ in range(MOE_TRAIN["timed_steps"] + 1)]
+
+    def fresh():
+        return M.init_train_state(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = fresh()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    ops.reset_launches()
+    plain0 = ref.device_calls["flash_attention"]
+    state, m = M.train_step(cfg, state, batches[0], opt)
+    torch.cuda.synchronize()
+    plain = ref.device_calls["flash_attention"] - plain0
+    launched = ops.launch_counts()
+    check(not any(launched.values()), f"MoE train step launched kernels: {launched}")
+    check(plain == 2 * cfg.n_layers, f"MoE train step: {plain} plain attention calls, not {2 * cfg.n_layers}")
+    host = {"loss": m["loss"].cpu(), "grad_norm": m["grad_norm"].cpu(),
+            "params": {k: p.detach().cpu() for k, p in M.param_tree(state.params).items()},
+            "mu": {k: v.cpu() for k, v in state.opt.mu.items()},
+            "nu": {k: v.cpu() for k, v in state.opt.nu.items()}}
+    del state, m
+    torch.cuda.empty_cache()
+    state = fresh()
+    state, m = M.train_step(cfg, state, batches[0], opt)
+    torch.cuda.synchronize()
+    differ = [k for k, p in M.param_tree(state.params).items() if not torch.equal(p.cpu(), host["params"][k])]
+    differ_m = [k for k, v in state.opt.mu.items() if not torch.equal(v.cpu(), host["mu"][k])]
+    differ_m += [k for k, v in state.opt.nu.items() if not torch.equal(v.cpu(), host["nu"][k])]
+    same = (torch.equal(m["loss"].cpu(), host["loss"]) and torch.equal(m["grad_norm"].cpu(), host["grad_norm"])
+            and not differ and not differ_m)
+    check(same, f"MoE train step: one step from one seeded state gave other bits: loss "
+          f"{float(host['loss'])!r} vs {float(m['loss'])!r}; parameters {differ[:6]}, moments {differ_m[:6]}")
+    watched = ("embed.embedding", "layers.0.ffn.router", "layers.0.ffn.w_gate", "layers.0.mixer.wq")
+    params = M.param_tree(state.params)
+    losses, gnorms = [float(m["loss"])], [float(m["grad_norm"])]
+    step_s = []
+    for b in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = M.train_step(cfg, state, b, opt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses + gnorms)), f"MoE training: non-finite loss or grad norm {losses} {gnorms}")
+    moved = {k: float((params[k].cpu() != host["params"][k]).float().mean()) for k in watched}
+    check(all(v > 0 for v in moved.values()), f"MoE training: parameters did not move {moved}")
+    ms = 1e3 * sum(step_s) / len(step_s)
+    bound = 1e3 * 6 * n_params * B * S / BF16_OPS_PER_S
+    log(f"phase 16 (c) {MOE_TRAIN['arch']} training at full width, depth cut to {cfg.n_layers} of "
+        f"{full.n_layers} layers ({n_params / 1e9:.3f} G parameters, bf16, batch {B} x {S} tokens) on "
+        f"{card}: step 1 twice from one seeded state the same bits (loss, grad norm, every parameter and "
+        f"both moments): {same}; losses {', '.join(f'{v:.4f}' for v in losses)} (the aux term "
+        f"included); grad norms {', '.join(f'{v:.4f}' for v in gnorms)}; steps 2-{len(step_s) + 1} "
+        f"{ms:.1f} ms/step ({', '.join(f'{1e3 * t:.1f}' for t in step_s)}), {B * S / ms * 1e3:.0f} "
+        f"tokens/s; 6·N·tokens over the bf16 peak {bound:.2f} ms (all N counted, though a token runs one "
+        f"expert of {cfg.n_experts}); peak memory {peak / 2**30:.2f} GiB; share of weights moved {moved}; "
+        f"{plain} plain attention calls a step, 0 kernel launches")
+    del state, m, params, host
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "peak_bytes": peak, "same_bits": same, "losses": losses,
+            "flash_launches": launched["flash_attention"], "params": n_params}
+
+
+def moe_train_card_vs_cpu(torch, card: str) -> None:
+    """(d) reduced() grok-1 and llama4-scout in float32 at the published
+    capacity factor 1.25: 3 steps on the card and on the CPU from the same
+    state (losses, grad norms and every parameter within ``TRAIN_TOL``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import AdamWConfig
+
+    rows = []
+    for name in ("grok-1-314b", "llama4-scout-17b-a16e"):
+        cfg = dataclasses.replace(get_arch(name).reduced(), capacity_factor=1.25)
+        opt = AdamWConfig(warmup_steps=2, total_steps=10)
+        tok = torch.randint(0, cfg.vocab_size, (2, 129), generator=torch.Generator().manual_seed(3),
+                            dtype=torch.int32)
+        runs = {}
+        for dev in (DEV, "cpu"):
+            st = M.init_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
+            ms = []
+            for i in range(3):
+                st, m = M.train_step(cfg, st, {"tokens": tok.roll(i, 1).to(dev)}, opt)
+                ms.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[dev] = (ms, {k: p.detach().cpu() for k, p in M.param_tree(st.params).items()})
+        (mg, pg), (mc, pc) = runs[DEV], runs["cpu"]
+        loss_err = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(mg, mc))
+        gn_err = max(abs(a[1] - b[1]) for a, b in zip(mg, mc))
+        p_err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+        check(loss_err <= TRAIN_TOL["loss_rtol"] and gn_err <= TRAIN_TOL["gnorm_atol"]
+              and p_err <= TRAIN_TOL["param_atol"],
+              f"{name} float32 reduced: card vs CPU loss {loss_err:.3g}, grad norm {gn_err:.3g}, "
+              f"parameters {p_err:.3g} exceed {TRAIN_TOL}")
+        rows.append(f"{name}: loss {loss_err:.3g} (relative), grad norm {gn_err:.3g}, parameters {p_err:.3g}")
+    log(f"phase 16 (d) reduced() MoE models in float32 at capacity factor 1.25, 3 steps, card ({card}) vs "
+        f"CPU (tol {TRAIN_TOL}): " + "; ".join(rows))
+
+
+def moe_phase(torch, ops, ref, card: str) -> dict:
+    return {"grok": moe_serving(torch, ops, ref, card, "grok"),
+            "llama4": moe_serving(torch, ops, ref, card, "llama4"),
+            "train": moe_train(torch, ops, ref, card),
+            "cpu": moe_train_card_vs_cpu(torch, card)}
+
+
 def main() -> int:
     try:
         import torch
@@ -2791,6 +3468,8 @@ def main() -> int:
     for name, rows in check_dirichlet_shapes(torch, ops, ref, g, dirichlet_mask(fl_run)).items():
         per_kernel[name][0].update(rows)
     for name, rows in check_shard_shapes(torch, ops, ref, g, dist_shards(fl_run)).items():
+        per_kernel[name][0].update(rows)
+    for name, rows in check_sharded_shapes(torch, ops, ref, g, fl_run).items():
         per_kernel[name][0].update(rows)
     for name, (res, worst) in per_kernel.items():  # every shape checked counts in the worst error
         per_kernel[name] = (res, max([worst] + [r.get("max_abs_err", 0.0) for r in res.values()]))
@@ -2911,6 +3590,17 @@ def main() -> int:
     # checkpoints, and windowed serving (an 8192-token prefill, ring decode)
     lm = lm_phase(torch, ops, ref, card)
     phase_done(14)
+
+    # 15. the SPMD round (fl_run --sharded) on a (1, 1) mesh and on 4 gloo
+    # ranks, and the mesh engine
+    sharded_launches = sharded_phase(torch, ops, ref, fl_run, card)
+    phase_done(15)
+
+    # 16. MoE: grok-1 and llama4-scout at full width (depth cut), their
+    # prefills through flash_attention's softcap and window routes; the MoE
+    # train step
+    moe_runs = moe_phase(torch, ops, ref, card)
+    phase_done(16)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
 
@@ -2931,6 +3621,9 @@ def main() -> int:
             # and the 4 processes of the fault-free elastic star, 6 rounds
             "launches_distributed": dist_launches["lockstep"][name],
             "launches_elastic_dist": dist_launches["elastic"][name],
+            # phase 15 (a) the (1, 1) mesh's run; (b) its run plus the 4 ranks' (4, 1) run, summed
+            "launches_sharded_host_mesh": sharded_launches["host_mesh"][name],
+            "launches_sharded": sharded_launches["ranks"][name],
             "max_abs_err": worst, "max_err": worst,
             "ms": main_shape["ms"], "kernel_ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
@@ -2946,6 +3639,13 @@ def main() -> int:
                 case: {k: res[case][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms", "eager_ms")}
                 for case in ("gemma_window_8192", "gemma_8192")}
+            # phase 16: the MoE prefills' launches and shapes
+            kernels[-1]["launches_moe_prefill"] = {k: moe_runs[k]["launches"][name] for k in MOE_SERVE}
+            kernels[-1]["moe_prefill"] = {
+                case: {k: res[case][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms", "library_call", "eager_ms",
+                                                 "graph_replay_same_bits")}
+                for case in FLASH_BIG}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                "count": torch.cuda.device_count()}}))

@@ -1,19 +1,22 @@
 """Architecture configuration schema and registry.
 
 The port's own copy of ``repro/configs/base.py``, cut to the fields that
-the dense attention path reads: an ``ArchConfig`` holds a published
+the attention and MoE paths read: an ``ArchConfig`` holds a published
 architecture's exact dimensions (source cited in ``source``), and
 ``reduced()`` gives its smoke-test variant (``2·period`` layers, d_model
-128, windows of at most 64, float32) for CPU tests.  ``pattern()``
-expands the architecture into a repeating unit of per-layer descriptors
-(``LayerDesc``) for the ``full``, ``local_global`` (gemma2: a sliding-window
-layer, then a full one) and ``chunked_global`` (llama4's layout without
-its MoE: ``pattern_period - 1`` window layers, then a full layer without
-RoPE) patterns.  ``arch_type``, ``n_experts`` and ``post_norm`` are kept
-so that the model can refuse what it does not run yet
-(``models/transformer.py``); the MoE, SSM, front-end and distribution
-fields arrive with the architectures that read them.  Only gemma-2b is
-registered; the others raise in :func:`get_arch`.
+128, at most 4 experts at a drop-free capacity, windows of at most 64,
+float32) for CPU tests.  ``pattern()`` expands the architecture into a
+repeating unit of per-layer descriptors (``LayerDesc``) for the ``full``,
+``local_global`` (gemma2: a sliding-window layer, then a full one) and
+``chunked_global`` (llama4: ``pattern_period - 1`` window layers, then a
+full layer without RoPE) patterns, with an MoE FFN on every
+``moe_every``-th layer of an MoE architecture.  ``arch_type`` and
+``post_norm`` are kept so that the model can refuse what it does not run
+yet (``models/transformer.py``); the SSM, front-end and distribution
+fields arrive with the architectures that read them.  gemma-2b,
+grok-1-314b and llama4-scout-17b-a16e are registered; xlstm-1.3b raises
+in :func:`get_arch`.  :meth:`ArchConfig.with_layers` cuts an
+architecture's depth (the card's runs of grok-1 and llama4-scout).
 """
 from __future__ import annotations
 
@@ -23,21 +26,21 @@ from typing import Dict, Optional, Tuple
 
 def not_ported(item: str) -> str:
     """The refusal's tail, naming the ROADMAP item that ports the feature:
-    13d MoE, 13e the recurrent mixers, 13f gemma2's post-norms and the
-    audio and VLM front ends."""
+    13e the recurrent mixers, 13f gemma2's post-norms and the audio and
+    VLM front ends."""
     return f"is not ported yet (ROADMAP Queue 1 item {item})"
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerDesc:
     mixer: str  # attn_full | attn_local (mamba | mlstm | slstm: item 13e)
-    ffn: str  # swiglu | geglu | gelu (moe: item 13d)
+    ffn: str  # swiglu | geglu | gelu | moe
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str  # dense (run); ssm | moe | audio | vlm | hybrid raise
+    arch_type: str  # dense | moe (run); ssm | audio | vlm | hybrid raise
     n_layers: int
     d_model: int
     n_heads: int
@@ -46,7 +49,11 @@ class ArchConfig:
     vocab_size: int
     source: str
     head_dim: Optional[int] = None  # default d_model // n_heads
-    n_experts: int = 0  # MoE layers raise
+    # MoE
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_every: int = 1  # MoE FFN on every k-th layer
+    capacity_factor: float = 1.25
     layer_pattern: str = "full"  # full | local_global | chunked_global (mamba_attn | xlstm raise)
     window: Optional[int] = None  # sliding-window size of the local layers
     pattern_period: int = 1  # layers per repeating unit (chunked_global)
@@ -66,19 +73,31 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
 
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
     def padded_vocab(self, multiple: int = 2048) -> int:
         return -(-self.vocab_size // multiple) * multiple
 
     def pattern(self) -> Tuple[Tuple[LayerDesc, ...], int]:
         """(repeating unit of layer descriptors, n_repeats)."""
+
+        def ffn_for(idx_in_unit: int, base: str) -> str:
+            if self.is_moe and (idx_in_unit % self.moe_every == self.moe_every - 1):
+                return "moe"
+            return base
+
         if self.layer_pattern == "full":
-            return (LayerDesc("attn_full", self.mlp_type),), self.n_layers
+            period = self.moe_every if self.is_moe else 1
+            unit = tuple(LayerDesc("attn_full", ffn_for(i, self.mlp_type)) for i in range(period))
+            return unit, self._repeats(period)
         if self.layer_pattern == "local_global":
             unit = (LayerDesc("attn_local", self.mlp_type), LayerDesc("attn_full", self.mlp_type))
             return unit, self._repeats(2)
         if self.layer_pattern == "chunked_global":
             p = self.pattern_period
-            unit = tuple(LayerDesc("attn_local" if i < p - 1 else "attn_full", self.mlp_type)
+            unit = tuple(LayerDesc("attn_local" if i < p - 1 else "attn_full", ffn_for(i, self.mlp_type))
                          for i in range(p))
             return unit, self._repeats(p)
         if self.layer_pattern in ("mamba_attn", "xlstm"):
@@ -87,9 +106,19 @@ class ArchConfig:
         raise ValueError(f"unknown layer_pattern {self.layer_pattern!r}")
 
     def _repeats(self, period: int) -> int:
-        if self.n_layers % period:
+        """Units in the stack: a whole number of them, or a stack shorter
+        than one unit (a depth cut keeps the unit's first layers)."""
+        if self.n_layers > period and self.n_layers % period:
             raise ValueError(f"{self.name}: {self.n_layers} layers do not repeat a unit of {period}")
-        return self.n_layers // period
+        return -(-self.n_layers // period)
+
+    def with_layers(self, n_layers: int) -> "ArchConfig":
+        """The same architecture cut to its first ``n_layers`` layers (layer
+        ``r`` keeps unit position ``r % period``): the depth cut of the
+        card's full-width runs."""
+        if n_layers < 1:
+            raise ValueError(f"a depth cut keeps at least one layer, got {n_layers}")
+        return dataclasses.replace(self, n_layers=n_layers)
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: same family, tiny dims (the JAX package's
@@ -107,6 +136,10 @@ class ArchConfig:
             d_ff=0 if self.d_ff == 0 else 256,
             vocab_size=512,
             n_experts=min(self.n_experts, 4),
+            # Effectively drop-free (cap >= all tokens on one expert), as the
+            # JAX package's reduced() is: the untrained router is skewed at
+            # smoke scale.  The full configs keep the realistic 1.25.
+            capacity_factor=float(2 * max(self.n_experts, 1)),
             window=min(self.window, 64) if self.window else None,
             dtype="float32",
         )
@@ -114,7 +147,7 @@ class ArchConfig:
 
 # Architectures the JAX package has and the port does not yet run, with the
 # ROADMAP item that brings each
-UNPORTED = {"grok-1-314b": "13d", "llama4-scout-17b-a16e": "13d", "xlstm-1.3b": "13e"}
+UNPORTED = {"xlstm-1.3b": "13e"}
 
 _ARCH_REGISTRY: Dict[str, ArchConfig] = {}
 
@@ -138,5 +171,5 @@ def get_arch(name: str) -> ArchConfig:
 def _load_all() -> None:
     import importlib
 
-    for mod in ("gemma_2b",):
+    for mod in ("gemma_2b", "grok_1_314b", "llama4_scout_17b_a16e"):
         importlib.import_module(f"repro_torch.configs.{mod}")

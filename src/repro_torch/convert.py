@@ -151,7 +151,9 @@ def model_params_from_numpy(cfg: ArchConfig, tree: Mapping, device="cuda"):
     ``embed`` (``embedding``, and ``unembed`` unless tied), ``final_norm``,
     and ``unit``, whose ``L{i}`` leaves (one per layer of the repeating
     unit of ``p`` layers) are stacked ``[n_layers // p, ...]``: port layer
-    ``r`` takes ``unit["L{r % p}"]`` at slice ``r // p``."""
+    ``r`` takes ``unit["L{r % p}"]`` at slice ``r // p``.  An MoE layer's
+    ``ffn`` holds ``router [d, E]``, ``w_gate``/``w_up [E, d, ff]`` and
+    ``w_down [E, ff, d]``, carried across by the same names."""
     from repro_torch.models.transformer import Transformer
 
     model = Transformer(cfg, torch.Generator(device=resolve_device(device)).manual_seed(0))

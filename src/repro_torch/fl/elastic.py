@@ -1,7 +1,7 @@
 """Elastic federation rounds on PyTorch — partial participation, straggler
 deadlines, staleness-discounted late merges and membership churn for the
 MAFL boosting algorithms (answers to ``repro/fl/elastic.py``, the
-in-process runtime; the multi-process one is ROADMAP Queue 1 item 12).
+in-process runtime; the multi-process one is ``fl/elastic_dist.py``).
 
   * **Participation masks.**  Every step-3/4 reduction takes the round's
     :class:`~repro_torch.core.scoring.Participation`: AdaBoost.F's argmin

@@ -25,6 +25,11 @@
   PYTHONPATH=src python -m repro_torch.launch.fl_run --distributed \
       --coordinator 127.0.0.1:9781 --num-processes 4 --process-id 0 --collaborators 4
 
+  # one rank of the SPMD round over a (C, N / C) mesh (all N ranks:
+  # launch/fl_spawn.py -n N -- --sharded --collaborators C)
+  PYTHONPATH=src python -m repro_torch.launch.fl_run --sharded \
+      --coordinator 127.0.0.1:9781 --num-processes 8 --process-id 0 --collaborators 4
+
 Runs AdaBoost.F (``--algorithm``: also ``distboost_f``, ``preweak_f``,
 ``bagging`` and ``fedavg``) over oblivious ``decision_tree`` learners (``--learner``:
 any of the six registered families; ``--learners``: a comma-separated
@@ -49,7 +54,12 @@ reason, late merges).  ``--distributed`` makes this process collaborator
 over gloo collectives (``fl/distributed.py``; ``--no-packed-broadcast``
 gathers a hypothesis leaf by leaf), or, with ``--elastic``, over the
 fault-tolerant socket star (``fl/elastic_dist.py``); process 0 prints,
-evaluates and writes ``--history-out``.
+evaluates and writes ``--history-out``.  ``--sharded`` makes this
+process rank ``--process-id`` of the SPMD AdaBoost.F round
+(``fl/sharded.py``) over a ``(collaborators, num-processes /
+collaborators)`` mesh of ``("data", "model")``; rank 0 prints the JAX
+driver's ``sharded (C collaborators on N ranks): ...s  F1 ...`` line (F1 on
+the test split truncated to a multiple of C, scored batch-sharded).
 """
 from __future__ import annotations
 
@@ -219,6 +229,9 @@ def main(argv=None):
     ap.add_argument("--no-packed-broadcast", action="store_true",
                     help="gather the hypothesis bundle leaf by leaf instead of as one "
                          "packed wire buffer")
+    ap.add_argument("--sharded", action="store_true",
+                    help="SPMD AdaBoost.F round over a (collaborators, num-processes / "
+                         "collaborators) mesh: this process is rank --process-id")
     args = ap.parse_args(argv)
     if args.publish_every is not None and not args.publish_dir:
         ap.error("--publish-every requires --publish-dir")
@@ -230,18 +243,34 @@ def main(argv=None):
     if args.algorithm == "fedavg" and get_learner(args.learner).warm_fit is None:
         ap.error(f"learner {args.learner!r} has no warm_fit; FedAvg needs one")
     if args.distributed:
-        if args.faithful or learners:
-            ap.error("--distributed replaces --faithful and is homogeneous-only (no --learners)")
+        if args.faithful or args.sharded or learners:
+            ap.error("--distributed replaces --faithful/--sharded and is homogeneous-only "
+                     "(no --learners)")
         if args.algorithm == "fedavg":
             ap.error("--distributed covers the MAFL boosting algorithms, not fedavg")
         if args.collaborators != args.num_processes:
             ap.error(f"--distributed is process-per-collaborator: --collaborators "
                      f"{args.collaborators} != --num-processes {args.num_processes}")
+    if args.sharded:
+        if learners:
+            ap.error("--learners is fused-mode only: the SPMD round runs one program per rank "
+                     "and cannot mix model structures")
+        if args.faithful or args.elastic or args.algorithm != "adaboost_f":
+            ap.error("--sharded runs the AdaBoost.F round alone (no --faithful, --elastic or "
+                     "other --algorithm)")
+        if args.collaborators > args.num_processes:
+            ap.error(f"--sharded needs >= {args.collaborators} ranks (have "
+                     f"{args.num_processes}): one rank per collaborator at least")
+        if args.num_processes % args.collaborators:
+            ap.error(f"--sharded lays {args.num_processes} ranks out as a (collaborators, "
+                     f"model) mesh: {args.collaborators} does not divide them")
     device = resolve_device(args.device)
     if args.trace:
         trace.enable()
     if args.distributed:
         return _run_distributed(args, device)
+    if args.sharded:
+        return _run_sharded(args, device)
 
     fed = build_federation(args.dataset, args.collaborators, args.rounds, args.depth,
                            args.seed, device, algorithm=args.algorithm, learner=args.learner,
@@ -316,6 +345,71 @@ def _run_distributed(args, device):
         finish_obs(args)
     dist.shutdown()
     return history
+
+
+def _run_sharded(args, device):
+    """One rank of the SPMD round (``fl/sharded.py``) over a ``(C, N / C)``
+    mesh of ``("data", "model")``: every rank builds the same inputs and
+    the full state (the fit cache included), keeps its collaborator's
+    rows, and runs ``--rounds`` rounds; then the test split, truncated to a
+    multiple of C, is scored batch-sharded.  Rank 0 prints and writes
+    ``--history-out``."""
+    from repro_torch.core import boosting
+    from repro_torch.core.metrics import f1_macro
+    from repro_torch.fl import distributed as dist
+    from repro_torch.fl import sharded
+    from repro_torch.fl.elastic import round_table
+    from repro_torch.launch.mesh import make_mesh
+
+    _, Xs, ys, masks, Xte, yte, lspec = build_inputs(
+        args.dataset, args.collaborators, args.rounds, args.depth, args.seed,
+        learner=args.learner, split=args.split, dirichlet_alpha=args.dirichlet_alpha)
+    C, N = args.collaborators, args.num_processes
+    if N > 1:
+        dist.initialize(args.coordinator, N, args.process_id)
+    mesh = make_mesh((C, N // C), ("data", "model"))
+    learner = get_learner(lspec.name)
+    Xs, masks = Xs.to(device).contiguous(), masks.to(device).contiguous()
+    ys = ys.to(device).contiguous()
+    full = boosting.init_boost_state(learner, lspec, args.rounds, masks, X=Xs)
+    cache = None if full.fit_cache is None else sharded.shard_rows(mesh, full.fit_cache)
+    state = boosting.BoostState(full.ensemble, sharded.shard_rows(mesh, full.weights), cache)
+    X1, y1, m1 = (sharded.shard_rows(mesh, t) for t in (Xs, ys, masks))
+    del full, Xs
+    g = torch.Generator().manual_seed(args.seed)  # the fused run's draws, in its order
+    per_round = []
+    synchronize(device)
+    t0 = time.perf_counter()
+    marks = [t0]  # each round ends in its last all-reduce, read on the host
+    for r in range(args.rounds):
+        with trace.span("round", round=r, algorithm="adaboost_f", rank=mesh.rank):
+            state, metrics = sharded.sharded_adaboost_round(
+                learner, lspec, mesh, state, X1, y1, m1,
+                packed_broadcast=not args.no_packed_broadcast, generator=g)
+        per_round.append((r, metrics))
+        marks.append(time.perf_counter())
+    synchronize(device)
+    rounds_s = time.perf_counter() - t0
+    n = Xte.shape[0] - Xte.shape[0] % C
+    pred = sharded.sharded_strong_predict(learner, lspec, mesh, state.ensemble,
+                                          Xte[:n].to(device).contiguous())
+    synchronize(device)
+    dt = time.perf_counter() - t0
+    f1 = float(f1_macro(yte[:n].to(device), pred, lspec.n_classes))
+    if mesh.rank == 0:
+        print(f"sharded ({C} collaborators on {N} ranks): {dt:.1f}s  F1 {f1:.4f}")
+        if args.history_out:
+            with open(args.history_out, "w") as f:
+                json.dump({"mesh": mesh.shape, "ranks": N, "f1": f1, "test_rows": n,
+                           "packed_broadcast": not args.no_packed_broadcast,
+                           "round_seconds": rounds_s / max(args.rounds, 1),
+                           "each_round_seconds": [b - a for a, b in zip(marks, marks[1:])],
+                           "predict_seconds": dt - rounds_s,
+                           "rounds": round_table(per_round), "device": str(device)}, f, indent=2)
+        finish_obs(args)
+    if N > 1:
+        dist.shutdown()
+    return f1
 
 
 def build_policy_faults(args) -> tuple:

@@ -10,12 +10,18 @@ flags pointed at a shared coordinator address).
   # the same on the CPU
   PYTHONPATH=src python -m repro_torch.launch.fl_spawn -n 4 -- --device cpu \
       --dataset vehicle --rounds 5
+  # the SPMD round: 8 ranks as a (4, 2) mesh of 4 collaborators
+  PYTHONPATH=src python -m repro_torch.launch.fl_spawn -n 8 -- --sharded \
+      --collaborators 4 --device cpu --dataset vehicle --rounds 6
 
 Everything after ``--`` is passed through to ``fl_run`` on every
 process unchanged (``--device`` among it: the processes run on the card
 unless it says ``cpu``); the launcher injects ``--distributed``, the
 coordinator address (a free localhost port), per-process ids, and forces
-``--collaborators N`` (process-per-collaborator).  The children import
+``--collaborators N`` (process-per-collaborator).  With ``--sharded``
+among them it injects neither ``--distributed`` nor ``--collaborators``:
+the N processes are the ranks of a ``(collaborators, N / collaborators)``
+mesh.  The children import
 the ``repro_torch`` this launcher was imported from.  Process 0 — the
 coordinator: eval, history, checkpoints — streams to this terminal;
 the other processes log to temp files whose tails are printed on
@@ -140,14 +146,17 @@ def spawn(
     if SRC not in paths:
         env["PYTHONPATH"] = os.pathsep.join([SRC, *paths])
 
+    sharded = "--sharded" in run_args  # ranks of a mesh, not one process a collaborator
     procs, logs = [], []
     for i in range(num_processes):
         cmd = [
-            python, "-m", "repro_torch.launch.fl_run", "--distributed",
+            python, "-m", "repro_torch.launch.fl_run",
+            *([] if sharded else ["--distributed"]),
             "--coordinator", coord,
             "--num-processes", str(num_processes), "--process-id", str(i),
             *run_args,
-            "--collaborators", str(num_processes),  # last flag wins in argparse
+            # last flag wins in argparse
+            *([] if sharded else ["--collaborators", str(num_processes)]),
         ]
         if i == 0:
             procs.append(subprocess.Popen(

@@ -3,11 +3,16 @@ greedily against the KV caches, report tokens/s.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu        # reduced gemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --full              # gemma-2b on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --full --layers 4 \
+      --batch 1 --prompt-len 8192                                       # grok-1, 4 of 64 layers
 
 The port of ``repro/launch/serve.py``, with its flags and its printed line.
 ``--full`` serves the published configuration instead of ``reduced()``;
-the weights are random, drawn from ``--seed``, as the JAX launcher's are.
-Runs on the card unless ``--device cpu``; without a card it raises.
+``--layers N`` keeps its first N layers (a depth cut, named in the printed
+line); the weights are random, drawn from ``--seed``, as the JAX
+launcher's are.  ``--arch`` takes gemma-2b, grok-1-314b and
+llama4-scout-17b-a16e.  Runs on the card unless ``--device cpu``; without a
+card it raises.
 """
 from __future__ import annotations
 
@@ -67,6 +72,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--full", action="store_true",
                     help="serve the published configuration, not its reduced() variant")
+    ap.add_argument("--layers", type=int, default=None, metavar="N",
+                    help="keep the first N layers (a depth cut; the widths stay)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -75,6 +82,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = cfg.reduced()
+    depth = cfg.n_layers
+    if args.layers is not None:
+        cfg = cfg.with_layers(args.layers)
     model = build(cfg, args.seed, dev)
     B, S = args.batch, args.prompt_len
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
@@ -83,8 +93,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
     toks = args.tokens * B
     t_prefill, t_decode = out["prefill_seconds"], out["decode_seconds"]
+    cut = f" layers={cfg.n_layers}/{depth} (depth cut)" if args.layers is not None else ""
     print(
-        f"arch={cfg.name} prefill {B}x{S} in {t_prefill:.2f}s; "
+        f"arch={cfg.name}{cut} prefill {B}x{S} in {t_prefill:.2f}s; "
         f"decode {toks} tokens in {t_decode:.2f}s ({toks/t_decode:.1f} tok/s)"
     )
     tokens = out["tokens"]
@@ -92,7 +103,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         raise RuntimeError(f"generated {tuple(tokens.shape)}, not {(B, args.tokens + 1)}")
     if not bool(((tokens >= 0) & (tokens < cfg.padded_vocab())).all()):
         raise RuntimeError("a generated token lies outside the padded vocabulary")
-    return {**out, "arch": cfg.name, "tok_per_s": toks / t_decode}
+    return {**out, "arch": cfg.name, "layers": cfg.n_layers, "tok_per_s": toks / t_decode}
 
 
 if __name__ == "__main__":

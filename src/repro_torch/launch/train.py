@@ -7,11 +7,17 @@ and saves or resumes a checkpoint.
   PYTHONPATH=src python -m repro_torch.launch.train --preset lm10m --device cpu --steps 30
   PYTHONPATH=src python -m repro_torch.launch.train --preset lm100m --steps 300   # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --steps 50 --checkpoint /tmp/ck
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama4-scout-17b-a16e --full \
+      --layers 1 --batch 1 --seq 1024 --steps 3 --lr 3e-4   # one MoE layer at full width
 
 The JAX driver's flags and printed lines; ``--device`` (default ``cuda``;
-without a card it raises) and ``--seed`` (the CPU ``torch.Generator`` the
+without a card it raises), ``--seed`` (the CPU ``torch.Generator`` the
 initial weights are drawn from, so the card and the CPU start from the same
-weights) are the port's.  The token stream is the JAX driver's (seed 1).
+weights), ``--full`` (the published widths, not ``reduced()``) and
+``--layers N`` (keep the first N layers, named in the printed line) are the
+port's.  ``--arch`` takes gemma-2b, grok-1-314b and llama4-scout-17b-a16e
+(an MoE architecture's loss carries its load-balance term).  The token
+stream is the JAX driver's (seed 1).
 """
 from __future__ import annotations
 
@@ -49,6 +55,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", help="assigned architecture id (reduced variant is trained)")
     ap.add_argument("--preset", choices=sorted(PRESETS), help="in-repo trainable preset")
+    ap.add_argument("--full", action="store_true",
+                    help="train the published widths of --arch, not its reduced() variant")
+    ap.add_argument("--layers", type=int, default=None, metavar="N",
+                    help="keep the first N layers (a depth cut; the widths stay)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=128)
@@ -61,10 +71,17 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = PRESETS[args.preset] if args.preset else get_arch(args.arch).reduced()
+    if args.preset:
+        cfg = PRESETS[args.preset]
+    else:
+        cfg = get_arch(args.arch) if args.full else get_arch(args.arch).reduced()
+    depth = cfg.n_layers
+    if args.layers is not None:
+        cfg = cfg.with_layers(args.layers)
     state = M.init_train_state(cfg, torch.Generator().manual_seed(args.seed), device=dev)
     n_params = sum(p.numel() for p in state.params.parameters())
-    print(f"arch={cfg.name} params={n_params/1e6:.1f}M vocab={cfg.padded_vocab()}")
+    cut = f" layers={cfg.n_layers}/{depth} (depth cut)" if args.layers is not None else ""
+    print(f"arch={cfg.name}{cut} params={n_params/1e6:.1f}M vocab={cfg.padded_vocab()}")
 
     if args.resume and args.checkpoint and Path(args.checkpoint + ".npz").exists():
         state = load_checkpoint(state, args.checkpoint)

@@ -72,16 +72,17 @@ def _chunked_ce(cfg: ArchConfig, model: Transformer, hidden: torch.Tensor, targe
 
 def loss_fn(cfg: ArchConfig, model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"] [B, S+1]`` (and
-    its optional float ``loss_mask [B, S]``)."""
+    its optional float ``loss_mask [B, S]``), plus ``MOE_AUX_WEIGHT`` times
+    the MoE layers' load-balance loss."""
     if batch.get("prefix") is not None or batch.get("frames") is not None:
         raise NotImplementedError(f"{cfg.name}: VLM prefixes and audio frames {not_ported('13f')}")
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    hidden = model(inputs, plain_attention=True)
+    hidden, aux = model(inputs, plain_attention=True, return_aux=True)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
-    aux = 0.0  # the MoE load-balance loss: no MoE layer until item 13d
+    # aux: the MoE layers' load-balance loss (0 without MoE layers)
     return _chunked_ce(cfg, model, hidden, targets, mask) + MOE_AUX_WEIGHT * aux
 
 

@@ -1,7 +1,7 @@
 """The decoder stack as an ``nn.Module``: embedding, ``n_layers`` layers
-(RMSNorm, attention, RMSNorm, MLP, each with a residual), final RMSNorm.
-The port's counterpart of ``repro/models/transformer.py`` for attention
-mixers and MLP FFNs.
+(RMSNorm, attention, RMSNorm, MLP or MoE FFN, each with a residual), final
+RMSNorm.  The port's counterpart of ``repro/models/transformer.py`` for
+attention mixers with MLP or MoE FFNs.
 
 The JAX package scans one repeating unit of ``cfg.pattern()``'s layer
 descriptors over ``[R, ...]``-stacked weights; here layer ``r`` is built
@@ -16,10 +16,11 @@ against the caches).  Under autograd and ``cfg.remat`` each layer is
 recomputed in the backward (``torch.utils.checkpoint``), as the JAX
 package checkpoints its scanned unit.
 
-Architectures other than dense and MoE layers (items 13d, 13e), and
-gemma2's post-norms (13f) raise ``NotImplementedError``.  The JAX
-``forward`` also returns the MoE auxiliary loss; with no MoE layers here it
-is always 0 and is left out.
+An MoE layer (``models/moe.py``) adds its load-balance loss to the
+forward's ``aux``, float32 from 0 in layer order as the JAX package's scan
+carries it (``forward(return_aux=True)``); decode drops it.  The recurrent
+mixers (item 13e) and gemma2's post-norms and the audio and VLM front ends
+(13f) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerDesc, not_ported
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     MLP,
     Embed,
@@ -43,15 +45,15 @@ from repro_torch.models.layers import (
     unembed,
 )
 
-_ARCH_ITEM = {"moe": "13d", "ssm": "13e", "hybrid": "13e", "audio": "13f", "vlm": "13f"}
+_ARCH_ITEM = {"ssm": "13e", "hybrid": "13e", "audio": "13f", "vlm": "13f"}
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in ("dense", "moe"):
         item = _ARCH_ITEM.get(cfg.arch_type, "13")
         raise NotImplementedError(f"{cfg.name}: the {cfg.arch_type!r} architecture {not_ported(item)}")
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE layers {not_ported('13d')}")
+    if cfg.is_moe and not 1 <= cfg.experts_per_token <= cfg.n_experts:
+        raise ValueError(f"{cfg.name}: {cfg.experts_per_token} experts a token out of {cfg.n_experts}")
     if cfg.post_norm:
         raise NotImplementedError(f"{cfg.name}: post-norms {not_ported('13f')}")
     cfg.pattern()  # the recurrent patterns raise, naming 13e
@@ -70,16 +72,24 @@ def _use_rope(cfg: ArchConfig, desc: LayerDesc) -> bool:
 
 class Layer(nn.Module):
     """One decoder layer: ``norm1``, ``mixer`` (attention), ``norm2``,
-    ``ffn`` (MLP); ``window`` and ``use_rope`` from its descriptor."""
+    ``ffn`` (an MLP, or an MoE where the descriptor says ``moe``);
+    ``window`` and ``use_rope`` from its descriptor."""
 
     def __init__(self, cfg: ArchConfig, desc: LayerDesc, gen: torch.Generator):
         super().__init__()
         self.mixer = attn.Attention(cfg, gen)
         self.norm1 = RMSNorm(cfg, gen.device)
-        self.ffn = MLP(cfg, gen)
+        self.moe = desc.ffn == "moe"
+        self.ffn = moe_mod.MoE(cfg, gen) if self.moe else MLP(cfg, gen)
         self.norm2 = RMSNorm(cfg, gen.device)
         self.window = _mixer_window(cfg, desc)
         self.use_rope = _use_rope(cfg, desc)
+
+    def apply_ffn(self, cfg: ArchConfig, x: torch.Tensor):
+        """(the FFN sublayer's output, its aux loss: None for an MLP)."""
+        if self.moe:
+            return moe_mod.apply_moe(cfg, self.ffn, x)
+        return apply_mlp(cfg, self.ffn, x), None
 
 
 class Transformer(nn.Module):
@@ -103,36 +113,42 @@ class Transformer(nn.Module):
         return x
 
     def _layer(self, layer: Layer, x: torch.Tensor, positions: torch.Tensor,
-               cache: Optional[attn.LayerCache], plain_attention: bool) -> torch.Tensor:
+               cache: Optional[attn.LayerCache], plain_attention: bool):
         cfg = self.cfg
         out, (k, v) = attn.attend_full(cfg, layer.mixer, layer.norm1(x), positions, window=layer.window,
                                        use_rope=layer.use_rope, plain_attention=plain_attention)
         x = x + out
-        x = x + apply_mlp(cfg, layer.ffn, layer.norm2(x))
+        out, aux = layer.apply_ffn(cfg, layer.norm2(x))
+        x = x + out
         if cache is not None:
             _write_prefill(cache, k, v, layer.window)
-        return x
+        return x, aux
 
     def forward(
         self, tokens: torch.Tensor, *, caches: Optional[List[attn.LayerCache]] = None,
-        plain_attention: bool = False,
-    ) -> torch.Tensor:
-        """tokens [B, S] -> final hidden [B, S, d].  With ``caches`` (one
-        per layer: a full layer's of at least S slots, a window layer's of
-        ``window``), each layer writes its K/V into them in place: prefill
-        fills the decode state this way.  ``plain_attention`` (set by
-        ``model.loss_fn``) runs the attention's plain route, as the JAX
-        training forward does."""
+        plain_attention: bool = False, return_aux: bool = False,
+    ):
+        """tokens [B, S] -> final hidden [B, S, d] (with ``return_aux``:
+        (hidden, the MoE layers' summed aux loss, a float32 scalar)).  With
+        ``caches`` (one per layer: a full layer's of at least S slots, a
+        window layer's of ``window``), each layer writes its K/V into them in
+        place: prefill fills the decode state this way.  ``plain_attention``
+        (set by ``model.loss_fn``) runs the attention's plain route, as the
+        JAX training forward does."""
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)
         x = self._embed(tokens, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         remat = self.cfg.remat and caches is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             fn = functools.partial(self._layer, layer, positions=positions,
                                    cache=None if caches is None else caches[i],
                                    plain_attention=plain_attention)
-            x = checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False) if remat else fn(x)
-        return self.final_norm(x)
+            x, a = checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False) if remat else fn(x)
+            if a is not None:
+                aux = aux + a
+        x = self.final_norm(x)
+        return (x, aux) if return_aux else x
 
     def decode_step(
         self, caches: List[attn.LayerCache], token: torch.Tensor, pos: int
@@ -146,7 +162,7 @@ class Transformer(nn.Module):
             out, cache = attn.attend_decode(cfg, layer.mixer, layer.norm1(x), cache, pos,
                                             window=layer.window, use_rope=layer.use_rope)
             x = x + out
-            x = x + apply_mlp(cfg, layer.ffn, layer.norm2(x))
+            x = x + layer.apply_ffn(cfg, layer.norm2(x))[0]  # an MoE's aux is dropped
             new_caches.append(cache)
         x = self.final_norm(x)
         return unembed(cfg, self.embed, x)[:, 0, :], new_caches

@@ -8,7 +8,10 @@ federation's trained strong hypothesis taken to batched inference.
     rolling checkpoint stream (``publish_artifact`` / ``latest_artifact``)
     a still-training federation hands to serving;
   * ``engine``    — fixed-shape micro-batching with one ``vote_argmax``
-    kernel launch per batch;
+    kernel launch per batch; ``EngineConfig(mesh=...)`` swaps in the
+    batch-sharded predict of ``fl/sharded.make_batch_predict``, so one
+    engine spans a mesh of ranks (one ``vote_argmax`` launch per rank a
+    batch, over its slice);
   * ``scheduler`` — the async deadline dispatch loop: a partial batch
     runs on its own by its requests' deadlines, no ``flush()`` needed;
   * ``cache``     — shard-resident incremental vote cache;
@@ -16,7 +19,7 @@ federation's trained strong hypothesis taken to batched inference.
     checkpoint stream, hot-swapped or rebuilt on ``refresh()``.
 
 Driver: ``launch/serve_fl.py``.  Not ported yet: the compile cache
-(ROADMAP Queue 4) and the mesh engine (ROADMAP Queue 1 item 12).
+(ROADMAP Queue 4).
 """
 from repro_torch.serve.artifact import (
     LoadedArtifact,

@@ -35,12 +35,16 @@ leaf's shape/dtype): an ensemble of another learner or spec that merely
 matches ``alpha``'s capacity must not be served.
 
 ``EngineConfig`` groups the serving knobs (batch size, committee, the
-deadline scheduler's default ``t_max_s``) so a caller such as
-``serve/registry.py`` passes one object.  There is no kernel switch:
-``ops`` dispatches on the tensors' device.  Not ported: the process-wide
-compile cache (its counterpart here would be a CUDA graph per batch size,
-ROADMAP Queue 4) and the mesh backend (``EngineConfig(mesh=...)`` raises;
-ROADMAP Queue 1 item 12).
+deadline scheduler's default ``t_max_s``, the mesh) so a caller such as
+``serve/registry.py`` passes one object.  Given a mesh
+(``launch/mesh.py``), every static batch goes through
+``fl/sharded.make_batch_predict``: each rank of the mesh runs the engine
+on the same traffic, scores its slice of the batch over the federation
+axes and gathers the others' (admission requires the batch size to
+divide over the shards, and a homogeneous ensemble).  There is no kernel
+switch: ``ops`` dispatches on the tensors' device.  Not ported: the
+process-wide compile cache (its counterpart here would be a CUDA graph
+per batch size, ROADMAP Queue 4).
 """
 from __future__ import annotations
 
@@ -86,15 +90,17 @@ class EngineConfig:
 
     ``t_max_s`` is the deadline scheduler's default: the longest a queued
     partial batch may wait before it is dispatched padded
-    (``serve/scheduler.DeadlineScheduler``).  ``mesh`` (a batch-sharded
-    engine over several devices) is not ported: anything but None raises
-    (ROADMAP Queue 1 item 12).  There is no kernel flag: the card always
-    runs the kernel."""
+    (``serve/scheduler.DeadlineScheduler``).  ``mesh`` selects the predict
+    backend: None runs the local predict; a ``launch/mesh.Mesh`` shards
+    every static batch over the mesh's federation axes
+    (``fl/sharded.make_batch_predict``), every rank of the mesh serving
+    the same traffic.  There is no kernel flag: the card always runs the
+    kernel."""
 
     batch_size: int = 256
     committee: bool = False
     t_max_s: float = 0.005
-    mesh: Any = None
+    mesh: Any = None  # launch/mesh.Mesh | None
 
 
 @dataclasses.dataclass
@@ -141,11 +147,6 @@ class ServeEngine:
             # silently preferring one source over the other would serve
             # under knobs the caller never asked for
             raise ValueError("pass batch_size/committee inside the EngineConfig, not alongside it")
-        if config.mesh is not None:
-            raise NotImplementedError(
-                "EngineConfig(mesh=...): the batch-sharded engine over several devices is "
-                "not ported yet (ROADMAP Queue 1 item 12)"
-            )
         batch_size, committee = config.batch_size, config.committee
         if batch_size < 1:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
@@ -155,7 +156,27 @@ class ServeEngine:
             if learner is not None:
                 raise ValueError("heterogeneous engines resolve per-group learners from the "
                                  "HeterogeneousSpec; pass learner=None")
+            if config.mesh is not None:
+                raise ValueError("mesh-backed serving is homogeneous-only: the batch-sharded "
+                                 "predict runs one program per shard (fl/sharded.py)")
             hetero.resolve(spec)  # fail fast on unknown registry keys
+        self._mesh_predict = None
+        if config.mesh is not None:
+            from repro_torch.fl.sharded import fl_shards, make_batch_predict
+            from repro_torch.launch.mesh import Mesh
+
+            if not isinstance(config.mesh, Mesh):
+                raise TypeError(f"EngineConfig(mesh=...) takes a launch/mesh.Mesh, got "
+                                f"{type(config.mesh).__name__}")
+            # multi-shard admission: every dispatched batch is the full
+            # static [B, d] (pack pads), and B must split evenly over the
+            # mesh's federation axes
+            shards = fl_shards(config.mesh)
+            if batch_size % shards:
+                raise ValueError(f"batch_size {batch_size} does not divide over the "
+                                 f"{shards} federation shards of the mesh")
+            self._mesh_predict = make_batch_predict(learner, spec, config.mesh,
+                                                    committee=committee)
         self.learner = learner
         self.spec = spec
         self.committee = committee
@@ -210,6 +231,8 @@ class ServeEngine:
 
     def _predict(self, ensemble, used: torch.Tensor, active, Xb: torch.Tensor) -> torch.Tensor:
         """[B, d] rows -> [B] int32 classes, on the device."""
+        if self._mesh_predict is not None:
+            return self._mesh_predict(ensemble.params, ensemble.alpha, ensemble.count, Xb)
         if self.hetero:
             preds = hetero.hetero_member_predictions(self.spec, ensemble, Xb,
                                                      committee=self.committee, active=active)

@@ -970,3 +970,130 @@ def test_bf16_train_state_checkpoint_on_the_card_is_bit_exact(dev, tmp_path):
         assert a.dtype == b.dtype and a.device == b.device
         assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
                            b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+
+
+# -- the SPMD round and the mesh engine (ROADMAP item 12d) --------------------------------
+
+
+def test_sharded_round_on_a_host_mesh_launches_the_shard_kernels(dev, tmp_path):
+    """``fl_run --sharded`` on the card at (1, 1): 4 tree_hist, 1
+    weighted_errors and 1 weight_update_product a round, 1 vote_argmax for
+    the sharded predict; the fused card run's members."""
+    import json
+
+    from repro_torch.launch import fl_run
+
+    hist = tmp_path / "s.json"
+    before = ops.launch_counts()
+    fl_run.main(["--sharded", "--collaborators", "1", "--num-processes", "1", "--dataset", "vehicle",
+                 "--rounds", "3", "--history-out", str(hist)])
+    after = ops.launch_counts()
+    got = {k: after[k] - before[k] for k in after}
+    assert got == {"tree_hist": 12, "weighted_errors": 3, "weight_update": 0, "weight_update_product": 3,
+                   "vote_argmax": 1, "flash_attention": 0}
+    run = json.loads(hist.read_text())
+    fed = fl_run.build_federation("vehicle", 1, 3, 4, 0, "cuda")
+    fed.run(eval_every=3)
+    assert [r["chosen"] for r in run["rounds"]] == [r["chosen"] for r in fed.per_round()]
+    for a, b in zip(run["rounds"], fed.per_round()):
+        assert abs(a["alpha"] - b["alpha"]) <= 1e-4 * abs(b["alpha"])
+
+
+def test_four_sharded_ranks_on_the_card_choose_the_fused_members(dev, tmp_path):
+    """``fl_spawn -n 4 -- --sharded --collaborators 2``: a (2, 2) mesh of
+    gloo ranks sharing the card; the fused card run's chosen members."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.launch import fl_run
+
+    hist = tmp_path / "s.json"
+    src = str(Path(__file__).resolve().parent.parent / "src")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(p for p in [src, os.environ.get("PYTHONPATH", "")] if p))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.fl_spawn", "-n", "4", "--timeout", "150",
+                           "--", "--sharded", "--collaborators", "2", "--dataset", "vehicle", "--rounds", "4",
+                           "--history-out", str(hist)], env=env, capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    run = json.loads(hist.read_text())
+    assert run["device"].startswith("cuda") and run["mesh"] == {"data": 2, "model": 2}
+    fed = fl_run.build_federation("vehicle", 2, 4, 4, 0, "cuda")
+    fed.run(eval_every=4)
+    assert [r["chosen"] for r in run["rounds"]] == [r["chosen"] for r in fed.per_round()]
+
+
+def test_host_mesh_engine_on_the_card_equals_the_local_engine(dev):
+    from repro_torch.launch import fl_run
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    fed = fl_run.build_federation("vehicle", 4, 5, 4, 0, "cuda")
+    fed.run(eval_every=5)
+    X = fl_run.build_inputs("vehicle", 4, 5, 4, 0)[4].numpy()
+    want = ServeEngine(fed.learner, fed.spec, fed.state.ensemble, batch_size=64).predict(X)
+    eng = ServeEngine(fed.learner, fed.spec, fed.state.ensemble,
+                      config=EngineConfig(batch_size=64, mesh=make_host_mesh()))
+    before = ops.launch_counts()["vote_argmax"]
+    got = eng.predict(X)
+    assert (got == want).all() and ops.launch_counts()["vote_argmax"] - before == eng.stats.batches
+
+
+# -- MoE layers (ROADMAP item 13d) --------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-scout-17b-a16e"])
+def test_moe_layer_on_the_card_is_the_same_bits_twice_and_the_cpus(dev, arch):
+    """apply_moe in bf16 at reduced widths and capacity 1.25: two calls
+    give the same bits; in float32 the card agrees with the CPU (2e-5)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models.layers import pdtype
+
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_arch(arch).reduced(), capacity_factor=1.25, dtype=dtype)
+        m = moe.MoE(cfg, torch.Generator().manual_seed(0))
+        x = torch.randn(4, 64, cfg.d_model, generator=torch.Generator().manual_seed(1)) + 1.0
+        m.router.data[:, 0] += 0.02  # most tokens rank expert 0 first: capacity drops
+        xd = x.to(pdtype(cfg))
+        a, aux_a = moe.apply_moe(cfg, m.to(dev), xd.to(dev))
+        b, aux_b = moe.apply_moe(cfg, m, xd.to(dev))
+        assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+        if dtype == "float32":
+            c, aux_c = moe.apply_moe(cfg, m.to("cpu"), xd)
+            torch.testing.assert_close(a.cpu(), c, rtol=0, atol=2e-5)
+            torch.testing.assert_close(aux_a.cpu(), aux_c, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-scout-17b-a16e"])
+def test_moe_prefill_on_the_card_launches_flash_per_layer_and_matches_the_cpu(dev, arch):
+    """Reduced grok-1 (softcap) and llama4-scout (window 64, NoPE global
+    layers) in float32: one flash_attention launch a layer of a 128-token
+    prefill, then 24 decode steps, equal to the CPU's at 1e-3."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = get_arch(arch).reduced()
+    model = serve.build(cfg, 0, dev)
+    tok = torch.randint(0, cfg.vocab_size, (2, 152), generator=torch.Generator().manual_seed(0))
+
+    def run(m, t):
+        before = ops.launch_counts()["flash_attention"]
+        out, st = M.prefill(m, {"tokens": t[:, :128]}, cache_len=152)
+        launched = ops.launch_counts()["flash_attention"] - before
+        outs = [out]
+        for s in range(128, 152):
+            out, st = M.serve_step(m, st, t[:, s:s + 1])
+            outs.append(out)
+        return torch.stack(outs).cpu(), launched
+
+    on_card, launched = run(model, tok.to(dev))
+    assert launched == cfg.n_layers
+    model.to("cpu")
+    on_cpu, _ = run(model, tok)
+    torch.testing.assert_close(on_card, on_cpu, rtol=0, atol=1e-3)

@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,7 +35,9 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_ml_dtypes():
     assert len(PORT_FILES) > 10
     walked = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     for mod in ("fl/distributed.py", "fl/elastic_dist.py", "fl/sharded.py", "launch/fl_spawn.py",
-                "checkpoint.py", "optim/optimizers.py", "data/pipeline.py", "launch/train.py"):
+                "checkpoint.py", "optim/optimizers.py", "data/pipeline.py", "launch/train.py",
+                "launch/mesh.py", "models/moe.py", "configs/grok_1_314b.py",
+                "configs/llama4_scout_17b_a16e.py"):
         assert f"src/repro_torch/{mod}" in walked, mod
     bad = [
         f"{p.relative_to(REPO)}:{line}: import {mod}"
@@ -81,7 +84,9 @@ def test_fl_run_defaults_to_cuda_and_raises_without_a_card():
                                   ["--distributed", "--collaborators", "1"],
                                   ["--distributed", "--no-packed-broadcast", "--collaborators", "1",
                                    "--algorithm", "preweak_f"],
-                                  ["--distributed", "--elastic", "--collaborators", "1"]])
+                                  ["--distributed", "--elastic", "--collaborators", "1"],
+                                  ["--sharded", "--collaborators", "1"],
+                                  ["--sharded", "--no-packed-broadcast", "--collaborators", "1"]])
 def test_fl_run_new_paths_default_to_cuda_and_raise_without_a_card(argv):
     _no_card()
     from repro_torch.launch import fl_run
@@ -324,6 +329,48 @@ def test_llm_serve_defaults_to_cuda_and_raises_without_a_card():
         serve.main(["--tokens", "1"])
 
 
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-scout-17b-a16e"])
+def test_moe_serve_and_train_default_to_cuda_and_raise_without_a_card(arch):
+    """``serve`` and ``train --arch`` of the MoE architectures (with a depth
+    cut, and at full width) land on the card unless asked for the CPU."""
+    _no_card()
+    from repro_torch.launch import serve, train
+
+    for argv in (["--tokens", "1"], ["--tokens", "1", "--full", "--layers", "1"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            serve.main(["--arch", arch, *argv])
+    for argv in (["--steps", "1"], ["--steps", "1", "--full", "--layers", "1"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            train.main(["--arch", arch, *argv])
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-scout-17b-a16e"])
+def test_moe_serve_and_train_run_the_reduced_config_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve, train
+
+    out = serve.main(["--arch", arch, "--device", "cpu", "--batch", "2", "--prompt-len", "128",
+                      "--tokens", "3", "--layers", "4"])
+    assert out["arch"] == arch and out["layers"] == 4 and out["logits_finite"]
+    assert out["tokens"].shape == (2, 4) and out["tokens"].device.type == "cpu"
+    losses = train.main(["--arch", arch, "--device", "cpu", "--layers", "1", "--steps", "4",
+                         "--seq", "32", "--batch", "2", "--log-every", "2"])
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    printed = capsys.readouterr().out
+    assert f"arch={arch} layers=4/" in printed and f"arch={arch} layers=1/" in printed
+    assert "(depth cut)" in printed
+
+
+def test_mesh_engine_registry_defaults_to_cuda_and_raises_without_a_card():
+    _no_card()
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import EngineConfig, ModelRegistry
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        ModelRegistry(config=EngineConfig(batch_size=8, mesh=make_host_mesh()))
+    reg = ModelRegistry(config=EngineConfig(batch_size=8, mesh=make_host_mesh()), device="cpu")
+    assert reg.device.type == "cpu"
+
+
 def test_llm_serve_cpu_runs_the_reduced_config_end_to_end(capsys):
     from repro_torch.launch import serve
 
@@ -382,7 +429,7 @@ def test_lm_training_entry_points_default_to_cuda_and_raise_without_a_card(name)
     assert all(t.device.type == "cpu" for t in tensors)
 
 
-@pytest.mark.parametrize("name", ["grok-1-314b", "llama4-scout-17b-a16e", "xlstm-1.3b"])
+@pytest.mark.parametrize("name", ["xlstm-1.3b"])
 def test_get_arch_of_an_unported_architecture_raises(name):
     from repro_torch.configs import get_arch
 

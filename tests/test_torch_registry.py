@@ -241,9 +241,10 @@ def test_engine_config_conflicts_and_mesh_raise(tmp_path):
         ServeEngine.from_artifact(art, batch_size=16, config=cfg)
     with pytest.raises(ValueError, match="contradicts the artifact"):
         ServeEngine.from_artifact(art, config=dataclasses.replace(cfg, committee=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+    # a mesh is a launch/mesh.Mesh (tests/test_torch_sharded.py serves through one)
+    with pytest.raises(TypeError, match="launch/mesh.Mesh"):
         ServeEngine.from_artifact(art, config=dataclasses.replace(cfg, mesh=object()))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="launch/mesh.Mesh"):
         ModelRegistry(config=EngineConfig(mesh="data"), device="cpu").add_tenant("m", tmp_path / "p")
     # the defaults are the JAX package's
     jcfg = JaxEngineConfig()

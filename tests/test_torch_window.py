@@ -217,13 +217,11 @@ def test_chunked_global_full_layers_drop_rope():
 @pytest.mark.parametrize("changes,item", [
     ({"layer_pattern": "mamba_attn"}, "13e"),
     ({"layer_pattern": "xlstm"}, "13e"),
-    ({"n_experts": 4}, "13d"),
-    ({"arch_type": "moe"}, "13d"),
     ({"arch_type": "ssm"}, "13e"),
     ({"post_norm": True}, "13f"),
     ({"arch_type": "audio"}, "13f"),
     ({"arch_type": "vlm"}, "13f"),
-], ids=["mamba_attn", "xlstm", "experts", "moe", "ssm", "post_norm", "audio", "vlm"])
+], ids=["mamba_attn", "xlstm", "ssm", "post_norm", "audio", "vlm"])
 def test_unported_patterns_raise_naming_their_item(changes, item):
     cfg = dataclasses.replace(get_arch("gemma-2b").reduced(), **changes)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
@@ -238,8 +236,7 @@ def test_a_prefix_or_frames_batch_raises_naming_13f(pair):
             M.loss_fn(cfg, model, {"tokens": tok, **extra})
 
 
-@pytest.mark.parametrize("name,item", [("grok-1-314b", "13d"), ("llama4-scout-17b-a16e", "13d"),
-                                       ("xlstm-1.3b", "13e")])
+@pytest.mark.parametrize("name,item", [("xlstm-1.3b", "13e")])
 def test_unported_architectures_name_their_item(name, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         get_arch(name)
