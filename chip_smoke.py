@@ -226,7 +226,31 @@ Phases, each of which raises (non-zero exit) on failure:
    over ``[1, 8, 16384, 128]``, causal, with and without the 8192
    window): the plain version a KV head's group at a time, a CUDA-graph
    replay with the eager bits, timed against the plain version and SDPA
-   (without the softcap; the window as a mask, K/V expanded).
+   (without the softcap; the window as a mask, K/V expanded);
+17. serve and train the recurrent mixers (``models/ssm.py``) at their
+   published widths, bf16, random weights from seed 0: (a) xlstm-1.3b
+   whole (48 layers: 42 mLSTM, 6 sLSTM; 3.61 G parameters) through
+   ``repro_torch.launch.serve --full`` at batch 4, a 2048-token prompt and
+   32 greedy steps (every count set to 0 just before: no kernel launch, no
+   plain version on the card, tokens inside the vocabulary), then on a
+   model built the same way: two prefills with the same bits, warm prefill
+   ms, decode ms/step and tok/s, peak memory, a profile split into the
+   mLSTM chunks, the sLSTM steps, the projections and the rest (at a
+   256-token prompt), and, on the same weights drawn in float32, 128
+   decode steps past a 256-token (two-chunk) prefill against a cache-free
+   forward over the 384 tokens; (b) a Mamba hybrid
+   at gemma-2b's width with Jamba's layout (one period: 7 Mamba layers
+   around 1 attention layer) through ``launch.serve``'s ``build`` and
+   ``generate`` with a 1 x 8192 prompt: exactly one ``flash_attention``
+   launch a prefill (phase 3's ``q [1, 8, 8192, 256]`` causal), the same
+   checks and times, decode past an 8064-token prefill against a forward;
+   (c) xlstm-1.3b's train step at full width, one unit of 8 layers, batch 2
+   x 1024: step 1 twice from one seeded state with the same bits, three
+   more timed, peak memory, no kernel launch; (d) the reduced xlstm and
+   hybrid in float32, 3 train steps card vs CPU (the first step's moments
+   leaf by leaf within ``MOMENT_SCALED_TOL``; ``TRAIN_TOL``; reduced
+   xlstm's later steps at ``XLSTM_TRAIN_TOL``), then a prefill and 8 decode
+   steps on the card's trained weights within ``CPU_TOL``.
 
 Each phase's seconds are printed at the end.  The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Without a card, or beside no copy of
@@ -387,6 +411,36 @@ MOE_DECODE_CHECK = {"grok": 1024, "llama4": 16384}
 # the MoE train step: llama4-scout at full width, one layer (a chunked-local
 # MoE layer), batch 1 x 1024 from token_batches
 MOE_TRAIN = {"arch": "llama4-scout-17b-a16e", "layers": 1, "batch": 1, "seq": 1024, "timed_steps": 3}
+# phase 17: xlstm-1.3b whole (48 layers, 3.61 G parameters, 7.27 GB in bf16) at
+# batch 4 and a 2048-token prompt (16 chunks of 128), 32 greedy steps; the
+# profile at a 256-token prompt (every part of a prefill is linear in its
+# length, and the profiler's own cost grows with the ~150 operations a
+# token); decode against a forward in float32 across a chunk boundary: a
+# 256-token prefill (two chunks, the mLSTM's C/n carried from the first into
+# the second and written into the cache) teacher-forced to 384
+XLSTM_SERVE = {"batch": 4, "prompt": 2048, "tokens": 32, "profile_prompt": 256, "f32_check": (256, 384)}
+# a Mamba hybrid at gemma-2b's width with Jamba's layout (arXiv:2403.19887:
+# one attention layer to seven Mamba layers), one period
+HYBRID = {"arch_type": "hybrid", "layer_pattern": "mamba_attn", "pattern_period": 8, "attn_index": 4,
+          "n_layers": 8}
+HYBRID_SERVE = {"batch": 1, "prompt": 8192, "tokens": 32, "check_prefill": 8064}
+# decode against a cache-free forward: twice the value measured on an H100
+# (hybrid bf16 0.098; xlstm float32 at full depth, 128 steps past a two-chunk
+# prefill, 0.1023).  bf16 rounds the residual stream at every layer and random xlstm
+# weights amplify it (on the CPU at full width its bf16 forward is 0.66 from
+# the float32 forward of the same weights after 8 layers), so xlstm's decode
+# path is held in float32
+RECURRENT_DECODE_TOL = {"hybrid": {"atol": 0.2, "rtol": 0.0}, "xlstm_f32": {"atol": 0.205, "rtol": 0.0}}
+# xlstm-1.3b's train step: one unit of 8 layers at full width, batch 2 x 1024
+XLSTM_TRAIN = {"layers": 8, "batch": 2, "seq": 1024, "timed_steps": 3}
+# reduced xlstm in float32, card vs CPU: its first step's grad norm (~62) and
+# its later steps at tests/test_torch_ssm.py's measured tolerances
+XLSTM_TRAIN_TOL = {"first_gnorm_atol": 2e-3, "loss_rtol": 5e-4, "gnorm_rtol": 0.2, "param_atol": 2e-3}
+# (d) the first step's AdamW moments leaf by leaf (each leaf's gradient),
+# card vs CPU, within this share of each leaf's largest |value|: tests/
+# test_torch_ssm.py's limits against the JAX package (the hybrid at 1e-4;
+# reduced xlstm at 1.2e-3, twice the float32 spread measured there)
+MOMENT_SCALED_TOL = {"hybrid": 1e-4, "xlstm-1.3b": 1.2e-3}
 
 
 class SmokeFailure(RuntimeError):
@@ -3101,18 +3155,22 @@ class DropCounter:
         self.moe.apply_moe = self._apply
 
 
-def moe_profile(torch, model, tokens, card: str, tag: str) -> dict:
-    """Device time of one prefill and of one decode step after it, by the
-    MoE layers' profiler ranges (route, dispatch, experts, combine), the
-    ``flash_attention`` kernel, and the rest; device busy share of the
-    wall.  Returns {what: {part: ms}}."""
+MOE_RANGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+SSM_RANGES = ("ssm.mlstm_chunks", "ssm.slstm_steps", "ssm.mamba_scan", "ssm.projections")
+
+
+def device_profile(torch, model, tokens, card: str, phase: str, labels: tuple) -> dict:
+    """Device time of one prefill of ``tokens`` and of one decode step
+    after it, by the profiler ranges ``labels``, the ``flash_attention``
+    kernel and the rest; the device busy share of the wall and the device
+    activities the profiler saw.  ``phase`` heads the log lines.  Returns
+    {what: {part: ms}}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model as M
 
-    labels = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
-    S = tokens.shape[1]
+    B, S = tokens.shape
     out = {}
     for what in ("prefill", "decode"):
         _, st = M.prefill(model, {"tokens": tokens}, cache_len=S + 2)
@@ -3129,24 +3187,81 @@ def moe_profile(torch, model, tokens, card: str, tag: str) -> dict:
         events = prof.key_averages()
 
         def dev_ms(e):
-            return (getattr(e, "device_time_total", None) or e.cuda_time_total) / 1e3
+            return (getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)) / 1e3
 
         # a range's device time is its kernels' (the host-side range's total);
         # the device-side range of the same name spans the idle gaps too
         kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in labels]
         busy = sum(dev_ms(e) for e in kernels)
+        activities = sum(e.count for e in kernels)
         parts = {lab: sum(dev_ms(e) for e in events if e.key == lab and e.device_type == DeviceType.CPU)
                  for lab in labels}
         parts["attention (flash_attention)"] = sum(dev_ms(e) for e in kernels if "flash_attention" in e.key)
         parts["rest"] = busy - sum(parts.values())
-        out[what] = {"wall_ms": wall_ms, "busy_ms": busy, **parts}
+        out[what] = {"wall_ms": wall_ms, "busy_ms": busy, "device_launches": activities, **parts}
         if not busy:
-            log(f"phase 16 {tag} {what} profile: no device time recorded on {card}; not measured")
+            log(f"{phase} {what} profile: no device time recorded on {card}; not measured")
             continue
-        log(f"phase 16 {tag} {what} profile ({card}, profiler on): wall {wall_ms:.3f} ms, device busy "
-            f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%): "
+        log(f"{phase} {what} profile ({B}x{S}, profiler on, {card}): wall {wall_ms:.3f} ms, device busy "
+            f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%), {activities} device activities: "
             + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)" for k, v in parts.items()))
     return out
+
+
+def counted_serve(torch, ops, ref, what: str, call, flash: int, shape: tuple, vocab: int) -> tuple:
+    """``call()``, a ``launch.serve`` entry point, with every count set to 0
+    just before: it must launch ``flash`` ``flash_attention`` kernels and
+    nothing else, run no plain version on the card, and give finite logits
+    and tokens of ``shape`` inside ``vocab``.  Returns (its output, the
+    launches, the peak memory of the call)."""
+    calls = dict(ref.device_calls)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = call()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = flash
+    check(launches == want, f"{what} launches {launches} != {want}")
+    check(ref.device_calls == calls, f"{what}: a plain version ran on CUDA tensors: {ref.device_calls}")
+    toks = out["tokens"]
+    check(out["logits_finite"] and tuple(toks.shape) == shape, f"{what}: tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < vocab)).all()), f"{what}: a token out of range")
+    return out, launches, peak
+
+
+def prefill_twice_and_decode(torch, model, tok, S: int, N: int, what: str, first_ctx=None) -> tuple:
+    """Two prefills of ``tok[:, :S]`` (the first under ``first_ctx`` where
+    given, the second timed warm; the same bits, or fail), then ``N``
+    greedy decode steps, timed; peak memory from the first prefill on.
+    Returns ({"prefill_ms", "decode_ms_per_step", "peak_bytes",
+    "same_bits"}, the prefill's logits, the state after decode)."""
+    import contextlib
+
+    from repro_torch.models import model as M
+
+    torch.cuda.reset_peak_memory_stats()
+    with first_ctx or contextlib.nullcontext():
+        first, _ = M.prefill(model, {"tokens": tok[:, :S]}, cache_len=S + N)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, st = M.prefill(model, {"tokens": tok[:, :S]}, cache_len=S + N)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    same = torch.equal(first, again)
+    check(same, f"{what}: two prefills of the same prompt differ (max |diff| {max_err(first, again):.3g})")
+    del first
+    token = torch.argmax(again, dim=-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N):
+        logits, st = M.serve_step(model, st, token)
+        token = torch.argmax(logits, dim=-1)[:, None]
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / N
+    check(bool(torch.isfinite(logits).all()), f"{what}: non-finite decode logits")
+    return ({"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+             "peak_bytes": torch.cuda.max_memory_allocated(), "same_bits": same}, again, st)
 
 
 def moe_serving(torch, ops, ref, card: str, tag: str) -> dict:
@@ -3172,19 +3287,8 @@ def moe_serving(torch, ops, ref, card: str, tag: str) -> dict:
     argv = ["--arch", run["arch"], "--full", "--layers", str(L), "--batch", "1", "--prompt-len", str(S),
             "--tokens", str(N), "--seed", "0"]
     log(f"$ python -m repro_torch.launch.serve {' '.join(argv)}")
-    calls = dict(ref.device_calls)
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    out = serve.main(argv)
-    launches = ops.launch_counts()
-    served_peak = torch.cuda.max_memory_allocated()
-    want = {name: 0 for name in launches}
-    want["flash_attention"] = L
-    check(launches == want, f"{tag} serve launches {launches} != {want}")
-    check(ref.device_calls == calls, f"{tag} serve: a plain version ran on CUDA tensors: {ref.device_calls}")
-    toks = out["tokens"]
-    check(out["logits_finite"] and toks.shape == (1, N + 1), f"{tag} serve: tokens {tuple(toks.shape)}")
-    check(bool(((toks >= 0) & (toks < cfg.padded_vocab())).all()), f"{tag} serve: a token out of range")
+    out, launches, served_peak = counted_serve(torch, ops, ref, f"{tag} serve", lambda: serve.main(argv), L,
+                                               (1, N + 1), cfg.padded_vocab())
     served_prefill_s = out["prefill_seconds"]
     del out
     torch.cuda.empty_cache()
@@ -3192,28 +3296,10 @@ def moe_serving(torch, ops, ref, card: str, tag: str) -> dict:
     model = serve.build(cfg, 0, torch.device(DEV))
     n_params = sum(p.numel() for p in model.parameters())
     tok = torch.randint(0, cfg.vocab_size, (1, S + N), generator=torch.Generator().manual_seed(1)).to(DEV)
-    torch.cuda.reset_peak_memory_stats()
-    with DropCounter(torch) as drops:
-        first, _ = M.prefill(model, {"tokens": tok[:, :S]}, cache_len=S + N)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    again, st = M.prefill(model, {"tokens": tok[:, :S]}, cache_len=S + N)
-    torch.cuda.synchronize()
-    prefill_ms = 1e3 * (time.perf_counter() - t0)
-    same = torch.equal(first, again)
-    check(same, f"{tag}: two prefills of the same prompt differ (max |diff| {max_err(first, again):.3g})")
-    token = torch.argmax(again, dim=-1)[:, None]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(N):
-        logits, st = M.serve_step(model, st, token)
-        token = torch.argmax(logits, dim=-1)[:, None]
-    torch.cuda.synchronize()
-    decode_ms = 1e3 * (time.perf_counter() - t0) / N
-    peak = torch.cuda.max_memory_allocated()
-    check(bool(torch.isfinite(logits).all()), f"{tag}: non-finite decode logits")
-    prof = moe_profile(torch, model, tok[:, :S], card, tag)
-    del first, again, st, logits
+    drops = DropCounter(torch)
+    timed, again, st = prefill_twice_and_decode(torch, model, tok, S, N, tag, first_ctx=drops)
+    prof = device_profile(torch, model, tok[:, :S], card, f"phase 16 {tag}", MOE_RANGES)
+    del again, st
     torch.cuda.empty_cache()
 
     # decode against a cache-free forward, at a drop-free capacity
@@ -3231,20 +3317,18 @@ def moe_serving(torch, ops, ref, card: str, tag: str) -> dict:
           f"{tag}: decode past {Sc} vs a cache-free forward: max |diff| {float(d.max()):.4g} > {DECODE_TOL}")
     model.cfg = cfg
     log(f"phase 16 {tag}: {run['arch']} at full width, depth cut to {L} of {full.n_layers} layers "
-        f"({n_params / 1e9:.3f} G parameters, bf16), on {card}: prefill 1x{S} {prefill_ms:.3f} ms "
-        f"(warm), decode {decode_ms:.3f} ms/step ({N} greedy steps); first call through launch.serve: "
-        f"prefill {1e3 * served_prefill_s:.3f} ms; two prefills the same bits: {same}; peak memory "
-        f"{peak / 2**30:.2f} GiB (launch.serve's run {served_peak / 2**30:.2f} GiB); capacity "
-        f"{moe.capacity(cfg, S)} slots an expert at {S} tokens, dropped (token, choice) pairs a layer "
-        f"{drops.calls}; launches {launches}; decode of {N} tokens past a {Sc}-token prompt vs a "
-        f"cache-free forward (drop-free capacity): max |diff| {float(d.max()):.4g}, mean "
-        f"{float(d.mean()):.4g} (tol {DECODE_TOL})")
+        f"({n_params / 1e9:.3f} G parameters, bf16), on {card}: prefill 1x{S} {timed['prefill_ms']:.3f} ms "
+        f"(warm), decode {timed['decode_ms_per_step']:.3f} ms/step ({N} greedy steps); first call through "
+        f"launch.serve: prefill {1e3 * served_prefill_s:.3f} ms; two prefills the same bits: "
+        f"{timed['same_bits']}; peak memory {timed['peak_bytes'] / 2**30:.2f} GiB (launch.serve's run "
+        f"{served_peak / 2**30:.2f} GiB); capacity {moe.capacity(cfg, S)} slots an expert at {S} tokens, "
+        f"dropped (token, choice) pairs a layer {drops.calls}; launches {launches}; decode of {N} tokens past "
+        f"a {Sc}-token prompt vs a cache-free forward (drop-free capacity): max |diff| {float(d.max()):.4g}, "
+        f"mean {float(d.mean()):.4g} (tol {DECODE_TOL})")
     del model, st, stepped, whole
     torch.cuda.empty_cache()
-    return {"launches": launches, "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
-            "peak_bytes": peak, "served_peak_bytes": served_peak, "same_bits": same,
-            "dropped": drops.calls, "decode_vs_forward_max": float(d.max()), "profile": prof,
-            "params": n_params}
+    return {"launches": launches, **timed, "served_peak_bytes": served_peak, "dropped": drops.calls,
+            "decode_vs_forward_max": float(d.max()), "profile": prof, "params": n_params}
 
 
 def moe_train(torch, ops, ref, card: str) -> dict:
@@ -3373,6 +3457,334 @@ def moe_phase(torch, ops, ref, card: str) -> dict:
             "llama4": moe_serving(torch, ops, ref, card, "llama4"),
             "train": moe_train(torch, ops, ref, card),
             "cpu": moe_train_card_vs_cpu(torch, card)}
+
+
+# -- phase 17: the recurrent mixers (xlstm-1.3b whole, a Mamba hybrid) -----------------------
+
+
+def decode_against_forward(torch, model, tok, prefix: int, what: str, tol: dict, whole=None) -> dict:
+    """Prefill ``tok[:, :prefix]``, teacher-force the rest through decode
+    steps, and hold the last step's logits against a cache-free forward
+    over all of ``tok``, or against ``whole``, the last logits of a prefill
+    over all of ``tok`` already made (the same forward, its caches written
+    besides)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import unembed
+
+    end = tok.shape[1]
+    _, st = M.prefill(model, {"tokens": tok[:, :prefix]}, cache_len=end)
+    for s in range(prefix, end):
+        stepped, st = M.serve_step(model, st, tok[:, s:s + 1])
+    del st
+    if whole is None:
+        with torch.no_grad():
+            whole = unembed(model.cfg, model.embed, model(tok)[:, -1:])[:, 0]
+    d = (stepped - whole).abs()
+    agree = int((stepped.argmax(-1) == whole.argmax(-1)).sum())
+    check(bool(torch.isclose(stepped, whole, **tol).all()),
+          f"{what}: decode of {end - prefix} tokens past {prefix} vs a cache-free forward: max |diff| "
+          f"{float(d.max()):.4g} exceeds {tol}")
+    return {"max": float(d.max()), "mean": float(d.mean()), "greedy_agree": agree, "rows": tok.shape[0],
+            "logit_max": float(whole.abs().max())}
+
+
+def xlstm_serving(torch, ops, ref, card: str) -> dict:
+    """(a) xlstm-1.3b whole (48 layers) through ``launch.serve --full``
+    (every count set to 0 just before: no kernel launch, no plain version
+    on the card, tokens inside the vocabulary), then on a model built the
+    same way: two prefills with the same bits, warm prefill ms, decode
+    ms/step and tok/s, peak memory, a profile; then the same weights drawn
+    in float32, all 48 layers: decode across a chunk boundary against a
+    cache-free forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import unembed
+
+    marks = [("start", time.perf_counter())]
+    run = XLSTM_SERVE
+    B, S, N = run["batch"], run["prompt"], run["tokens"]
+    cfg = get_arch("xlstm-1.3b")
+    argv = ["--arch", "xlstm-1.3b", "--full", "--batch", str(B), "--prompt-len", str(S), "--tokens", str(N),
+            "--seed", "0"]
+    log(f"$ python -m repro_torch.launch.serve {' '.join(argv)}")
+    out, launches, served_peak = counted_serve(torch, ops, ref, "xlstm serve", lambda: serve.main(argv), 0,
+                                               (B, N + 1), cfg.padded_vocab())
+    served = {"prefill_ms": 1e3 * out["prefill_seconds"], "decode_ms_per_step": 1e3 * out["decode_seconds"] / N,
+              "tok_per_s": out["tok_per_s"]}
+    del out
+    torch.cuda.empty_cache()
+    marks.append(("launch.serve", time.perf_counter()))
+
+    model = serve.build(cfg, 0, torch.device(DEV))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    kinds = [layer.kind for layer in model.layers]
+    check(kinds.count("mlstm") == 42 and kinds.count("slstm") == 6, f"xlstm layers {kinds}")
+    tok = torch.randint(0, cfg.vocab_size, (B, S + N), generator=torch.Generator().manual_seed(1)).to(DEV)
+    timed, again, st = prefill_twice_and_decode(torch, model, tok, S, N, "xlstm")
+    state_bytes = sum(t.numel() * t.element_size() for c in st.caches for t in c)
+    del again, st
+    marks.append(("two prefills and decode", time.perf_counter()))
+    prof = device_profile(torch, model, tok[:, :run["profile_prompt"]], card, "phase 17 xlstm", SSM_RANGES)
+    marks.append(("profile", time.perf_counter()))
+    del model
+    torch.cuda.empty_cache()
+    # the same weights in float32 (the same draws, not cast), all 48 layers:
+    # decode continues a two-chunk prefill's state as the forward does
+    f32 = serve.build(dataclasses.replace(cfg, dtype="float32"), 0, torch.device(DEV))
+    p32, e32 = run["f32_check"]
+    dec32 = decode_against_forward(torch, f32, tok[:, :e32], p32, "xlstm float32", RECURRENT_DECODE_TOL["xlstm_f32"])
+    # the float32 noise floor of that forward: the same forward with every
+    # float32 weight perturbed by 1e-7 relative (logged, not checked)
+    with torch.no_grad():
+        base = unembed(f32.cfg, f32.embed, f32(tok[:, :e32])[:, -1:])[:, 0]
+        g = torch.Generator(device=DEV).manual_seed(2)
+        for p in f32.parameters():
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=g, device=DEV, dtype=p.dtype))
+        nudged = unembed(f32.cfg, f32.embed, f32(tok[:, :e32])[:, -1:])[:, 0]
+    dec32["noise_floor"] = float((nudged - base).abs().max())
+    del f32, base, nudged
+    torch.cuda.empty_cache()
+    marks.append(("float32 decode vs forward", time.perf_counter()))
+    spans = ", ".join(f"{name} {b - a:.1f}" for (_, a), (name, b) in zip(marks, marks[1:]))
+    decode_ms = timed["decode_ms_per_step"]
+    log(f"phase 17 (a): xlstm-1.3b whole, 48 layers (42 mLSTM, 6 sLSTM) at full width ({n_params / 1e9:.3f} G "
+        f"parameters, {n_bytes / 1e9:.2f} GB, bf16 with float32 gates and recurrences), on {card}: prefill "
+        f"{B}x{S} {timed['prefill_ms']:.3f} ms (warm), decode {decode_ms:.3f} ms/step = {B * 1e3 / decode_ms:.1f} "
+        f"tok/s ({N} greedy steps); through launch.serve (first call): prefill {served['prefill_ms']:.3f} ms, "
+        f"decode {served['decode_ms_per_step']:.3f} ms/step = {served['tok_per_s']:.1f} tok/s; two prefills the "
+        f"same bits: {timed['same_bits']}; recurrent state {state_bytes / 1e9:.3f} GB; peak memory "
+        f"{timed['peak_bytes'] / 2**30:.2f} GiB (launch.serve's run {served_peak / 2**30:.2f} GiB); launches "
+        f"{launches}; in float32, decode of {e32 - p32} tokens past a {p32}-token prefill vs a cache-free forward "
+        f"over {e32}: max |diff| {dec32['max']:.4g}, mean {dec32['mean']:.4g}, largest |logit| "
+        f"{dec32['logit_max']:.4g} (tol {RECURRENT_DECODE_TOL['xlstm_f32']}; the forward against itself with "
+        f"the weights perturbed by 1e-7 relative: {dec32['noise_floor']:.4g}), greedy token agrees in "
+        f"{dec32['greedy_agree']}/{dec32['rows']} rows; seconds: {spans}")
+    return {"launches": launches, **timed, "tok_per_s": B * 1e3 / decode_ms, "served": served,
+            "served_peak_bytes": served_peak, "decode_vs_forward_f32": dec32, "profile": prof, "params": n_params,
+            "state_bytes": state_bytes}
+
+
+def hybrid_serving(torch, ops, ref, card: str) -> dict:
+    """(b) the Mamba hybrid (gemma-2b's widths, jamba's layout, one period:
+    7 Mamba layers around 1 attention layer) through ``launch.serve``'s
+    ``build`` and ``generate`` (every count set to 0 just before: exactly
+    one ``flash_attention`` launch, at ``q [1, 8, 8192, 256]`` causal),
+    then two prefills with the same bits, peak memory, a profile, decode
+    against a forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+
+    t_start = time.perf_counter()
+    run = HYBRID_SERVE
+    B, S, N = run["batch"], run["prompt"], run["tokens"]
+    cfg = dataclasses.replace(get_arch("gemma-2b"), **HYBRID)
+    model = serve.build(cfg, 0, torch.device(DEV))
+    n_params = sum(p.numel() for p in model.parameters())
+    check([layer.kind for layer in model.layers] == ["mamba"] * 4 + ["attn_full"] + ["mamba"] * 3,
+          f"hybrid layers {[layer.kind for layer in model.layers]}")
+    tok = torch.randint(0, cfg.vocab_size, (B, S + N), generator=torch.Generator().manual_seed(1)).to(DEV)
+    log(f"phase 17 (b): launch.serve.generate(build(gemma-2b with {HYBRID}, seed 0), a {B}x{S} prompt, {N})")
+    out, launches, served_peak = counted_serve(torch, ops, ref, "hybrid generate",
+                                               lambda: serve.generate(model, tok[:, :S], N), 1, (B, N + 1),
+                                               cfg.padded_vocab())
+    served = {"prefill_ms": 1e3 * out["prefill_seconds"], "decode_ms_per_step": 1e3 * out["decode_seconds"] / N}
+    del out
+    timed, again, st = prefill_twice_and_decode(torch, model, tok, S, N, "hybrid")
+    del st
+    torch.cuda.empty_cache()
+    prof = device_profile(torch, model, tok[:, :S], card, "phase 17 hybrid", SSM_RANGES)
+    torch.cuda.empty_cache()
+    dec = decode_against_forward(torch, model, tok[:, :S], run["check_prefill"], "hybrid",
+                                 RECURRENT_DECODE_TOL["hybrid"], whole=again)
+    del again
+    decode_ms = timed["decode_ms_per_step"]
+    log(f"phase 17 (b): Mamba hybrid at gemma-2b's width (8 layers: 7 Mamba, d_state {cfg.d_state}, d_conv "
+        f"{cfg.d_conv}, expand {cfg.ssm_expand}, and 1 attention layer; {n_params / 1e9:.3f} G parameters, bf16) "
+        f"on {card}: prefill {B}x{S} {timed['prefill_ms']:.3f} ms (warm; generate's first "
+        f"{served['prefill_ms']:.3f}), decode {decode_ms:.3f} ms/step = {B * 1e3 / decode_ms:.1f} tok/s; two "
+        f"prefills the same bits: {timed['same_bits']}; peak memory {timed['peak_bytes'] / 2**30:.2f} GiB "
+        f"(generate's run {served_peak / 2**30:.2f} GiB); launches {launches}; decode of "
+        f"{S - run['check_prefill']} tokens past {run['check_prefill']} vs a cache-free forward over {S}: max "
+        f"|diff| {dec['max']:.4g}, mean {dec['mean']:.4g}, largest |logit| {dec['logit_max']:.4g} (tol "
+        f"{RECURRENT_DECODE_TOL['hybrid']}), greedy token "
+        f"agrees in {dec['greedy_agree']}/{dec['rows']} rows; {time.perf_counter() - t_start:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, **timed, "served": served, "served_peak_bytes": served_peak,
+            "decode_vs_forward": dec, "profile": prof, "params": n_params}
+
+
+def xlstm_train(torch, ops, ref, card: str) -> dict:
+    """(c) xlstm-1.3b's train step at full width, one unit (7 mLSTM, 1
+    sLSTM), bf16, batch x tokens from token_batches: step 1 twice from one
+    seeded state (every bit compared), ``timed_steps`` more timed; no
+    kernel launch and no attention at all; peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStreamConfig, token_batches
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import AdamWConfig
+
+    full = get_arch("xlstm-1.3b")
+    cfg = full.with_layers(XLSTM_TRAIN["layers"])
+    B, S = XLSTM_TRAIN["batch"], XLSTM_TRAIN["seq"]
+    opt = AdamWConfig(**TRAIN_OPT)
+    stream = token_batches(TokenStreamConfig(cfg.vocab_size, S, B, seed=1), device=DEV)
+    batches = [next(stream) for _ in range(XLSTM_TRAIN["timed_steps"] + 1)]
+
+    def fresh():
+        return M.init_train_state(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = fresh()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    ops.reset_launches()
+    plain0 = ref.device_calls["flash_attention"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = M.train_step(cfg, state, batches[0], opt)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launched = ops.launch_counts()
+    plain = ref.device_calls["flash_attention"] - plain0
+    check(not any(launched.values()) and plain == 0,
+          f"xlstm train step launched {launched}, {plain} plain attention calls")
+    host = {"loss": m["loss"].cpu(), "grad_norm": m["grad_norm"].cpu(),
+            "params": {k: p.detach().cpu() for k, p in M.param_tree(state.params).items()},
+            "mu": {k: v.cpu() for k, v in state.opt.mu.items()},
+            "nu": {k: v.cpu() for k, v in state.opt.nu.items()}}
+    del state, m
+    torch.cuda.empty_cache()
+    state = fresh()
+    state, m = M.train_step(cfg, state, batches[0], opt)
+    torch.cuda.synchronize()
+    differ = [k for k, p in M.param_tree(state.params).items() if not torch.equal(p.cpu(), host["params"][k])]
+    differ_m = [k for k, v in state.opt.mu.items() if not torch.equal(v.cpu(), host["mu"][k])]
+    differ_m += [k for k, v in state.opt.nu.items() if not torch.equal(v.cpu(), host["nu"][k])]
+    same = (torch.equal(m["loss"].cpu(), host["loss"]) and torch.equal(m["grad_norm"].cpu(), host["grad_norm"])
+            and not differ and not differ_m)
+    check(same, f"xlstm train step: one step from one seeded state gave other bits: loss "
+          f"{float(host['loss'])!r} vs {float(m['loss'])!r}; parameters {differ[:6]}, moments {differ_m[:6]}")
+    watched = ("embed.embedding", "layers.0.mixer.wq", "layers.0.mixer.w_if", "layers.7.mixer.r_h")
+    params = M.param_tree(state.params)
+    losses, gnorms = [float(m["loss"])], [float(m["grad_norm"])]
+    step_s = []
+    for b in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = M.train_step(cfg, state, b, opt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses + gnorms)), f"xlstm training: non-finite loss or grad norm {losses} {gnorms}")
+    moved = {k: float((params[k].cpu() != host["params"][k]).float().mean()) for k in watched}
+    check(all(v > 0 for v in moved.values()), f"xlstm training: parameters did not move {moved}")
+    ms = 1e3 * sum(step_s) / len(step_s)
+    bound = 1e3 * 6 * n_params * B * S / BF16_OPS_PER_S
+    log(f"phase 17 (c) xlstm-1.3b training at full width, depth cut to {cfg.n_layers} of {full.n_layers} layers "
+        f"(7 mLSTM, 1 sLSTM; {n_params / 1e9:.3f} G parameters, bf16, batch {B} x {S} tokens) on {card}: step 1 "
+        f"twice from one seeded state the same bits (loss, grad norm, every parameter and both moments): "
+        f"{same}; losses {', '.join(f'{v:.4f}' for v in losses)}; grad norms {', '.join(f'{v:.4f}' for v in gnorms)}; "
+        f"steps 2-{len(step_s) + 1} {ms:.1f} ms/step ({', '.join(f'{1e3 * t:.1f}' for t in step_s)}; the first "
+        f"{1e3 * first_s:.1f}), {B * S / ms * 1e3:.0f} tokens/s; 6·N·tokens over the bf16 peak {bound:.2f} ms; "
+        f"peak memory {peak / 2**30:.2f} GiB; share of weights moved {moved}; 0 kernel launches, 0 attention calls")
+    del state, m, params, host
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "peak_bytes": peak, "same_bits": same, "losses": losses,
+            "flash_launches": launched["flash_attention"], "params": n_params}
+
+
+def recurrent_card_vs_cpu(torch, card: str) -> None:
+    """(d) reduced() xlstm and the reduced hybrid in float32: 3 train steps
+    on the card and on the CPU from one state, the first step's AdamW
+    moments held leaf by leaf (``MOMENT_SCALED_TOL``), then, on the card's trained
+    weights, a 256-token prefill and 8 decode steps on both (logits within
+    ``CPU_TOL``).  The hybrid's steps are held to ``TRAIN_TOL``; xlstm's
+    first step too but its grad norm (``XLSTM_TRAIN_TOL``), and its later
+    steps to ``XLSTM_TRAIN_TOL``, as ``tests/test_torch_ssm.py`` holds the
+    port to the JAX package (reduced xlstm's training is chaotic at float32
+    rounding: the JAX package against itself from weights perturbed by
+    1e-7 moves the third step's grad norm by 4%)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import AdamWConfig
+
+    rows = []
+    for name, cfg in (("xlstm-1.3b", get_arch("xlstm-1.3b").reduced()),
+                      ("hybrid", dataclasses.replace(get_arch("gemma-2b"), **HYBRID).reduced())):
+        opt = AdamWConfig(warmup_steps=2, total_steps=10)
+        tok = torch.randint(0, cfg.vocab_size, (2, 129), generator=torch.Generator().manual_seed(3),
+                            dtype=torch.int32)
+        runs, moments = {}, {}
+        for dev in (DEV, "cpu"):
+            st = M.init_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
+            ms = []
+            for i in range(3):
+                st, m = M.train_step(cfg, st, {"tokens": tok.roll(i, 1).to(dev)}, opt)
+                ms.append((float(m["loss"]), float(m["grad_norm"])))
+                if i == 0:
+                    # a copy: the later steps update the moments in place
+                    moments[dev] = {f"{mom}:{k}": v.to("cpu", copy=True) for mom in ("mu", "nu")
+                                    for k, v in getattr(st.opt, mom).items()}
+            runs[dev] = (ms, st.params)
+        # the first step's moments leaf by leaf: every leaf's gradient
+        mom_err = {k: float((moments[DEV][k] - v).abs().max() / v.abs().max()) for k, v in moments["cpu"].items()}
+        worst = max(mom_err, key=mom_err.get)
+        check(mom_err[worst] <= MOMENT_SCALED_TOL[name], f"{name} float32 reduced: card vs CPU, step 1's {worst} "
+              f"{mom_err[worst]:.3g} of its largest |value| exceeds {MOMENT_SCALED_TOL[name]}")
+        (mg, card_model), (mc, cpu_model) = runs[DEV], runs["cpu"]
+        pg, pc = M.param_tree(card_model), M.param_tree(cpu_model)
+        loss_err = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(mg, mc)]
+        gn_err = [abs(a[1] - b[1]) for a, b in zip(mg, mc)]
+        p_err = max(float((pg[k].cpu() - pc[k]).abs().max()) for k in pc)
+        if name == "hybrid":
+            ok = (max(loss_err) <= TRAIN_TOL["loss_rtol"] and max(gn_err) <= TRAIN_TOL["gnorm_atol"]
+                  and p_err <= TRAIN_TOL["param_atol"])
+            tol = TRAIN_TOL
+        else:
+            later = XLSTM_TRAIN_TOL
+            ok = (loss_err[0] <= TRAIN_TOL["loss_rtol"] and gn_err[0] <= later["first_gnorm_atol"]
+                  and max(loss_err[1:]) <= later["loss_rtol"] and p_err <= later["param_atol"]
+                  and all(abs(a[1] - b[1]) <= later["gnorm_rtol"] * abs(b[1]) for a, b in zip(mg[1:], mc[1:])))
+            tol = {"first_step_loss_rtol": TRAIN_TOL["loss_rtol"], **later}
+        check(ok, f"{name} float32 reduced: card vs CPU losses {loss_err}, grad norms {gn_err}, parameters "
+              f"{p_err:.3g} exceed {tol}")
+        # inference on the card's trained weights, both devices
+        cpu_model.load_state_dict({k: v.cpu() for k, v in card_model.state_dict().items()})
+        ptok = torch.randint(0, cfg.vocab_size, (2, 264), generator=torch.Generator().manual_seed(4))
+        outs = {}
+        for dev, model in ((DEV, card_model), ("cpu", cpu_model)):
+            t = ptok.to(dev)
+            logits, st = M.prefill(model, {"tokens": t[:, :256]}, cache_len=264)
+            got = [logits]
+            for s in range(256, 264):
+                logits, st = M.serve_step(model, st, t[:, s:s + 1])
+                got.append(logits)
+            outs[dev] = torch.stack(got).cpu()
+        d = float((outs[DEV] - outs["cpu"]).abs().max())
+        check(d <= CPU_TOL["atol"], f"{name} float32 reduced: card vs CPU prefill + decode logits max |diff| "
+              f"{d:.4g} exceeds {CPU_TOL}")
+        rows.append(f"{name}: step 1's moments, worst leaf {worst} {mom_err[worst]:.3g} of its largest |value| "
+                    f"(tol {MOMENT_SCALED_TOL[name]}); losses {', '.join(f'{v:.3g}' for v in loss_err)} "
+                    f"(relative), grad norms {', '.join(f'{v:.3g}' for v in gn_err)}, parameters {p_err:.3g} "
+                    f"(tol {tol}); prefill + 8 decode steps' logits {d:.3g}")
+    log(f"phase 17 (d) reduced() xlstm and hybrid in float32, card ({card}) vs CPU: " + "; ".join(rows))
+
+
+def recurrent_phase(torch, ops, ref, card: str) -> dict:
+    return {"xlstm": xlstm_serving(torch, ops, ref, card),
+            "hybrid": hybrid_serving(torch, ops, ref, card),
+            "train": xlstm_train(torch, ops, ref, card),
+            "cpu": recurrent_card_vs_cpu(torch, card)}
 
 
 def main() -> int:
@@ -3601,6 +4013,11 @@ def main() -> int:
     # train step
     moe_runs = moe_phase(torch, ops, ref, card)
     phase_done(16)
+
+    # 17. the recurrent mixers: xlstm-1.3b whole at full width, a Mamba hybrid
+    # through flash_attention, xlstm's train step, card vs CPU
+    recurrent = recurrent_phase(torch, ops, ref, card)
+    phase_done(17)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
 
@@ -3646,6 +4063,11 @@ def main() -> int:
                                                  "bound_by", "library_ms", "library_call", "eager_ms",
                                                  "graph_replay_same_bits")}
                 for case in FLASH_BIG}
+            # phase 17: the hybrid's prefill (its one attention layer, at "gemma_8192"'s
+            # shape) and xlstm's serving and train step, which launch none
+            kernels[-1]["launches_hybrid_prefill"] = recurrent["hybrid"]["launches"][name]
+            kernels[-1]["launches_xlstm_serve"] = recurrent["xlstm"]["launches"][name]
+            kernels[-1]["launches_xlstm_train"] = recurrent["train"]["flash_launches"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                "count": torch.cuda.device_count()}}))

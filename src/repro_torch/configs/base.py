@@ -1,22 +1,26 @@
 """Architecture configuration schema and registry.
 
 The port's own copy of ``repro/configs/base.py``, cut to the fields that
-the attention and MoE paths read: an ``ArchConfig`` holds a published
-architecture's exact dimensions (source cited in ``source``), and
-``reduced()`` gives its smoke-test variant (``2·period`` layers, d_model
-128, at most 4 experts at a drop-free capacity, windows of at most 64,
-float32) for CPU tests.  ``pattern()`` expands the architecture into a
-repeating unit of per-layer descriptors (``LayerDesc``) for the ``full``,
-``local_global`` (gemma2: a sliding-window layer, then a full one) and
-``chunked_global`` (llama4: ``pattern_period - 1`` window layers, then a
-full layer without RoPE) patterns, with an MoE FFN on every
-``moe_every``-th layer of an MoE architecture.  ``arch_type`` and
-``post_norm`` are kept so that the model can refuse what it does not run
-yet (``models/transformer.py``); the SSM, front-end and distribution
-fields arrive with the architectures that read them.  gemma-2b,
-grok-1-314b and llama4-scout-17b-a16e are registered; xlstm-1.3b raises
-in :func:`get_arch`.  :meth:`ArchConfig.with_layers` cuts an
-architecture's depth (the card's runs of grok-1 and llama4-scout).
+the attention, MoE and recurrent paths read: an ``ArchConfig`` holds a
+published architecture's exact dimensions (source cited in ``source``),
+and ``reduced()`` gives its smoke-test variant (``2·period`` layers, or one
+unit of more than 4, d_model 128, at most 4 experts at a drop-free
+capacity, windows of at most 64, ``d_state`` 8, float32) for CPU tests.
+``pattern()`` expands the architecture into a repeating unit of per-layer
+descriptors (``LayerDesc``) for the ``full``, ``local_global`` (gemma2: a
+sliding-window layer, then a full one), ``chunked_global`` (llama4:
+``pattern_period - 1`` window layers, then a full layer without RoPE),
+``mamba_attn`` (jamba: one attention layer at ``attn_index`` of each
+``pattern_period``, Mamba layers around it) and ``xlstm`` (``slstm_every
+- 1`` mLSTM blocks, then an sLSTM block, none with a separate FFN)
+patterns, with an MoE FFN on every ``moe_every``-th layer of an MoE
+architecture.  ``arch_type`` and ``post_norm`` are kept so that the model
+can refuse what it does not run yet (``models/transformer.py``); the
+front-end and distribution fields arrive with the features that read
+them.  gemma-2b, xlstm-1.3b, grok-1-314b and llama4-scout-17b-a16e are
+registered.  :meth:`ArchConfig.with_layers` cuts an architecture's depth
+(the card's runs of grok-1 and llama4-scout, and of xlstm-1.3b's train
+step).
 """
 from __future__ import annotations
 
@@ -26,21 +30,20 @@ from typing import Dict, Optional, Tuple
 
 def not_ported(item: str) -> str:
     """The refusal's tail, naming the ROADMAP item that ports the feature:
-    13e the recurrent mixers, 13f gemma2's post-norms and the audio and
-    VLM front ends."""
+    13f gemma2's post-norms and the audio and VLM front ends."""
     return f"is not ported yet (ROADMAP Queue 1 item {item})"
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerDesc:
-    mixer: str  # attn_full | attn_local (mamba | mlstm | slstm: item 13e)
-    ffn: str  # swiglu | geglu | gelu | moe
+    mixer: str  # attn_full | attn_local | mamba | mlstm | slstm
+    ffn: str  # swiglu | geglu | gelu | moe | none
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str  # dense | moe (run); ssm | audio | vlm | hybrid raise
+    arch_type: str  # dense | moe | ssm | hybrid (run); audio | vlm raise
     n_layers: int
     d_model: int
     n_heads: int
@@ -54,12 +57,18 @@ class ArchConfig:
     experts_per_token: int = 0
     moe_every: int = 1  # MoE FFN on every k-th layer
     capacity_factor: float = 1.25
-    layer_pattern: str = "full"  # full | local_global | chunked_global (mamba_attn | xlstm raise)
+    layer_pattern: str = "full"  # full | local_global | chunked_global | mamba_attn | xlstm
     window: Optional[int] = None  # sliding-window size of the local layers
-    pattern_period: int = 1  # layers per repeating unit (chunked_global)
+    pattern_period: int = 1  # layers per repeating unit (chunked_global, mamba_attn)
+    attn_index: int = 0  # position of the attention layer inside a hybrid unit
     logit_softcap: Optional[float] = None
     final_softcap: Optional[float] = None
     mlp_type: str = "swiglu"  # swiglu | geglu | gelu
+    # SSM
+    d_state: int = 16
+    d_conv: int = 4
+    ssm_expand: int = 2
+    slstm_every: int = 0  # xlstm: one sLSTM block per k blocks (0 = none)
     tie_embeddings: bool = False
     embed_scale: bool = False  # gemma multiplies embeddings by sqrt(d)
     pos_emb: str = "rope"  # rope | sinusoidal
@@ -100,9 +109,20 @@ class ArchConfig:
             unit = tuple(LayerDesc("attn_local" if i < p - 1 else "attn_full", ffn_for(i, self.mlp_type))
                          for i in range(p))
             return unit, self._repeats(p)
-        if self.layer_pattern in ("mamba_attn", "xlstm"):
-            raise NotImplementedError(
-                f"{self.name}: the {self.layer_pattern!r} layer pattern {not_ported('13e')}")
+        if self.layer_pattern == "mamba_attn":
+            # jamba: one attention layer per ``pattern_period`` (the rest
+            # Mamba), an MoE FFN every ``moe_every``-th layer
+            p = self.pattern_period
+            unit = tuple(LayerDesc("attn_full" if i == self.attn_index else "mamba",
+                                   ffn_for(i, self.mlp_type)) for i in range(p))
+            return unit, self._repeats(p)
+        if self.layer_pattern == "xlstm":
+            # xLSTM [k-1 : 1] mLSTM : sLSTM blocks; the blocks carry their
+            # own projections, no separate FFN
+            p = self.slstm_every or 1
+            unit = tuple(LayerDesc("slstm" if (self.slstm_every and i == p - 1) else "mlstm", "none")
+                         for i in range(p))
+            return unit, self._repeats(p)
         raise ValueError(f"unknown layer_pattern {self.layer_pattern!r}")
 
     def _repeats(self, period: int) -> int:
@@ -141,13 +161,10 @@ class ArchConfig:
             # smoke scale.  The full configs keep the realistic 1.25.
             capacity_factor=float(2 * max(self.n_experts, 1)),
             window=min(self.window, 64) if self.window else None,
+            d_state=8,
             dtype="float32",
         )
 
-
-# Architectures the JAX package has and the port does not yet run, with the
-# ROADMAP item that brings each
-UNPORTED = {"xlstm-1.3b": "13e"}
 
 _ARCH_REGISTRY: Dict[str, ArchConfig] = {}
 
@@ -160,9 +177,6 @@ def register_arch(cfg: ArchConfig) -> ArchConfig:
 def get_arch(name: str) -> ArchConfig:
     if not _ARCH_REGISTRY:
         _load_all()
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"arch {name!r} {not_ported(UNPORTED[name])}; the port has {sorted(_ARCH_REGISTRY)}")
     if name not in _ARCH_REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_ARCH_REGISTRY)}")
     return _ARCH_REGISTRY[name]
@@ -171,5 +185,5 @@ def get_arch(name: str) -> ArchConfig:
 def _load_all() -> None:
     import importlib
 
-    for mod in ("gemma_2b", "grok_1_314b", "llama4_scout_17b_a16e"):
+    for mod in ("gemma_2b", "xlstm_1_3b", "grok_1_314b", "llama4_scout_17b_a16e"):
         importlib.import_module(f"repro_torch.configs.{mod}")

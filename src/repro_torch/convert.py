@@ -3,7 +3,8 @@
 The JAX state arrives as plain numpy arrays (the caller converts with
 ``np.asarray``), so this module needs neither JAX nor the JAX package.
 With it, a test starts both sides of a comparison from the same weights,
-bins and ensemble, and carries an ensemble back (``ensemble_to_numpy``).
+bins and ensemble, carries an ensemble back (``ensemble_to_numpy``), and
+starts the port's decode from a JAX prefill's state (``caches_from_numpy``).
 """
 from __future__ import annotations
 
@@ -153,7 +154,13 @@ def model_params_from_numpy(cfg: ArchConfig, tree: Mapping, device="cuda"):
     unit of ``p`` layers) are stacked ``[n_layers // p, ...]``: port layer
     ``r`` takes ``unit["L{r % p}"]`` at slice ``r // p``.  An MoE layer's
     ``ffn`` holds ``router [d, E]``, ``w_gate``/``w_up [E, d, ff]`` and
-    ``w_down [E, ff, d]``, carried across by the same names."""
+    ``w_down [E, ff, d]``, carried across by the same names, and so is a
+    recurrent layer's ``mixer`` (``models/ssm.py``: Mamba's ``in_proj``,
+    ``conv_w``, ``x_proj``, ``dt_proj``, ``dt_bias``, ``A_log``, ``D``,
+    ``out_proj``; the mLSTM's ``up_proj``, ``wq``, ``wk``, ``wv``, ``w_if``,
+    ``b_if``, ``down_proj``; the sLSTM's ``w_x``, ``r_h``, ``b``,
+    ``w_ff_up``, ``w_ff_down``).  A layer without an FFN (``ffn ==
+    "none"``) has no ``norm2`` on either side."""
     from repro_torch.models.transformer import Transformer
 
     model = Transformer(cfg, torch.Generator(device=resolve_device(device)).manual_seed(0))
@@ -180,3 +187,26 @@ def train_state_from_numpy(cfg: ArchConfig, params_tree: Mapping, opt_tree, devi
         return out
 
     return TrainState(model, AdamWState(_t(step, torch.int32, device), moments(mu), moments(nu)))
+
+
+def caches_from_numpy(cfg: ArchConfig, caches: Mapping, device="cuda") -> list:
+    """A JAX prefill's caches (``ServeState.caches``: ``L{i}`` -> a layer
+    state whose leaves are numpy arrays stacked ``[R, ...]`` over the
+    unit's repeats) -> the port's per-layer list: layer ``r`` takes
+    ``L{r % p}`` at slice ``r // p``, as the port's class of the JAX
+    state's name (``MambaState``, ``MLSTMState``, ``SLSTMState`` or an
+    attention ``LayerCache``).  The recurrent states stay float32; Mamba's
+    ``conv`` and the K/V take the activation type."""
+    from repro_torch.models import attention, ssm
+    from repro_torch.models.layers import pdtype
+
+    period = len(cfg.pattern()[0])
+    out = []
+    for r in range(cfg.n_layers):
+        state = caches[f"L{r % period}"]
+        name = type(state).__name__
+        cls = attention.LayerCache if name == "LayerCache" else getattr(ssm, name)
+        out.append(cls(**{f: _t(np.asarray(a, np.float32)[r // period],
+                                pdtype(cfg) if f in ("conv", "k", "v") else torch.float32, device)
+                          for f, a in state._asdict().items()}))
+    return out

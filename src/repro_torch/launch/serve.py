@@ -5,14 +5,19 @@ greedily against the KV caches, report tokens/s.
   PYTHONPATH=src python -m repro_torch.launch.serve --full              # gemma-2b on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --full --layers 4 \
       --batch 1 --prompt-len 8192                                       # grok-1, 4 of 64 layers
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b --full --prompt-len 2048
+                                                                        # xlstm-1.3b, all 48 layers
 
 The port of ``repro/launch/serve.py``, with its flags and its printed line.
 ``--full`` serves the published configuration instead of ``reduced()``;
 ``--layers N`` keeps its first N layers (a depth cut, named in the printed
 line); the weights are random, drawn from ``--seed``, as the JAX
-launcher's are.  ``--arch`` takes gemma-2b, grok-1-314b and
-llama4-scout-17b-a16e.  Runs on the card unless ``--device cpu``; without a
-card it raises.
+launcher's are.  ``--arch`` takes gemma-2b, xlstm-1.3b, grok-1-314b and
+llama4-scout-17b-a16e.  An architecture with recurrent layers (xlstm-1.3b)
+scans its prompt in chunks of 128 tokens: a prompt longer than 128 tokens
+must be a multiple of 128 (the chunk rule), or the launcher raises
+``ValueError`` before it builds the model.  Runs on the card unless
+``--device cpu``; without a card it raises.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 from repro_torch.configs import ArchConfig, get_arch
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models.ssm import check_chunk_rule
 from repro_torch.models.transformer import Transformer
 
 
@@ -85,8 +91,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     depth = cfg.n_layers
     if args.layers is not None:
         cfg = cfg.with_layers(args.layers)
-    model = build(cfg, args.seed, dev)
     B, S = args.batch, args.prompt_len
+    check_chunk_rule(cfg, S)
+    model = build(cfg, args.seed, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
     out = generate(model, prompts, args.tokens)

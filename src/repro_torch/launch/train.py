@@ -9,15 +9,19 @@ and saves or resumes a checkpoint.
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --steps 50 --checkpoint /tmp/ck
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama4-scout-17b-a16e --full \
       --layers 1 --batch 1 --seq 1024 --steps 3 --lr 3e-4   # one MoE layer at full width
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b --full --layers 8 \
+      --batch 2 --seq 1024 --steps 3 --lr 3e-4   # one xLSTM unit (7 mLSTM, 1 sLSTM) at full width
 
 The JAX driver's flags and printed lines; ``--device`` (default ``cuda``;
 without a card it raises), ``--seed`` (the CPU ``torch.Generator`` the
 initial weights are drawn from, so the card and the CPU start from the same
 weights), ``--full`` (the published widths, not ``reduced()``) and
 ``--layers N`` (keep the first N layers, named in the printed line) are the
-port's.  ``--arch`` takes gemma-2b, grok-1-314b and llama4-scout-17b-a16e
-(an MoE architecture's loss carries its load-balance term).  The token
-stream is the JAX driver's (seed 1).
+port's.  ``--arch`` takes gemma-2b, xlstm-1.3b, grok-1-314b and
+llama4-scout-17b-a16e (an MoE architecture's loss carries its load-balance
+term; xlstm-1.3b's ``--seq`` keeps the chunk rule: at most 128 or a
+multiple of 128, else ``ValueError``).  The token stream is the JAX
+launcher's (seed 1).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import TokenStreamConfig, token_batches
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models.ssm import check_chunk_rule
 from repro_torch.optim.optimizers import AdamWConfig
 
 # A ~hundred-M-param dense preset that actually trains on one host.
@@ -78,6 +83,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     depth = cfg.n_layers
     if args.layers is not None:
         cfg = cfg.with_layers(args.layers)
+    check_chunk_rule(cfg, args.seq)
     state = M.init_train_state(cfg, torch.Generator().manual_seed(args.seed), device=dev)
     n_params = sum(p.numel() for p in state.params.parameters())
     cut = f" layers={cfg.n_layers}/{depth} (depth cut)" if args.layers is not None else ""

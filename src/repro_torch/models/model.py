@@ -4,7 +4,8 @@
   * ``loss_fn``     — next-token CE, sequence-chunked (never
                       materialises [B, S, V] logits);
   * ``train_step``  — AdamW step, with micro-batch accumulation;
-  * ``prefill``     — full-sequence forward filling per-layer KV caches;
+  * ``prefill``     — full-sequence forward filling per-layer KV caches
+                      and recurrent states;
   * ``serve_step``  — one token against the caches.
 
 The training forward runs the attention's plain route
@@ -29,9 +30,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, not_ported
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import LayerCache, init_cache
+from repro_torch.models.attention import init_cache
 from repro_torch.models.layers import pdtype, unembed
-from repro_torch.models.transformer import Transformer, init_caches
+from repro_torch.models.transformer import Cache, Transformer, init_caches, init_state
 from repro_torch.optim.optimizers import AdamWConfig, AdamWState, Tree, adamw_update, init_adamw
 
 MOE_AUX_WEIGHT = 0.01
@@ -188,7 +189,7 @@ def train_step(
 
 
 class ServeState(NamedTuple):
-    caches: List[LayerCache]  # one cache per layer: [B, T, Kv, D] or a window's ring
+    caches: List[Cache]  # one per layer: [B, T, Kv, D], a window's ring or a recurrent state
     pos: int  # next absolute position
 
 
@@ -196,16 +197,23 @@ def init_serve_state(cfg: ArchConfig, batch: int, cache_len: int, device) -> Ser
     return ServeState(init_caches(cfg, batch, cache_len, device), 0)
 
 
-def _prefill_caches(model: Transformer, batch: int, cache_len: int, device) -> List[LayerCache]:
+def _prefill_caches(model: Transformer, batch: int, cache_len: int, device) -> List[Cache]:
     """The state prefill fills: full layers at ``cache_len`` slots (zero
     past the prompt; the decode mask ``j <= pos`` ignores them), window
-    layers at ``window`` slots whatever the prompt."""
+    layers at ``window`` slots whatever the prompt, recurrent layers'
+    states at their constant size."""
     cfg = model.cfg
-    # A ring holds ``window`` slots here, not init_caches' min(window,
-    # cache_len): the JAX package's prefill pads a short prompt's window
-    # cache to the window, and its _pad_caches grows only full layers.
-    return [init_cache(cfg, batch, cache_len if layer.window is None else layer.window, None,
-                       pdtype(cfg), device) for layer in model.layers]
+
+    def one(layer) -> Cache:
+        if layer.recurrent:
+            return init_state(cfg, layer.kind, batch, device)
+        # A ring holds ``window`` slots here, not init_caches' min(window,
+        # cache_len): the JAX package's prefill pads a short prompt's window
+        # cache to the window, and its _pad_caches grows only full layers.
+        return init_cache(cfg, batch, cache_len if layer.window is None else layer.window, None,
+                          pdtype(cfg), device)
+
+    return [one(layer) for layer in model.layers]
 
 
 @torch.no_grad()

@@ -1097,3 +1097,94 @@ def test_moe_prefill_on_the_card_launches_flash_per_layer_and_matches_the_cpu(de
     model.to("cpu")
     on_cpu, _ = run(model, tok)
     torch.testing.assert_close(on_card, on_cpu, rtol=0, atol=1e-3)
+
+
+# -- recurrent mixers (ROADMAP item 13e) ---------------------------------------------------
+
+HYBRID = {"arch_type": "hybrid", "layer_pattern": "mamba_attn", "pattern_period": 8, "attn_index": 4,
+          "n_layers": 8}
+
+
+def _recurrent_cfg(name, dtype="float32"):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("xlstm-1.3b").reduced() if name == "xlstm" else \
+        dataclasses.replace(get_arch("gemma-2b"), **HYBRID).reduced()
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+@pytest.mark.parametrize("name", ["xlstm", "hybrid"])
+def test_recurrent_prefill_and_decode_on_the_card_match_the_cpu(dev, name):
+    """Reduced xlstm and the reduced hybrid in float32: a 256-token prefill
+    (one flash_attention launch for the hybrid's attention layer, none for
+    xlstm) and 8 decode steps, equal to the CPU's at 1e-3."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = _recurrent_cfg(name)
+    model = serve.build(cfg, 0, dev)
+    tok = torch.randint(0, cfg.vocab_size, (2, 264), generator=torch.Generator().manual_seed(0))
+
+    def run(m, t):
+        before = ops.launch_counts()["flash_attention"]
+        out, st = M.prefill(m, {"tokens": t[:, :256]}, cache_len=264)
+        launched = ops.launch_counts()["flash_attention"] - before
+        outs = [out]
+        for s in range(256, 264):
+            out, st = M.serve_step(m, st, t[:, s:s + 1])
+            outs.append(out)
+        return torch.stack(outs).cpu(), launched
+
+    on_card, launched = run(model, tok.to(dev))
+    assert launched == (1 if name == "hybrid" else 0)
+    model.to("cpu")
+    on_cpu, _ = run(model, tok)
+    torch.testing.assert_close(on_card, on_cpu, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["xlstm", "hybrid"])
+def test_recurrent_bf16_prefill_and_train_step_on_the_card_are_the_same_bits_twice(dev, name):
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = _recurrent_cfg(name, "bfloat16")
+    tok = torch.randint(0, cfg.vocab_size, (2, 257), generator=torch.Generator().manual_seed(1)).to(dev)
+    model = serve.build(cfg, 0, dev)
+    a, sa = M.prefill(model, {"tokens": tok[:, :256]})
+    b, sb = M.prefill(model, {"tokens": tok[:, :256]})
+    assert torch.equal(a, b)
+    assert all(torch.equal(x, y) for ca, cb in zip(sa.caches, sb.caches) for x, y in zip(ca, cb))
+    runs = []
+    for _ in range(2):
+        st = M.init_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
+        st, m = M.train_step(cfg, st, {"tokens": tok[:, :129]})
+        runs.append((m["loss"].cpu(), m["grad_norm"].cpu(), {k: p.cpu() for k, p in M.param_tree(st.params).items()}))
+    (la, ga, pa), (lb, gb, pb) = runs
+    assert torch.equal(la, lb) and torch.equal(ga, gb) and all(torch.equal(pa[k], pb[k]) for k in pa)
+
+
+def test_xlstm_train_step_on_the_card_matches_the_cpu_and_launches_no_kernel(dev):
+    """One float32 step of reduced xlstm on the card and the CPU from one
+    state: the loss within 1e-5 relative, the grad norm (about 60) within
+    2e-3, each leaf's AdamW moments within 1.2e-3 of the leaf's largest
+    |value| (``tests/test_torch_ssm.py``'s limit against the JAX
+    package), no kernel launch."""
+    from repro_torch.models import model as M
+
+    cfg = _recurrent_cfg("xlstm")
+    tok = torch.randint(0, cfg.vocab_size, (2, 129), generator=torch.Generator().manual_seed(3))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        st = M.init_train_state(cfg, torch.Generator().manual_seed(0), device=d)
+        before = dict(ops.launch_counts())
+        st, m = M.train_step(cfg, st, {"tokens": tok.to(d)})
+        moments = {f"{mom}:{k}": v.cpu() for mom in ("mu", "nu") for k, v in getattr(st.opt, mom).items()}
+        out[d.type] = (float(m["loss"]), float(m["grad_norm"]), ops.launch_counts() == before, moments)
+    (lc, gc, none_c, mc), (lh, gh, _, mh) = out["cuda"], out["cpu"]
+    assert none_c
+    assert abs(lc - lh) <= 1e-5 * abs(lh) and abs(gc - gh) <= 2e-3
+    errs = {k: float((mc[k] - v).abs().max() / v.abs().max()) for k, v in mh.items()}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 1.2e-3, (worst, errs[worst])

@@ -266,8 +266,6 @@ def test_model_params_from_numpy_checks_the_tree(pair):
 
 @pytest.mark.parametrize("changes", [
     {"post_norm": True},
-    {"arch_type": "ssm"},  # MoE layers (n_experts) run since they were ported
-    {"layer_pattern": "mamba_attn"},  # local_global runs since the window layers were ported
     {"arch_type": "audio"},
 ])
 def test_unported_branches_raise(changes):
