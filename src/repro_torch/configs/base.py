@@ -5,7 +5,9 @@ the attention, MoE and recurrent paths read: an ``ArchConfig`` holds a
 published architecture's exact dimensions (source cited in ``source``),
 and ``reduced()`` gives its smoke-test variant (``2·period`` layers, or one
 unit of more than 4, d_model 128, at most 4 experts at a drop-free
-capacity, windows of at most 64, ``d_state`` 8, float32) for CPU tests.
+capacity, windows of at most 64, an encoder of at most 2 layers over at
+most 32 frames, a prefix of at most 16, ``d_state`` 8, float32) for CPU
+tests.
 ``pattern()`` expands the architecture into a repeating unit of per-layer
 descriptors (``LayerDesc``) for the ``full``, ``local_global`` (gemma2: a
 sliding-window layer, then a full one), ``chunked_global`` (llama4:
@@ -14,13 +16,16 @@ sliding-window layer, then a full one), ``chunked_global`` (llama4:
 ``pattern_period``, Mamba layers around it) and ``xlstm`` (``slstm_every
 - 1`` mLSTM blocks, then an sLSTM block, none with a separate FFN)
 patterns, with an MoE FFN on every ``moe_every``-th layer of an MoE
-architecture.  ``arch_type`` and ``post_norm`` are kept so that the model
-can refuse what it does not run yet (``models/transformer.py``); the
-front-end and distribution fields arrive with the features that read
-them.  gemma-2b, xlstm-1.3b, grok-1-314b and llama4-scout-17b-a16e are
-registered.  :meth:`ArchConfig.with_layers` cuts an architecture's depth
-(the card's runs of grok-1 and llama4-scout, and of xlstm-1.3b's train
-step).
+architecture.  The front ends: an ``audio`` architecture (whisper) has an
+encoder of ``encoder_layers`` layers over ``encoder_seq`` frame
+embeddings and a cross-attention sublayer in every decoder layer; a
+``vlm`` architecture takes ``prefix_tokens`` patch embeddings before its
+tokens; ``post_norm`` (gemma2) norms each sublayer's output before its
+residual add.  ``fsdp`` belongs to the production mesh (item 13g) and is
+not kept.  gemma-2b, xlstm-1.3b, grok-1-314b and llama4-scout-17b-a16e
+are registered, as in the JAX package.  :meth:`ArchConfig.with_layers`
+cuts an architecture's depth (the card's runs of grok-1 and llama4-scout,
+and of xlstm-1.3b's train step).
 """
 from __future__ import annotations
 
@@ -28,10 +33,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 
-def not_ported(item: str) -> str:
-    """The refusal's tail, naming the ROADMAP item that ports the feature:
-    13f gemma2's post-norms and the audio and VLM front ends."""
-    return f"is not ported yet (ROADMAP Queue 1 item {item})"
+ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +45,7 @@ class LayerDesc:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str  # dense | moe | ssm | hybrid (run); audio | vlm raise
+    arch_type: str  # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -69,12 +71,16 @@ class ArchConfig:
     d_conv: int = 4
     ssm_expand: int = 2
     slstm_every: int = 0  # xlstm: one sLSTM block per k blocks (0 = none)
+    # Modality front ends: the encoders' own inputs arrive as embeddings
+    encoder_layers: int = 0  # whisper audio encoder depth
+    encoder_seq: int = 0  # post-conv mel frames (whisper-large: 1500)
+    prefix_tokens: int = 0  # VLM patch-embedding prefix length
     tie_embeddings: bool = False
     embed_scale: bool = False  # gemma multiplies embeddings by sqrt(d)
     pos_emb: str = "rope"  # rope | sinusoidal
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
-    post_norm: bool = False  # gemma2 extra post-norms; raise
+    post_norm: bool = False  # gemma2 extra post-norms
     dtype: str = "bfloat16"
     remat: bool = True  # recompute each layer's activations in the backward
 
@@ -161,6 +167,9 @@ class ArchConfig:
             # smoke scale.  The full configs keep the realistic 1.25.
             capacity_factor=float(2 * max(self.n_experts, 1)),
             window=min(self.window, 64) if self.window else None,
+            encoder_layers=min(self.encoder_layers, 2),
+            encoder_seq=min(self.encoder_seq, 32) if self.encoder_seq else 0,
+            prefix_tokens=min(self.prefix_tokens, 16) if self.prefix_tokens else 0,
             d_state=8,
             dtype="float32",
         )

@@ -112,10 +112,12 @@ def boost_state_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> BoostS
 
 def _assign(targets: Dict[str, torch.Tensor], tree: Mapping, cfg: ArchConfig) -> None:
     """Copy a JAX params-shaped tree into ``targets`` (port parameter name
-    -> tensor): ``embed`` and ``final_norm`` by name, and port layer ``r``
-    from ``unit["L{r % p}"]`` at slice ``r // p`` (``p`` layers a unit).  A
-    norm's array goes to its ``.gamma``.  Every target must be assigned,
-    each with its own shape."""
+    -> tensor): ``embed`` and ``final_norm`` by name, port layer ``r`` from
+    ``unit["L{r % p}"]`` at slice ``r // p`` (``p`` layers a unit), and an
+    audio model's encoder layer ``i`` from ``encoder["unit"]`` (single-layer
+    dicts stacked ``[encoder_layers, ...]``) at slice ``i``.  A norm's array
+    goes to its ``.gamma``.  Every target must be assigned, each with its
+    own shape."""
     period = len(cfg.pattern()[0])
     assigned = set()
 
@@ -140,6 +142,10 @@ def _assign(targets: Dict[str, torch.Tensor], tree: Mapping, cfg: ArchConfig) ->
     put("", {"embed": tree["embed"], "final_norm": tree["final_norm"]})
     for r in range(cfg.n_layers):
         put(f"layers.{r}.", tree["unit"][f"L{r % period}"], r // period)
+    if "encoder" in tree:
+        put("encoder.", {"final_norm": tree["encoder"]["final_norm"]})
+        for i in range(cfg.encoder_layers):
+            put(f"encoder.layers.{i}.", tree["encoder"]["unit"], i)
     missing = set(targets) - assigned
     if missing:
         raise ValueError(f"parameters with no counterpart in the tree: {sorted(missing)}")
@@ -160,7 +166,10 @@ def model_params_from_numpy(cfg: ArchConfig, tree: Mapping, device="cuda"):
     ``out_proj``; the mLSTM's ``up_proj``, ``wq``, ``wk``, ``wv``, ``w_if``,
     ``b_if``, ``down_proj``; the sLSTM's ``w_x``, ``r_h``, ``b``,
     ``w_ff_up``, ``w_ff_down``).  A layer without an FFN (``ffn ==
-    "none"``) has no ``norm2`` on either side."""
+    "none"``) has no ``norm2`` on either side.  gemma2's ``post_norm1`` and
+    ``post_norm2``, an audio decoder layer's ``cross`` (an attention's
+    ``wq``, ``wk``, ``wv``, ``wo``) and ``norm_cross``, and an audio
+    model's ``encoder`` (``unit``, ``final_norm``) map by name too."""
     from repro_torch.models.transformer import Transformer
 
     model = Transformer(cfg, torch.Generator(device=resolve_device(device)).manual_seed(0))
@@ -195,18 +204,20 @@ def caches_from_numpy(cfg: ArchConfig, caches: Mapping, device="cuda") -> list:
     unit's repeats) -> the port's per-layer list: layer ``r`` takes
     ``L{r % p}`` at slice ``r // p``, as the port's class of the JAX
     state's name (``MambaState``, ``MLSTMState``, ``SLSTMState`` or an
-    attention ``LayerCache``).  The recurrent states stay float32; Mamba's
-    ``conv`` and the K/V take the activation type."""
+    attention ``LayerCache``); an audio layer's (self, cross) pair as a
+    pair.  The recurrent states stay float32; Mamba's ``conv`` and the K/V
+    take the activation type."""
     from repro_torch.models import attention, ssm
     from repro_torch.models.layers import pdtype
 
-    period = len(cfg.pattern()[0])
-    out = []
-    for r in range(cfg.n_layers):
-        state = caches[f"L{r % period}"]
+    def one(state, i: int):
+        if not hasattr(state, "_asdict"):  # an audio layer's (self, cross) pair
+            return tuple(one(s, i) for s in state)
         name = type(state).__name__
         cls = attention.LayerCache if name == "LayerCache" else getattr(ssm, name)
-        out.append(cls(**{f: _t(np.asarray(a, np.float32)[r // period],
-                                pdtype(cfg) if f in ("conv", "k", "v") else torch.float32, device)
-                          for f, a in state._asdict().items()}))
-    return out
+        return cls(**{f: _t(np.asarray(a, np.float32)[i], pdtype(cfg) if f in ("conv", "k", "v") else torch.float32,
+                            device)
+                      for f, a in state._asdict().items()})
+
+    period = len(cfg.pattern()[0])
+    return [one(caches[f"L{r % period}"], r // period) for r in range(cfg.n_layers)]

@@ -16,8 +16,12 @@ launcher's are.  ``--arch`` takes gemma-2b, xlstm-1.3b, grok-1-314b and
 llama4-scout-17b-a16e.  An architecture with recurrent layers (xlstm-1.3b)
 scans its prompt in chunks of 128 tokens: a prompt longer than 128 tokens
 must be a multiple of 128 (the chunk rule), or the launcher raises
-``ValueError`` before it builds the model.  Runs on the card unless
-``--device cpu``; without a card it raises.
+``ValueError`` before it builds the model.  A VLM architecture's batch
+carries a patch-embedding ``prefix`` and an audio architecture's the
+encoder's ``frames``, N(0, 1)·0.02 from the seeded generator, as the JAX
+launcher draws them (:func:`front_end_inputs`); the caches then hold
+prefix, prompt and decoded tokens.  Runs on the card unless ``--device
+cpu``; without a card it raises.
 """
 from __future__ import annotations
 
@@ -39,16 +43,35 @@ def build(cfg: ArchConfig, seed: int, device: torch.device) -> Transformer:
     return Transformer(cfg, torch.Generator(device=device).manual_seed(seed))
 
 
-def generate(model: Transformer, tokens: torch.Tensor, n_tokens: int) -> Dict:
-    """Prefill ``tokens [B, S]``, then ``n_tokens`` greedy decode steps.
-    Returns the tokens ``[B, n_tokens + 1]`` (the prefill's and each
-    step's argmax), the host seconds of the prefill and of the decode loop
-    (each ended by a device sync), and whether every logit was finite."""
+def front_end_inputs(cfg: ArchConfig, batch: int, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """A batch's inputs besides its tokens, float32 on the generator's
+    device: a VLM's ``prefix [B, prefix_tokens, d]`` or an audio
+    architecture's ``frames [B, encoder_seq, d]``, N(0, 1)·0.02 (nothing for
+    the others)."""
+    shape = {"vlm": ("prefix", cfg.prefix_tokens), "audio": ("frames", cfg.encoder_seq)}.get(cfg.arch_type)
+    if shape is None:
+        return {}
+    name, n = shape
+    return {name: torch.randn((batch, n, cfg.d_model), generator=generator, device=generator.device) * 0.02}
+
+
+def generate(model: Transformer, tokens: torch.Tensor, n_tokens: int,
+             generator: Optional[torch.Generator] = None) -> Dict:
+    """Prefill ``tokens [B, S]`` (with :func:`front_end_inputs` drawn from
+    ``generator``, by default one on the tokens' device seeded 0), then
+    ``n_tokens`` greedy decode steps.  Returns the tokens ``[B, n_tokens +
+    1]`` (the prefill's and each step's argmax), the host seconds of the
+    prefill and of the decode loop (each ended by a device sync), and
+    whether every logit was finite."""
     dev = tokens.device
+    B, S = tokens.shape
+    batch = {"tokens": tokens, **front_end_inputs(
+        model.cfg, B, generator or torch.Generator(device=dev).manual_seed(0))}
+    P = batch["prefix"].shape[1] if "prefix" in batch else 0
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    logits, state = M.prefill(model, {"tokens": tokens}, cache_len=tokens.shape[1] + n_tokens)
+    logits, state = M.prefill(model, batch, cache_len=S + P + n_tokens)
     sync()
     t_prefill = time.perf_counter() - t0
     finite = torch.isfinite(logits).all()
@@ -96,7 +119,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     model = build(cfg, args.seed, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
-    out = generate(model, prompts, args.tokens)
+    out = generate(model, prompts, args.tokens, generator=gen)
 
     toks = args.tokens * B
     t_prefill, t_decode = out["prefill_seconds"], out["decode_seconds"]

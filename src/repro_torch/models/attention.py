@@ -12,11 +12,18 @@ window layer whose sequence is a multiple (at least 2) of the window.  The
 kernel has no backward; this is the JAX route that has none, not a
 fallback.
 
+Cross-attention (whisper's decoder) takes its K/V from the encoder's
+output (``kv_x``): non-causal, without RoPE, S queries against the
+encoder's T frames, always on the kernel's (or, in training, the plain)
+full route.
+
 Decode caches: a full layer's is ``[B, T, Kv, D]`` and slot ``j`` holds
 position ``j``; a local layer's is a ring buffer of ``min(window, T)``
-slots, slot ``pos % T``.  Unlike the JAX package, :func:`attend_decode`
-writes the new token's K/V into the cache in place: a step then copies
-nothing of the cache, and the caller's ``LayerCache`` is the updated one.
+slots, slot ``pos % T``; a cross-attention layer's holds the encoder
+output's K/V, every slot valid, and is read-only.  Unlike the JAX package,
+:func:`attend_decode` writes the new token's K/V into the cache in place:
+a step then copies nothing of the cache, and the caller's ``LayerCache``
+is the updated one.
 """
 from __future__ import annotations
 
@@ -48,8 +55,9 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
 
 
-def _project_qkv(p: Attention, x: torch.Tensor):
-    return _heads(x, p.wq), _heads(x, p.wk), _heads(x, p.wv)
+def _project_qkv(p: Attention, x: torch.Tensor, kv_x: Optional[torch.Tensor] = None):
+    kv_x = x if kv_x is None else kv_x
+    return _heads(x, p.wq), _heads(kv_x, p.wk), _heads(kv_x, p.wv)
 
 
 def _out(p: Attention, o: torch.Tensor) -> torch.Tensor:
@@ -106,26 +114,30 @@ def attend_full(
     x: torch.Tensor,  # [B, S, d]
     positions: torch.Tensor,  # [S]
     *,
+    causal: bool = True,
     window: Optional[int] = None,
     use_rope: bool = True,
     plain_attention: bool = False,
+    kv_x: Optional[torch.Tensor] = None,  # cross-attention source [B, T, d]
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal full-sequence self-attention; returns (out [B, S, d], (k, v)
-    [B, S, Kv, D]) so that prefill can cache.  The kernel takes the
-    ``[B, H, S, D]`` transposes as strided views: nothing is copied for it.
-    ``plain_attention`` (the training forward's) takes the plain route."""
-    q, k, v = _project_qkv(p, x)
+    """Full-sequence attention; returns (out [B, S, d], (k, v) [B, T, Kv,
+    D]) so that prefill can cache.  Self-attention unless ``kv_x`` is
+    given (T = S then).  The kernel takes the ``[B, H, S, D]`` transposes
+    as strided views: nothing is copied for it.  ``plain_attention`` (the
+    training forward's) takes the plain route."""
+    q, k, v = _project_qkv(p, x, kv_x)
     if use_rope and cfg.pos_emb == "rope":
         q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        k = rope(k, positions if kv_x is None else torch.arange(k.shape[1], device=k.device), cfg.rope_theta)
     S = q.shape[1]
-    if plain_attention and CHUNKED_LOCAL and window is not None and S % window == 0 and S // window >= 2:
+    if (plain_attention and CHUNKED_LOCAL and window is not None and causal and kv_x is None
+            and S % window == 0 and S // window >= 2):
         out = _chunked_local_attention(cfg, q, k, v, window)
     else:
         attend = ref.attention_ref if plain_attention else ops.flash_attention
         out = attend(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=window, softcap=cfg.logit_softcap,
+            causal=causal, window=window, softcap=cfg.logit_softcap,
         ).transpose(1, 2)  # [B, S, H, D]
     return _out(p, out), (k, v)
 
@@ -156,26 +168,32 @@ def attend_decode(
     *,
     window: Optional[int] = None,
     use_rope: bool = True,
+    cross: bool = False,
 ) -> Tuple[torch.Tensor, LayerCache]:
     """One decode step in plain PyTorch (the JAX package's decode never
     reaches the kernel either).  Writes slot ``pos`` (a window layer's
     ring: ``pos % T``) of ``cache`` in place and attends over the valid
     slots: ``<= pos``, and every slot of a ring once ``pos >= T``; logits
-    and softmax in float32."""
+    and softmax in float32.  A ``cross`` cache holds the encoder's K/V:
+    only q is projected, nothing is written, every slot is valid."""
     B = x.shape[0]
     T = cache.k.shape[1]
-    if pos < 0 or (not window and pos >= T):
-        raise ValueError(f"decode position {pos} outside the cache's {T} slots")
     q = _heads(x, p.wq)  # [B, 1, H, D]
-    kn, vn = _heads(x, p.wk), _heads(x, p.wv)  # [B, 1, Kv, D]
-    if use_rope and cfg.pos_emb == "rope":
-        at = torch.full((1,), pos, device=x.device)
+    at = torch.full((1,), pos, device=x.device) if use_rope and cfg.pos_emb == "rope" else None
+    if at is not None:
         q = rope(q, at, cfg.rope_theta)
-        kn = rope(kn, at, cfg.rope_theta)
-    slot = pos % T if window else pos
-    cache.k[:, slot] = kn[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = vn[:, 0].to(cache.v.dtype)
-    valid = torch.arange(T, device=x.device) <= pos  # a ring's every slot once pos >= T
+    if cross:
+        valid = None
+    else:
+        if pos < 0 or (not window and pos >= T):
+            raise ValueError(f"decode position {pos} outside the cache's {T} slots")
+        kn, vn = _heads(x, p.wk), _heads(x, p.wv)  # [B, 1, Kv, D]
+        if at is not None:
+            kn = rope(kn, at, cfg.rope_theta)
+        slot = pos % T if window else pos
+        cache.k[:, slot] = kn[:, 0].to(cache.k.dtype)
+        cache.v[:, slot] = vn[:, 0].to(cache.v.dtype)
+        valid = torch.arange(T, device=x.device) <= pos  # a ring's every slot once pos >= T
 
     # grouped heads attend without a repeated K/V: q [B,1,H,D] -> [B,1,Kv,g,D]
     Kv, g, D = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
@@ -185,7 +203,8 @@ def attend_decode(
     logits = torch.einsum("bsKgd,btKd->bKgst", qg.float(), cache.k.float())
     if cfg.logit_softcap is not None:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    logits = logits.masked_fill(~valid, -1e30)
+    if valid is not None:
+        logits = logits.masked_fill(~valid, -1e30)
     att = torch.softmax(logits, dim=-1)  # [B, Kv, g, 1, T]
     out = torch.einsum("bKgst,btKd->bsKgd", att, cache.v.float())
     out = out.reshape(B, 1, cfg.n_heads, D).to(x.dtype)

@@ -28,7 +28,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig, not_ported
+from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import init_cache
 from repro_torch.models.layers import pdtype, unembed
@@ -74,12 +74,16 @@ def _chunked_ce(cfg: ArchConfig, model: Transformer, hidden: torch.Tensor, targe
 def loss_fn(cfg: ArchConfig, model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"] [B, S+1]`` (and
     its optional float ``loss_mask [B, S]``), plus ``MOE_AUX_WEIGHT`` times
-    the MoE layers' load-balance loss."""
-    if batch.get("prefix") is not None or batch.get("frames") is not None:
-        raise NotImplementedError(f"{cfg.name}: VLM prefixes and audio frames {not_ported('13f')}")
+    the MoE layers' load-balance loss.  A VLM batch's ``prefix`` and an
+    audio batch's ``frames`` go to the forward; the loss scores the token
+    positions only (``hidden[:, P:]``)."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    hidden, aux = model(inputs, plain_attention=True, return_aux=True)
+    prefix = batch.get("prefix")
+    hidden, aux = model(inputs, prefix=prefix, frames=batch.get("frames"), plain_attention=True,
+                        return_aux=True)
+    if prefix is not None:
+        hidden = hidden[:, cfg.prefix_tokens:]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
@@ -95,11 +99,14 @@ def loss_fn(cfg: ArchConfig, model: Transformer, batch: Dict[str, torch.Tensor])
 def _jax_key(name: str, period: int):
     """Where the JAX package's params pytree holds the port parameter
     ``name``: (key path, slice of the stacked unit leaf).  Layer ``r`` is
-    unit position ``L{r % period}`` at slice ``r // period``."""
+    unit position ``L{r % period}`` at slice ``r // period``; encoder layer
+    ``i`` is ``encoder/unit`` at slice ``i``."""
     parts = [p for p in name.split(".") if p != "gamma"]
     if parts[0] == "layers":
         r = int(parts[1])
         return ("unit", f"L{r % period}", *parts[2:]), r // period
+    if parts[:2] == ["encoder", "layers"]:
+        return ("encoder", "unit", *parts[3:]), int(parts[2])
     return tuple(parts), 0
 
 
@@ -197,21 +204,27 @@ def init_serve_state(cfg: ArchConfig, batch: int, cache_len: int, device) -> Ser
     return ServeState(init_caches(cfg, batch, cache_len, device), 0)
 
 
-def _prefill_caches(model: Transformer, batch: int, cache_len: int, device) -> List[Cache]:
+def _prefill_caches(model: Transformer, batch: int, cache_len: int, n_frames: int, device) -> List[Cache]:
     """The state prefill fills: full layers at ``cache_len`` slots (zero
     past the prompt; the decode mask ``j <= pos`` ignores them), window
     layers at ``window`` slots whatever the prompt, recurrent layers'
-    states at their constant size."""
+    states at their constant size; an audio layer's cross cache at the
+    ``n_frames`` the encoder sees."""
     cfg = model.cfg
 
     def one(layer) -> Cache:
         if layer.recurrent:
-            return init_state(cfg, layer.kind, batch, device)
-        # A ring holds ``window`` slots here, not init_caches' min(window,
-        # cache_len): the JAX package's prefill pads a short prompt's window
-        # cache to the window, and its _pad_caches grows only full layers.
-        return init_cache(cfg, batch, cache_len if layer.window is None else layer.window, None,
-                          pdtype(cfg), device)
+            c = init_state(cfg, layer.kind, batch, device)
+        else:
+            # A ring holds ``window`` slots here, not init_caches' min(window,
+            # cache_len): the JAX package's prefill pads a short prompt's window
+            # cache to the window, and its _pad_caches grows only full layers
+            # (nor the cross caches).
+            c = init_cache(cfg, batch, cache_len if layer.window is None else layer.window, None,
+                           pdtype(cfg), device)
+        if layer.has_cross:
+            return c, init_cache(cfg, batch, n_frames, None, pdtype(cfg), device)
+        return c
 
     return [one(layer) for layer in model.layers]
 
@@ -222,13 +235,18 @@ def prefill(
     batch: Dict[str, torch.Tensor],
     cache_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, ServeState]:
-    """Full-sequence forward over ``batch["tokens"] [B, S]``; returns the
-    last position's logits [B, V] (float32) and the state, its full
-    layers' caches at ``max(S, cache_len)`` slots."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    state = ServeState(_prefill_caches(model, B, max(S, cache_len or S), tokens.device), S)
-    hidden = model(tokens, caches=state.caches)
+    """Full-sequence forward over ``batch["tokens"] [B, S]`` (after a VLM
+    batch's ``prefix [B, P, d]``; an audio batch's ``frames [B, F, d]``
+    through the encoder); returns the last position's logits [B, V]
+    (float32) and the state at position P + S, its full layers' caches at
+    ``max(P + S, cache_len)`` slots, its cross caches at F."""
+    tokens, prefix, frames = batch["tokens"], batch.get("prefix"), batch.get("frames")
+    B = tokens.shape[0]
+    end = tokens.shape[1] + (0 if prefix is None else prefix.shape[1])
+    n_frames = model.cfg.encoder_seq if frames is None else frames.shape[1]
+    caches = _prefill_caches(model, B, max(end, cache_len or end), n_frames, tokens.device)
+    state = ServeState(caches, end)
+    hidden = model(tokens, prefix=prefix, frames=frames, caches=state.caches)
     logits = unembed(model.cfg, model.embed, hidden[:, -1:, :])[:, 0]
     return logits, state
 

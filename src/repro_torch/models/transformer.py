@@ -21,9 +21,19 @@ package checkpoints its scanned unit.
 
 An MoE layer (``models/moe.py``) adds its load-balance loss to the
 forward's ``aux``, float32 from 0 in layer order as the JAX package's scan
-carries it (``forward(return_aux=True)``); decode drops it.  gemma2's
-post-norms and the audio and VLM front ends (item 13f) raise
-``NotImplementedError``.
+carries it (``forward(return_aux=True)``); decode drops it.
+
+The front ends.  ``cfg.post_norm`` (gemma2) norms the mixer's output
+(``post_norm1``) and the FFN's (``post_norm2``) before their residual
+adds.  A ``vlm`` batch's ``prefix [B, P, d]`` (patch embeddings) goes
+before the token embeddings, so positions run over P + S.  An ``audio``
+architecture (whisper) has an :class:`Encoder` over ``frames [B, F, d]``
+(``encoder_layers`` non-causal layers, sinusoidal positions, its own final
+norm) and, in every decoder layer, a cross-attention sublayer
+(``norm_cross``, ``cross``) after the mixer, against the encoder's output;
+its decode state per layer is the pair (self cache, cross cache), the
+second holding the encoder output's K/V.  ``pos_emb == "sinusoidal"``
+adds the sin/cos table at each position.
 """
 from __future__ import annotations
 
@@ -34,7 +44,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig, LayerDesc, not_ported
+from repro_torch.configs.base import ARCH_TYPES, ArchConfig, LayerDesc
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -49,10 +59,12 @@ from repro_torch.models.layers import (
     unembed,
 )
 
-# one layer's decode state: an attention layer's KV cache or a recurrent layer's state
-Cache = Union[attn.LayerCache, ssm.MambaState, ssm.MLSTMState, ssm.SLSTMState]
+# one layer's decode state: an attention layer's KV cache or a recurrent
+# layer's state; an audio decoder layer's is (that, its cross cache)
+Cache = Union[attn.LayerCache, ssm.MambaState, ssm.MLSTMState, ssm.SLSTMState, Tuple]
 
-_ARCH_ITEM = {"audio": "13f", "vlm": "13f"}
+# the whisper encoder's layers (the MLP's kind is cfg.mlp_type's, as in the JAX package)
+ENCODER_LAYER = LayerDesc("attn_full", "gelu")
 
 
 class _Recurrent(NamedTuple):
@@ -70,14 +82,11 @@ _RECURRENT = {
 }
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
-        item = _ARCH_ITEM.get(cfg.arch_type, "13")
-        raise NotImplementedError(f"{cfg.name}: the {cfg.arch_type!r} architecture {not_ported(item)}")
+def _check_config(cfg: ArchConfig) -> None:
+    if cfg.arch_type not in ARCH_TYPES:
+        raise ValueError(f"{cfg.name}: unknown arch_type {cfg.arch_type!r}; have {ARCH_TYPES}")
     if cfg.is_moe and not 1 <= cfg.experts_per_token <= cfg.n_experts:
         raise ValueError(f"{cfg.name}: {cfg.experts_per_token} experts a token out of {cfg.n_experts}")
-    if cfg.post_norm:
-        raise NotImplementedError(f"{cfg.name}: post-norms {not_ported('13f')}")
     cfg.pattern()
 
 
@@ -93,12 +102,14 @@ def _use_rope(cfg: ArchConfig, desc: LayerDesc) -> bool:
 
 
 class Layer(nn.Module):
-    """One decoder layer: ``norm1``, ``mixer`` (attention, or the recurrent
-    mixer ``kind`` names), then ``norm2`` and ``ffn`` (an MLP, or an MoE
-    where the descriptor says ``moe``; neither where it says ``none``);
-    ``window`` and ``use_rope`` from its descriptor."""
+    """One layer: ``norm1``, ``mixer`` (attention, or the recurrent mixer
+    ``kind`` names) and, under ``cfg.post_norm``, ``post_norm1``; with
+    ``cross``, ``norm_cross`` and the cross-attention ``cross``; then
+    ``norm2`` and ``ffn`` (an MLP, or an MoE where the descriptor says
+    ``moe``; neither where it says ``none``) and ``post_norm2``; ``window``
+    and ``use_rope`` from its descriptor."""
 
-    def __init__(self, cfg: ArchConfig, desc: LayerDesc, gen: torch.Generator):
+    def __init__(self, cfg: ArchConfig, desc: LayerDesc, gen: torch.Generator, cross: bool = False):
         super().__init__()
         self.kind = desc.mixer
         if desc.mixer.startswith("attn"):
@@ -108,11 +119,20 @@ class Layer(nn.Module):
         else:
             raise ValueError(f"unknown mixer {desc.mixer!r}")
         self.norm1 = RMSNorm(cfg, gen.device)
+        self.post_norm = cfg.post_norm
+        if self.post_norm:
+            self.post_norm1 = RMSNorm(cfg, gen.device)
+        self.has_cross = cross
+        if cross:
+            self.cross = attn.Attention(cfg, gen)
+            self.norm_cross = RMSNorm(cfg, gen.device)
         self.moe = desc.ffn == "moe"
         self.has_ffn = desc.ffn != "none"
         if self.has_ffn:
             self.ffn = moe_mod.MoE(cfg, gen) if self.moe else MLP(cfg, gen)
             self.norm2 = RMSNorm(cfg, gen.device)
+            if self.post_norm:
+                self.post_norm2 = RMSNorm(cfg, gen.device)
         self.window = _mixer_window(cfg, desc)
         self.use_rope = _use_rope(cfg, desc)
 
@@ -121,10 +141,85 @@ class Layer(nn.Module):
         return self.kind in _RECURRENT
 
     def apply_ffn(self, cfg: ArchConfig, x: torch.Tensor):
-        """(the FFN sublayer's output, its aux loss: None for an MLP)."""
+        """(the FFN sublayer's output, post-normed where the architecture
+        says so, and its aux loss: None for an MLP)."""
         if self.moe:
-            return moe_mod.apply_moe(cfg, self.ffn, x)
-        return apply_mlp(cfg, self.ffn, x), None
+            out, aux = moe_mod.apply_moe(cfg, self.ffn, x)
+        else:
+            out, aux = apply_mlp(cfg, self.ffn, x), None
+        return (self.post_norm2(out) if self.post_norm else out), aux
+
+
+def _apply_layer(cfg: ArchConfig, layer: Layer, x: torch.Tensor, positions: torch.Tensor,
+                 cache: Optional[Cache], plain_attention: bool, causal: bool = True,
+                 enc_out: Optional[torch.Tensor] = None):
+    """One layer over the full sequence: (x, the FFN's aux loss or None).
+    Given ``cache``, the layer's K/V or final state (and its cross-attention
+    K/V) are written into it."""
+    self_c, cross_c = cache if (layer.has_cross and cache is not None) else (cache, None)
+    h = layer.norm1(x)
+    if layer.recurrent:
+        out, state = _RECURRENT[layer.kind].forward(cfg, layer.mixer, h)
+        if self_c is not None:
+            for dst, src in zip(self_c, state):
+                dst.copy_(src)
+    else:
+        out, (k, v) = attn.attend_full(cfg, layer.mixer, h, positions, causal=causal, window=layer.window,
+                                       use_rope=layer.use_rope, plain_attention=plain_attention)
+        if self_c is not None:
+            _write_prefill(self_c, k, v, layer.window)
+    if layer.post_norm:
+        out = layer.post_norm1(out)
+    x = x + out
+    if layer.has_cross:
+        out, (k, v) = attn.attend_full(cfg, layer.cross, layer.norm_cross(x), positions, causal=False,
+                                       use_rope=False, plain_attention=plain_attention, kv_x=enc_out)
+        x = x + out
+        if cross_c is not None:
+            _write_prefill(cross_c, k, v, None)
+    aux = None
+    if layer.has_ffn:
+        out, aux = layer.apply_ffn(cfg, layer.norm2(x))
+        x = x + out
+    return x, aux
+
+
+def _run_layers(cfg: ArchConfig, layers, x: torch.Tensor, positions: torch.Tensor, caches,
+                plain_attention: bool, causal: bool = True, enc_out: Optional[torch.Tensor] = None):
+    """``layers`` in order, each recomputed in the backward under autograd
+    and ``cfg.remat`` when no cache is written: (x, the summed aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    for i, layer in enumerate(layers):
+        fn = functools.partial(_apply_layer, cfg, layer, positions=positions,
+                               cache=None if caches is None else caches[i],
+                               plain_attention=plain_attention, causal=causal, enc_out=enc_out)
+        x, a = checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False) if remat else fn(x)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+class Encoder(nn.Module):
+    """Whisper's encoder: ``encoder_layers`` layers of :data:`ENCODER_LAYER`
+    (non-causal attention, RoPE only where ``pos_emb`` is ``rope``) and
+    ``final_norm``."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        self.layers = nn.ModuleList(Layer(cfg, ENCODER_LAYER, gen) for _ in range(cfg.encoder_layers))
+        self.final_norm = RMSNorm(cfg, gen.device)
+
+    def forward(self, frames: torch.Tensor, plain_attention: bool = False) -> torch.Tensor:
+        """frames [B, F, d] (the post-conv frame embeddings, cast to the
+        model's dtype) -> the encoder output [B, F, d]."""
+        cfg = self.cfg
+        positions = torch.arange(frames.shape[1], device=frames.device)
+        x = frames.to(pdtype(cfg))
+        x = x + sinusoidal(positions, cfg.d_model)[None].to(x.dtype)
+        x, _ = _run_layers(cfg, self.layers, x, positions, None, plain_attention, causal=False)
+        return self.final_norm(x)
 
 
 class Transformer(nn.Module):
@@ -133,65 +228,53 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator):
         super().__init__()
-        _check_ported(cfg)
+        _check_config(cfg)
         self.cfg = cfg
         unit, _ = cfg.pattern()
+        self.audio = cfg.arch_type == "audio"
         self.embed = Embed(cfg, generator)
-        self.layers = nn.ModuleList(Layer(cfg, unit[r % len(unit)], generator)
+        self.layers = nn.ModuleList(Layer(cfg, unit[r % len(unit)], generator, cross=self.audio)
                                     for r in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg, generator.device)
+        if self.audio:
+            self.encoder = Encoder(cfg, generator)
 
-    def _embed(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        x = embed_tokens(self.cfg, self.embed, tokens)
+    def _positional(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         if self.cfg.pos_emb == "sinusoidal":
             x = x + sinusoidal(positions, self.cfg.d_model)[None].to(x.dtype)
         return x
 
-    def _layer(self, layer: Layer, x: torch.Tensor, positions: torch.Tensor,
-               cache: Optional[Cache], plain_attention: bool):
-        cfg = self.cfg
-        h = layer.norm1(x)
-        if layer.recurrent:
-            out, state = _RECURRENT[layer.kind].forward(cfg, layer.mixer, h)
-            if cache is not None:
-                for dst, src in zip(cache, state):
-                    dst.copy_(src)
-        else:
-            out, (k, v) = attn.attend_full(cfg, layer.mixer, h, positions, window=layer.window,
-                                           use_rope=layer.use_rope, plain_attention=plain_attention)
-            if cache is not None:
-                _write_prefill(cache, k, v, layer.window)
-        x = x + out
-        aux = None
-        if layer.has_ffn:
-            out, aux = layer.apply_ffn(cfg, layer.norm2(x))
-            x = x + out
-        return x, aux
-
     def forward(
-        self, tokens: torch.Tensor, *, caches: Optional[List[Cache]] = None,
+        self, tokens: torch.Tensor, *, prefix: Optional[torch.Tensor] = None,
+        frames: Optional[torch.Tensor] = None, caches: Optional[List[Cache]] = None,
         plain_attention: bool = False, return_aux: bool = False,
     ):
-        """tokens [B, S] -> final hidden [B, S, d] (with ``return_aux``:
-        (hidden, the MoE layers' summed aux loss, a float32 scalar)).  With
-        ``caches`` (one per layer: a full layer's of at least S slots, a
-        window layer's of ``window``, a recurrent layer's state), each layer
-        writes its K/V or its final state into them in place: prefill fills
-        the decode state this way.  ``plain_attention``
-        (set by ``model.loss_fn``) runs the attention's plain route, as the
-        JAX training forward does."""
-        S = tokens.shape[1]
-        positions = torch.arange(S, device=tokens.device)
-        x = self._embed(tokens, positions)
-        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        remat = self.cfg.remat and caches is None and torch.is_grad_enabled()
-        for i, layer in enumerate(self.layers):
-            fn = functools.partial(self._layer, layer, positions=positions,
-                                   cache=None if caches is None else caches[i],
-                                   plain_attention=plain_attention)
-            x, a = checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False) if remat else fn(x)
-            if a is not None:
-                aux = aux + a
+        """tokens [B, S] -> final hidden [B, P + S, d] (with ``return_aux``:
+        (hidden, the MoE layers' summed aux loss, a float32 scalar)).
+        ``prefix [B, P, d]`` goes before the token embeddings; an audio
+        architecture needs ``frames [B, F, d]`` for its encoder.  With
+        ``caches`` (one per layer: a full layer's of at least P + S slots,
+        a window layer's of ``window``, a recurrent layer's state; an audio
+        layer's paired with a cross cache of F slots), each layer writes its
+        K/V or its final state into them in place: prefill fills the decode
+        state this way.  ``plain_attention`` (set by ``model.loss_fn``)
+        runs the attention's plain route, as the JAX training forward
+        does."""
+        cfg = self.cfg
+        x = embed_tokens(cfg, self.embed, tokens)
+        if prefix is not None:
+            if tuple(prefix.shape) != (x.shape[0], cfg.prefix_tokens, cfg.d_model):
+                raise ValueError(f"{cfg.name}: prefix {tuple(prefix.shape)}, not "
+                                 f"[{x.shape[0]}, {cfg.prefix_tokens}, {cfg.d_model}]")
+            x = torch.cat([prefix.to(x.dtype), x], dim=1)  # embed_scale touched the tokens only
+        positions = torch.arange(x.shape[1], device=tokens.device)
+        x = self._positional(x, positions)
+        enc_out = None
+        if self.audio:
+            if frames is None:
+                raise ValueError(f"{cfg.name}: an audio architecture needs frame embeddings (frames=)")
+            enc_out = self.encoder(frames, plain_attention)
+        x, aux = _run_layers(cfg, self.layers, x, positions, caches, plain_attention, enc_out=enc_out)
         x = self.final_norm(x)
         return (x, aux) if return_aux else x
 
@@ -200,21 +283,28 @@ class Transformer(nn.Module):
     ) -> Tuple[torch.Tensor, List[Cache]]:
         """token [B, 1] at position ``pos`` -> (logits [B, V] float32,
         caches: an attention layer's written in place at its slot for
-        ``pos``, a recurrent layer's the new state)."""
+        ``pos``, a recurrent layer's the new state, a cross cache as it
+        was)."""
         cfg = self.cfg
-        x = self._embed(token, torch.full((1,), pos, device=token.device))
+        x = self._positional(embed_tokens(cfg, self.embed, token), torch.full((1,), pos, device=token.device))
         new_caches = []
         for layer, cache in zip(self.layers, caches):
+            self_c, cross_c = cache if layer.has_cross else (cache, None)
             h = layer.norm1(x)
             if layer.recurrent:
-                out, cache = _RECURRENT[layer.kind].decode(cfg, layer.mixer, h, cache)
+                out, self_c = _RECURRENT[layer.kind].decode(cfg, layer.mixer, h, self_c)
             else:
-                out, cache = attn.attend_decode(cfg, layer.mixer, h, cache, pos,
-                                                window=layer.window, use_rope=layer.use_rope)
+                out, self_c = attn.attend_decode(cfg, layer.mixer, h, self_c, pos,
+                                                 window=layer.window, use_rope=layer.use_rope)
+            if layer.post_norm:
+                out = layer.post_norm1(out)
             x = x + out
+            if layer.has_cross:
+                x = x + attn.attend_decode(cfg, layer.cross, layer.norm_cross(x), cross_c, pos,
+                                           use_rope=False, cross=True)[0]
             if layer.has_ffn:
                 x = x + layer.apply_ffn(cfg, layer.norm2(x))[0]  # an MoE's aux is dropped
-            new_caches.append(cache)
+            new_caches.append((self_c, cross_c) if layer.has_cross else self_c)
         x = self.final_norm(x)
         return unembed(cfg, self.embed, x)[:, 0, :], new_caches
 
@@ -243,12 +333,17 @@ def init_state(cfg: ArchConfig, kind: str, batch: int, device) -> Cache:
 def init_caches(cfg: ArchConfig, batch: int, cache_len: int, device) -> List[Cache]:
     """Zero decode state, one cache per layer: ``[B, cache_len, Kv, D]``,
     a ring of ``min(window, cache_len)`` slots for a window layer, or a
-    recurrent layer's constant-size state."""
+    recurrent layer's constant-size state; an audio architecture pairs each
+    with a cross cache of ``encoder_seq`` slots."""
     unit, _ = cfg.pattern()
 
     def one(desc: LayerDesc) -> Cache:
         if desc.mixer in _RECURRENT:
-            return init_state(cfg, desc.mixer, batch, device)
-        return attn.init_cache(cfg, batch, cache_len, _mixer_window(cfg, desc), pdtype(cfg), device)
+            c = init_state(cfg, desc.mixer, batch, device)
+        else:
+            c = attn.init_cache(cfg, batch, cache_len, _mixer_window(cfg, desc), pdtype(cfg), device)
+        if cfg.arch_type == "audio":
+            return c, attn.init_cache(cfg, batch, cfg.encoder_seq, None, pdtype(cfg), device)
+        return c
 
     return [one(unit[r % len(unit)]) for r in range(cfg.n_layers)]

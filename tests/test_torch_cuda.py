@@ -1188,3 +1188,89 @@ def test_xlstm_train_step_on_the_card_matches_the_cpu_and_launches_no_kernel(dev
     errs = {k: float((mc[k] - v).abs().max() / v.abs().max()) for k, v in mh.items()}
     worst = max(errs, key=errs.get)
     assert errs[worst] <= 1.2e-3, (worst, errs[worst])
+
+
+# -- the pruned configs' features: whisper, gemma2, internvl2 (ROADMAP item 13f) ------------
+
+# (B, H, Hkv, S, T, D, causal, window, softcap) of chip_smoke.py's phase 18 prefills: whisper's
+# encoder, cross and decoder self-attention, gemma2-27b's windowed and full layers, internvl2-26b's
+FRONTEND_FLASH = [
+    (4, 20, 20, 1500, 1500, 64, False, None, None),
+    (4, 20, 20, 64, 1500, 64, False, None, None),
+    (4, 20, 20, 64, 64, 64, True, None, None),
+    (1, 32, 16, 8192, 8192, 128, True, 4096, 50.0),
+    (1, 32, 16, 8192, 8192, 128, True, None, 50.0),
+    (4, 48, 8, 1088, 1088, 128, True, None, None),
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,window,softcap", FRONTEND_FLASH)
+def test_flash_attention_kernel_at_the_front_end_prefill_shapes(dev, B, H, Hkv, S, T, D, causal, window,
+                                                                 softcap):
+    """bf16 at phase 18's shapes against the plain version, run a KV head's
+    group at a time (gemma2's float32 scores would hold 8.6 GB in one
+    call), within the bf16 limit; a second call gives the same bits."""
+    g = torch.Generator().manual_seed(S + T + D)
+    q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
+               for shape in ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+    kw = {"causal": causal, "window": window, "softcap": softcap}
+    got = ops.flash_attention(q, k, v, **kw)
+    gs = H // Hkv
+    want = torch.cat([ref.attention_ref(q[:, j * gs:(j + 1) * gs], k[:, j:j + 1], v[:, j:j + 1], **kw)
+                      for j in range(Hkv)], dim=1)
+    torch.cuda.synchronize()
+    assert torch.equal(ops.flash_attention(q, k, v, **kw), got)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=4e-3)
+
+
+def _frontend_cfg(name):
+    """The reduced variant of chip_smoke.py's ``FRONTEND_ARCHS[name]`` (the
+    seed's config literal), float32."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.configs.base import ArchConfig
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return ArchConfig(**smoke.FRONTEND_ARCHS[name]).reduced()
+
+
+@pytest.mark.parametrize("name,flash", [("whisper", 6), ("gemma2", 4), ("internvl2", 2)])
+def test_front_end_prefill_and_decode_on_the_card_match_a_forward_and_the_cpu(dev, name, flash):
+    """The reduced three in float32 with their prefix or frames: a
+    128-token prefill (one flash_attention launch an attention sublayer:
+    whisper's 2 encoder, 2 self and 2 cross) and 8 decode steps, equal to
+    the CPU's at 1e-3, the last step against a cache-free forward on the
+    card at the JAX test's atol 5e-4, rtol 5e-3."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import unembed
+
+    cfg = _frontend_cfg(name)
+    model = serve.build(cfg, 0, dev)
+    tok = torch.randint(0, cfg.vocab_size, (2, 136), generator=torch.Generator().manual_seed(0))
+    extras = serve.front_end_inputs(cfg, 2, torch.Generator().manual_seed(1))
+    P = cfg.prefix_tokens if "prefix" in extras else 0
+
+    def run(m, t, ex):
+        before = ops.launch_counts()["flash_attention"]
+        out, st = M.prefill(m, {"tokens": t[:, :128], **ex}, cache_len=P + 136)
+        launched = ops.launch_counts()["flash_attention"] - before
+        assert st.pos == P + 128
+        outs = [out]
+        for s in range(128, 136):
+            out, st = M.serve_step(m, st, t[:, s:s + 1])
+            outs.append(out)
+        return torch.stack(outs), launched
+
+    on_card, launched = run(model, tok.to(dev), {k: v.to(dev) for k, v in extras.items()})
+    assert launched == flash
+    with torch.no_grad():
+        whole = unembed(cfg, model.embed, model(tok.to(dev), **{k: v.to(dev) for k, v in extras.items()})[:, -1:])
+    torch.testing.assert_close(on_card[-1], whole[:, 0], rtol=5e-3, atol=5e-4)
+    model.to("cpu")
+    on_cpu, _ = run(model, tok, extras)
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=0, atol=1e-3)

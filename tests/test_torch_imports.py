@@ -469,3 +469,42 @@ def test_get_arch_of_an_unknown_architecture_raises():
 
     with pytest.raises(KeyError, match="gemma-2b"):
         get_arch("no-such-arch")
+
+
+@pytest.mark.parametrize("path", ["src/repro_torch/models/attention.py", "src/repro_torch/models/transformer.py",
+                                  "src/repro_torch/models/model.py", "src/repro_torch/convert.py",
+                                  "src/repro_torch/launch/serve.py", "src/repro_torch/configs/base.py"])
+def test_front_end_modules_import_neither_jax_nor_the_jax_package(path):
+    mods = [mod for _, mod in _imported_modules(REPO / path)]
+    assert mods and not [mod for mod in mods if _forbidden(mod)], mods
+
+
+def _frontend_arch(name):
+    import importlib.util
+
+    from repro_torch.configs.base import ArchConfig
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return ArchConfig(**smoke.FRONTEND_ARCHS[name])
+
+
+@pytest.mark.parametrize("name", ["whisper", "gemma2", "internvl2"])
+def test_front_end_serving_and_training_default_to_cuda_and_raise_without_a_card(name, monkeypatch):
+    """``launch.serve`` (its ``generate`` draws the prefix or frames on the
+    card) and the train state of an audio, a post-norm and a VLM
+    architecture land on the card unless the caller asks for the CPU."""
+    _no_card()
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    full = _frontend_arch(name)
+    monkeypatch.setattr(serve, "get_arch", lambda arch: full)
+    for argv in (["--tokens", "1"], ["--tokens", "1", "--full", "--layers", "2"]):
+        with pytest.raises(RuntimeError, match=r"'cuda' requested.*pass device='cpu'"):
+            serve.main(["--arch", full.name, *argv])
+    with pytest.raises(RuntimeError, match=r"'cuda' requested.*pass device='cpu'"):
+        M.init_train_state(full.reduced(), torch.Generator().manual_seed(0))
+    st = M.init_train_state(full.reduced(), torch.Generator().manual_seed(0), device="cpu")
+    assert all(p.device.type == "cpu" for p in st.params.parameters())

@@ -262,13 +262,3 @@ def test_model_params_from_numpy_checks_the_tree(pair):
     unit = {"L0": {k: v for k, v in tree["unit"]["L0"].items() if k != "norm2"}}
     with pytest.raises(ValueError, match="norm2"):
         model_params_from_numpy(cfg, {**tree, "unit": unit}, device="cpu")
-
-
-@pytest.mark.parametrize("changes", [
-    {"post_norm": True},
-    {"arch_type": "audio"},
-])
-def test_unported_branches_raise(changes):
-    cfg = dataclasses.replace(get_arch("gemma-2b").reduced(), **changes)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        Transformer(cfg, torch.Generator().manual_seed(0))

@@ -212,23 +212,3 @@ def test_chunked_global_full_layers_drop_rope():
     model = Transformer(cfg, torch.Generator().manual_seed(0))
     assert [(layer.window, layer.use_rope) for layer in model.layers] == \
         [(64, True), (64, True), (None, False)] * 2
-
-
-@pytest.mark.parametrize("changes,item", [
-    ({"post_norm": True}, "13f"),
-    ({"arch_type": "audio"}, "13f"),
-    ({"arch_type": "vlm"}, "13f"),
-], ids=["post_norm", "audio", "vlm"])
-def test_unported_patterns_raise_naming_their_item(changes, item):
-    cfg = dataclasses.replace(get_arch("gemma-2b").reduced(), **changes)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-        Transformer(cfg, torch.Generator().manual_seed(0))
-
-
-def test_a_prefix_or_frames_batch_raises_naming_13f(pair):
-    _, _, cfg, model = pair
-    tok = torch.from_numpy(_tokens(24, (B, 17)))
-    for extra in ({"prefix": torch.zeros(B, 4, 128)}, {"frames": torch.zeros(B, 4, 128)}):
-        with pytest.raises(NotImplementedError, match="item 13f"):
-            M.loss_fn(cfg, model, {"tokens": tok, **extra})
-
