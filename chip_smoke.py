@@ -270,7 +270,26 @@ Phases, each of which raises (non-zero exit) on failure:
    1500, 64]`` non-causal, its cross-attention 64 queries against 1500
    keys, its decoder self-attention, gemma2's windowed and full layers with
    the softcap, internvl2's ``[4, 48, 1088, 128]`` over 8 KV heads), each
-   also replayed from a CUDA graph with the eager bits.
+   also replayed from a CUDA graph with the eager bits;
+19. the production mesh: (a) grok-1-314b's MoE layer at full width, 1
+   layer, batch 2 x 4096, through the data-parallel dispatch on 2 gloo
+   ranks of a (2, 1) mesh sharing the card, each rank against one
+   process's ``_moe_dense(x, G=2)`` and the aux the mean of the local ones;
+   (b) ``repro_torch.launch.dryrun`` of gemma-2b and grok-1-314b
+   ``train_4k`` and ``--fl-round`` on the (16, 16) mesh on the host; (c) a
+   (1, 1)-mesh dry-run of gemma-2b's prefill at phase 8's 4 x 64 whose
+   argument bytes and FLOPs equal the card's for the same params and inputs.
+
+Phase 7's engines serve from the process-wide cache of CUDA graphs
+(``serve/compile_cache.py``): a program's first batch runs eagerly and
+captures a graph holding one ``vote_argmax``, every later batch replays it
+(the replay counts its launch), so the count stays one launch a batch.
+Phase 7 also drives the same artifact and traffic through an engine that
+runs every batch eagerly (votes equal bit for bit, both req/s and p50/p99
+logged); phase 10 serves a mix with an emptied group (its program skips
+the group); phase 12 (f) serves three tenants of one structure from one
+program (2 hits, a swap builds none) and captures a new tenant's graph
+while another tenant's scheduler serves from its own thread.
 
 Each phase's seconds are printed at the end.  The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Without a card, or beside no copy of
@@ -278,6 +297,8 @@ the repo, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import re
@@ -389,9 +410,15 @@ FLASH_CASES = {
     "gemma2_window_8192_softcap": (1, 32, 16, 8192, 8192, 128, True, 4096, 50.0, True),
     "gemma2_8192_softcap": (1, 32, 16, 8192, 8192, 128, True, None, 50.0, True),
     "internvl2_1088": (4, 48, 8, 1088, 1088, 128, True, None, None, True),
+    # whisper's encoder over float32 frames runs in float32, as the JAX
+    # package's does, and so does its cross-attention against the float32
+    # encoder output: the float32 (CUDA-core) route at these two shapes
+    "whisper_encoder_1500_f32": (4, 20, 20, 1500, 1500, 64, False, None, None, False),
+    "whisper_cross_64x1500_f32": (4, 20, 20, 64, 1500, 64, False, None, None, False),
 }
 FRONTEND_FLASH = ("whisper_encoder_1500", "whisper_cross_64x1500", "whisper_self_64",
-                  "gemma2_window_8192_softcap", "gemma2_8192_softcap", "internvl2_1088")
+                  "gemma2_window_8192_softcap", "gemma2_8192_softcap", "internvl2_1088",
+                  "whisper_encoder_1500_f32", "whisper_cross_64x1500_f32")
 # timed: both routes, bf16 at gemma-2b's shapes and float32 at "ragged"
 FLASH_TIMED = ("gemma_serve", "gemma_2048", "ragged", "gemma_window_8192", "gemma_8192",
                "grok_8192_softcap", "llama4_window_16384", "llama4_16384") + FRONTEND_FLASH
@@ -421,9 +448,10 @@ TRAIN_OPT = {"lr": 3e-4, "warmup_steps": 1, "total_steps": 100}
 # tolerances against the JAX package (measured there at most 1.2e-7, 7.2e-7
 # and 2.9e-5)
 TRAIN_TOL = {"loss_rtol": 1e-5, "gnorm_atol": 1e-4, "param_atol": 1e-4}
-# (c) the training driver: 300 steps of lm100m, then 600 more from its checkpoint (a
-# schedule of 600 steps entered at step 301: 1.7e-3 decaying to its 3e-4 floor)
-CLI_STEPS, RESUME_STEPS = 300, 600
+# (c) the training driver: 150 steps of lm100m, then 300 more from its checkpoint (a
+# schedule of 300 steps entered at step 151); cut from 300 and 600 to keep the
+# whole run inside its time limit
+CLI_STEPS, RESUME_STEPS = 150, 300
 # (d) gemma2's local/global layout on gemma-2b: the window Gemma 2 publishes
 # (arXiv:2408.00118), a prompt of two windows, decode steps past the ring
 WINDOWED = {"window": 4096, "prompt": 8192, "steps": 32}
@@ -1640,21 +1668,66 @@ def profile_round(torch, fl_run, card: str, rounds: int = MAIN["rounds"], label:
 
 def run_serve(torch, ops, ref, serve_fl, argv: list, what: str) -> tuple:
     """One ``serve_fl`` invocation as a user would make it, with every
-    launch count set to 0 just before; checks one ``vote_argmax`` launch
-    per batch and per warm-up, and no plain version on the card (the
-    cache-equals-engine check is serve_fl's own: it raises)."""
+    launch count set to 0 and the process's predict programs dropped just
+    before (so the run builds its own); checks the ``vote_argmax``
+    launches and no plain version on the card (the cache-equals-engine
+    check is serve_fl's own: it raises).  One launch a batch and a warm-up:
+    a program's first batch runs eagerly and captures a graph holding one
+    ``vote_argmax`` (a capture, no launch), every later batch replays it
+    (a launch, which the replay counts)."""
+    from repro_torch.serve import compile_cache
+
     log(f"$ python -m repro_torch.launch.serve_fl {' '.join(argv)}")
     calls = dict(ref.device_calls)
+    compile_cache.clear_cache()
     ops.reset_launches()
     out = serve_fl.main(argv)
-    launches = ops.launch_counts()
+    launches, captures = ops.launch_counts(), ops.capture_counts()
     st = out["stats"]
-    check(launches["vote_argmax"] == st.batches + st.warmup_batches,
+    served = st.batches + st.warmup_batches
+    check(launches["vote_argmax"] == served,
           f"{what}: {launches['vote_argmax']} vote_argmax launches for {st.batches} batches "
           f"and {st.warmup_batches} warm-ups")
+    check(st.graph_replays == served - st.compiles and st.compiles >= 1,
+          f"{what}: {st.graph_replays} graph replays for {served} batches, {st.compiles} programs built")
+    graphs = [p for p in compile_cache._CACHE.values() if isinstance(p, compile_cache.GraphProgram)]
+    check(all(g.captured == {"vote_argmax": 1} for g in graphs),
+          f"{what}: a graph's kernels {[g.captured for g in graphs]}, not one vote_argmax")
+    check(captures["vote_argmax"] == st.compiles,
+          f"{what}: {captures['vote_argmax']} vote_argmax captures for {st.compiles} programs built")
     check(ref.device_calls == calls, f"{what}: a plain version ran on CUDA tensors: {ref.device_calls}")
     check(0.0 < out["f1"] <= 1.0, f"{what}: F1 {out['f1']} outside (0, 1]")
+    out["captures"] = captures["vote_argmax"]
+    out["replayed_launches"] = sum(g.captured["vote_argmax"] * g.replays for g in graphs)
     return out, launches
+
+
+def eager_serve(torch, ops, ref, serve_fl, path: Path) -> dict:
+    """``serve_fl``'s sync engine loop over pendigits' test split for
+    ``WINDOW_S``, from an engine that runs every batch eagerly
+    (``EngineConfig(cuda_graphs=False)``): the comparison the cached
+    graphs are held to.  One launch a batch, no capture."""
+    import types
+
+    from repro_torch.data import get_dataset
+    from repro_torch.serve import EngineConfig, ServeEngine, load_artifact
+
+    art = load_artifact(path)
+    Xte = get_dataset("pendigits", torch.Generator().manual_seed(0))[1][2].numpy()
+    engine = ServeEngine.from_artifact(art, config=EngineConfig(cuda_graphs=False))
+    engine.warmup()
+    args = types.SimpleNamespace(request_rows=REQUEST_ROWS, policy="sync")
+    calls = dict(ref.device_calls)
+    ops.reset_launches()
+    pred, served, dt, _ = serve_fl._drive_engine(args, engine, Xte, WINDOW_S)
+    launches, st = ops.launch_counts()["vote_argmax"], engine.stats
+    check(launches == st.batches and st.graph_replays == 0 and ops.capture_counts()["vote_argmax"] == 0,
+          f"eager engine: {launches} vote_argmax launches for {st.batches} batches, "
+          f"{st.graph_replays} graph replays")
+    check(ref.device_calls == calls, f"eager engine: a plain version ran on CUDA tensors: {ref.device_calls}")
+    lat = st.request_latencies
+    return {"pred": pred, "requests": served, "seconds": dt, "p50_ms": 1e3 * lat.percentile(50),
+            "p99_ms": 1e3 * lat.percentile(99), "stats": st}
 
 
 def card_vs_cpu(torch, path: Path, dataset: str, card_pred, what: str) -> str:
@@ -1697,6 +1770,13 @@ def serve_phase(torch, ops, ref, card: str) -> dict:
                             ["--dataset", "pendigits", "--artifact", str(art), "--load",
                              "--policy", "deadline", *window], "pendigits deadline (--load)")
     check(bool((sync["pred"] == deadline["pred"]).all()), "the loaded artifact served other votes")
+    # the same artifact and traffic served eagerly: the cached graphs' votes
+    # bit for bit, and the eager figures beside the graphs' in the same run
+    log("the same artifact and traffic through serve_fl's sync loop from an eager engine")
+    eager = eager_serve(torch, ops, ref, serve_fl, art)
+    check(bool((eager["pred"] == sync["pred"]).all()),
+          f"cached CUDA graphs served other votes than the eager engine on "
+          f"{int((eager['pred'] != sync['pred']).sum())} rows")
     pub_dir = SERVE / "pendigits_pub"
     shutil.rmtree(pub_dir, ignore_errors=True)
     pub, _ = run_serve(torch, ops, ref, serve_fl,
@@ -1709,7 +1789,7 @@ def serve_phase(torch, ops, ref, card: str) -> dict:
                           "letter 100 rounds")
     log(card_vs_cpu(torch, art, "pendigits", sync["pred"], "pendigits"))
     log(card_vs_cpu(torch, letter_art, "letter", letter["pred"], "letter"))
-    rows = {"sync": sync, "deadline": deadline, "letter sync": letter}
+    rows = {"sync": sync, "sync, eager engine": eager, "deadline": deadline, "letter sync": letter}
     log(f"serving on {card}: " + "; ".join(
         f"{k} {v['requests']} requests in {v['seconds']:.3f} s = {v['requests'] / v['seconds']:.0f} "
         f"req/s p50 {v['p50_ms']:.3f} ms p99 {v['p99_ms']:.3f} ms "
@@ -1718,9 +1798,16 @@ def serve_phase(torch, ops, ref, card: str) -> dict:
         + (f", queue wait p50 {v['wait_p50_ms']:.3f} ms p99 {v['wait_p99_ms']:.3f} ms"
            if "wait_p50_ms" in v else "") + ")"
         for k, v in rows.items()))
+    log(f"phase 7 cached CUDA graphs against the eager engine on {card} (pendigits, sync, "
+        f"{WINDOW_S} s each): graphs {sync['requests'] / sync['seconds']:.0f} req/s p50 {sync['p50_ms']:.3f} "
+        f"ms p99 {sync['p99_ms']:.3f} ms; eager {eager['requests'] / eager['seconds']:.0f} req/s p50 "
+        f"{eager['p50_ms']:.3f} ms p99 {eager['p99_ms']:.3f} ms; votes equal bit for bit "
+        f"({len(sync['pred'])} rows); {sync['stats'].graph_replays} graph replays")
     profile_serving(torch, art, card)
     st = sync["stats"]
-    return launches, st.batches + st.warmup_batches
+    return launches, {"batches": st.batches + st.warmup_batches, "graph_replays": st.graph_replays,
+                      "replayed_launches": sync["replayed_launches"], "captures": sync["captures"],
+                      "programs_built": st.compiles}
 
 
 def profile_serving(torch, path: Path, card: str) -> None:
@@ -1942,6 +2029,7 @@ def hetero_serving(torch, ops, ref, fl_run, card: str) -> None:
         f"{st.batches} batches and {st.warmup_batches} warm-up, F1 {loaded['f1']:.4f}, batch p50 "
         f"{1e3 * st.batch_seconds.percentile(50):.3f} ms; vote cache {loaded['cache']}")
     log(card_vs_cpu(torch, final, "pendigits", loaded["pred"], "pendigits heterogeneous"))
+    empty_group_serving(torch, final, card)
 
     pubc = SERVE / "pendigits_hetero_distboost"
     shutil.rmtree(pubc, ignore_errors=True)
@@ -1967,6 +2055,28 @@ def hetero_serving(torch, ops, ref, fl_run, card: str) -> None:
         f"{ridge['stats'].batches} batches and {ridge['stats'].warmup_batches} warm-up, "
         f"F1 {ridge['f1']:.4f}")
     log(card_vs_cpu(torch, ridge_art, "pendigits", ridge["pred"], "pendigits ridge"))
+
+
+def empty_group_serving(torch, path: Path, card: str) -> None:
+    """The heterogeneous engine with its second group emptied (count 0):
+    its program skips the group (the active mask keys it), and the cached
+    graph's votes equal the eager engine's bit for bit."""
+    from repro_torch.data import get_dataset
+    from repro_torch.serve import EngineConfig, ServeEngine, load_artifact
+
+    art = load_artifact(path)
+    ens = tuple(e._replace(count=0) if g == 1 else e for g, e in enumerate(art.ensemble))
+    X = get_dataset("pendigits", torch.Generator().manual_seed(0))[1][2].numpy()
+    graphs = ServeEngine(None, art.spec, ens)
+    eager = ServeEngine(None, art.spec, ens, config=EngineConfig(cuda_graphs=False))
+    got, want = graphs.predict(X), eager.predict(X)
+    mask = graphs._active_key(graphs.ensemble, graphs._live[2])
+    check(mask is not None and not mask[1] and all(m for g, m in enumerate(mask) if g != 1),
+          f"empty group: active mask {mask}")
+    check(bool((got == want).all()), f"empty group: graphs and eager differ on {int((got != want).sum())} rows")
+    check(graphs.stats.graph_replays == graphs.stats.batches, f"empty group: {graphs.stats}")
+    log(f"phase 10 heterogeneous engine with group 1 emptied on {card}: active mask {mask}, cached graph "
+        f"= the eager engine bit for bit on {len(got)} rows ({graphs.stats.graph_replays} replays)")
 
 
 # -- phase 11: the interpreted round, FedAvg and the §5.1 flags -------------------------
@@ -2263,14 +2373,21 @@ def registry_phase(torch, ops, ref, fl_run, card: str) -> dict:
 
     tests = {ds: get_dataset(ds, torch.Generator().manual_seed(0))[1][2].numpy()
              for ds in ("adult", "pendigits", "letter")}
-    before = {n: reg.engine(n).stats.batches + reg.engine(n).stats.warmup_batches for n in stats}
+    def counts(n):
+        st = reg.engine(n).stats
+        return st.batches + st.warmup_batches, st.graph_replays, st.compiles
+
+    before = {n: counts(n) for n in stats}
     calls = dict(ref.device_calls)
     ops.reset_launches()
     preds = {n: reg.predict(n, tests[n]) for n in reg.tenants()}
     launches = ops.launch_counts()["vote_argmax"]
-    served = sum(reg.engine(n).stats.batches + reg.engine(n).stats.warmup_batches - before[n]
-                 for n in stats)
-    check(launches == served, f"registry: {launches} vote_argmax launches for {served} batches")
+    served, replays, built = (sum(counts(n)[i] - before[n][i] for n in stats) for i in range(3))
+    # one launch a batch: a program's first batch runs eagerly and captures
+    # its graph, every later batch replays it
+    check(launches == served and replays == served - built,
+          f"registry: {launches} vote_argmax launches and {replays} graph replays for {served} "
+          f"batches, {built} programs built")
     check(ref.device_calls == calls, "registry: a plain version ran on CUDA tensors")
     rows = []
     for n in reg.tenants():
@@ -2278,8 +2395,9 @@ def registry_phase(torch, ops, ref, fl_run, card: str) -> dict:
         alone = ServeEngine.from_artifact(load_artifact(path)).predict(tests[n])
         check(bool((alone == preds[n]).all()), f"registry {n}: other votes than a standalone engine")
         rows.append(card_vs_cpu(torch, path, n, preds[n], f"registry {n}"))
-    log("phase 12 (f) registry: " + "; ".join(rows) + f"; swaps/rebuilds {got}, {launches} "
-        f"vote_argmax launches for {served} batches")
+    log("phase 12 (f) registry: " + "; ".join(rows) + f"; swaps/rebuilds {got}, {replays} graph "
+        f"replays for {served} batches, {launches} vote_argmax launches for {built} programs built")
+    shared_programs(torch, card)
 
     perf = []
     for n in reg.tenants():
@@ -2314,6 +2432,99 @@ def registry_phase(torch, ops, ref, fl_run, card: str) -> dict:
         f"{1e3 * dt:.3f} ms = {len(X) / dt:.0f} rows/s, latency p50 {1e3 * st.percentile(50):.3f} ms "
         f"p99 {1e3 * st.percentile(99):.3f} ms, queue wait p50 {1e3 * waits.percentile(50):.3f} ms")
     return {"vote_argmax": launches}
+
+
+def shared_programs(torch, card: str) -> None:
+    """(f) three tenants of one structure (phase 7's pendigits artifact
+    published to three streams) share one program: 1 built, 2 hits, their
+    votes an eager engine's bit for bit; a swap to a new checkpoint of the
+    same structure builds nothing."""
+    from repro_torch.data import get_dataset
+    from repro_torch.serve import EngineConfig, ModelRegistry, ServeEngine, compile_cache, load_artifact
+    from repro_torch.serve import publish_artifact
+
+    art = load_artifact(SERVE / "pendigits.mafl")
+    X = get_dataset("pendigits", torch.Generator().manual_seed(0))[1][2].numpy()
+    root = SERVE / "registry_shared"
+    shutil.rmtree(root, ignore_errors=True)
+    for t in ("a", "b", "c"):
+        publish_artifact(root / t, art.spec, art.ensemble, version=1)
+    compile_cache.clear_cache()
+    reg = ModelRegistry()
+    for t in ("a", "b", "c"):
+        reg.add_tenant(t, root / t)
+    eager = ServeEngine.from_artifact(art, config=EngineConfig(cuda_graphs=False)).predict(X)
+    for t in ("a", "b", "c"):
+        check(bool((reg.predict(t, X) == eager).all()), f"shared program: tenant {t} served other votes")
+    s = reg.stats()
+    built = sum(v["compiles"] for v in s["tenants"].values())
+    hits = sum(v["cache_hits"] for v in s["tenants"].values())
+    check((built, hits, s["compile_cache"]["programs"]) == (1, 2, 1),
+          f"three tenants of one structure: {built} programs built, {hits} hits, cache {s['compile_cache']}")
+    doubled = art.ensemble._replace(alpha=art.ensemble.alpha * 2.0)
+    publish_artifact(root / "a", art.spec, doubled, version=2)
+    check(reg.refresh() == {"a": 2}, "shared program: the new checkpoint was not found")
+    reg.predict("a", X)
+    after = reg.stats()
+    new = sum(v["compiles"] for v in after["tenants"].values()) - built
+    check(new == 0 and after["tenants"]["a"]["swaps"] == 1 and after["compile_cache"]["programs"] == 1,
+          f"a swap built {new} programs: {after}")
+    log(f"phase 12 (f) three tenants of one structure on {card}: {built} program built, {hits} hits, votes "
+        f"= an eager engine's bit for bit; a swap built {new} programs ({after['compile_cache']})")
+    capture_beside_serving(torch, reg, X, card)
+
+
+def capture_beside_serving(torch, reg, X, card: str) -> None:
+    """A tenant of another structure (phase 7's letter artifact) is added
+    and captures its graph while tenant ``b``'s deadline scheduler serves
+    pendigits from its own thread: the capture is thread-local, so neither
+    side raises, and both answer as eager engines do."""
+    import threading
+
+    from repro_torch.data import get_dataset
+    from repro_torch.serve import EngineConfig, ServeEngine, load_artifact, publish_artifact
+
+    letter = load_artifact(SERVE / "letter.mafl")
+    Xl = get_dataset("letter", torch.Generator().manual_seed(0))[1][2].numpy()
+    want_b = ServeEngine.from_artifact(load_artifact(SERVE / "pendigits.mafl"),
+                                       config=EngineConfig(cuda_graphs=False)).predict(X)
+    want_d = ServeEngine.from_artifact(letter, config=EngineConfig(cuda_graphs=False)).predict(Xl)
+    root = SERVE / "registry_shared"
+    publish_artifact(root / "d", letter.spec, letter.ensemble, version=1)
+    answers, errors, stop, started = [], [], threading.Event(), threading.Event()
+    eng = reg.engine("b")
+    with eng.scheduler(t_max_s=0.0005) as sched:
+        def traffic():
+            try:
+                while not stop.is_set():
+                    ids = []
+                    for i in range(0, len(X), REQUEST_ROWS):
+                        ids += sched.submit(X[i:i + REQUEST_ROWS])
+                    answers.append(sched.results(ids, timeout_s=60.0))
+                    started.set()
+            except Exception as e:  # reported by the check below
+                errors.append(e)
+                started.set()
+
+        t = threading.Thread(target=traffic)
+        t.start()
+        check(started.wait(60.0), "capture beside serving: no pass served")
+        before = eng.stats.batches
+        reg.add_tenant("d", root / "d")
+        got_d = reg.predict("d", Xl)
+        during = eng.stats.batches - before
+        stop.set()
+        t.join(120.0)
+    check(not errors and not t.is_alive(), f"capture beside serving: the serving thread failed: {errors}")
+    built = reg.engine("d").stats.compiles
+    check(built == 1 and during > 0, f"capture beside serving: {built} programs built, {during} batches "
+          f"served meanwhile")
+    check(bool((got_d == want_d).all()), "capture beside serving: the new tenant served other votes")
+    check(all(bool((a == want_b).all()) for a in answers),
+          "capture beside serving: the serving tenant served other votes")
+    log(f"phase 12 (f) a letter tenant added and its graph captured on {card} while tenant b's scheduler "
+        f"served {during} pendigits batches from its own thread: both = eager engines bit for bit "
+        f"({len(answers)} passes)")
 
 
 def elastic_round_cost(torch, ops, fl_run, card: str) -> None:
@@ -3304,6 +3515,24 @@ def counted_serve(torch, ops, ref, what: str, call, flash: int, shape: tuple, vo
     return out, launches, peak
 
 
+@contextlib.contextmanager
+def flash_routes(ops):
+    """Counts the ``flash_attention`` calls made inside by (q's dtype, S,
+    T, causal): the route each attention takes (bf16: TMA + wgmma, float32:
+    CUDA cores)."""
+    seen, inner = collections.Counter(), ops.flash_attention
+
+    def recording(q, k, v, **kw):
+        seen[(str(q.dtype).replace("torch.", ""), q.shape[2], k.shape[2], kw.get("causal", True))] += 1
+        return inner(q, k, v, **kw)
+
+    ops.flash_attention = recording
+    try:
+        yield seen
+    finally:
+        ops.flash_attention = inner
+
+
 def prefill_twice_and_decode(torch, model, tok, S: int, N: int, what: str, first_ctx=None,
                              extras=None) -> tuple:
     """Two prefills of ``tok[:, :S]`` with the batch's ``extras`` (a
@@ -3923,7 +4152,15 @@ def frontend_serving(torch, ops, ref, card: str, tag: str) -> dict:
     extras = serve.front_end_inputs(cfg, B, torch.Generator(device=DEV).manual_seed(2))
     P = cfg.prefix_tokens if "prefix" in extras else 0
     ops.reset_launches()
-    timed, again, st = prefill_twice_and_decode(torch, model, tok, S, N, tag, extras=extras)
+    with flash_routes(ops) as routes:
+        timed, again, st = prefill_twice_and_decode(torch, model, tok, S, N, tag, extras=extras)
+    log(f"phase 18 {tag}: flash_attention routes over two prefills (q dtype, S x T, causal: launches): "
+        + "; ".join(f"{d} {s}x{t} {'causal' if c else 'non-causal'}: {n}" for (d, s, t, c), n in routes.items()))
+    if cfg.arch_type == "audio":  # float32 frames: the encoder and cross-attention run float32
+        f32 = {(s, t, c): n for (d, s, t, c), n in routes.items() if d == "float32"}
+        want = {(cfg.encoder_seq, cfg.encoder_seq, False): 2 * cfg.encoder_layers, (S, cfg.encoder_seq, False):
+                2 * cfg.n_layers}
+        check(f32 == want, f"{tag}: float32 flash routes {f32}, not the encoder's and the cross's {want}")
     per_prefill = ops.launch_counts()["flash_attention"] / 2
     check(per_prefill == run["flash"], f"{tag}: {per_prefill} flash_attention launches a prefill, not {run['flash']}")
     check(st.pos == P + S + N, f"{tag}: the state's position {st.pos} after {N} steps, not P + S + N = {P + S + N}")
@@ -3976,6 +4213,189 @@ def frontend_phase(torch, ops, ref, card: str) -> dict:
     runs = {tag: frontend_serving(torch, ops, ref, card, tag) for tag in FRONTEND_ARCHS}
     frontend_card_vs_cpu(torch, card)
     return runs
+
+
+# -- phase 19: the data-parallel MoE dispatch and the production-mesh dry-run ------------
+
+# (a) grok-1-314b at full width (hf:xai-org/grok-1: d_model 6144, 8 experts of
+# d_ff 32768, top-2), one MoE layer, batch 2 x 4096 in bf16, on 2 gloo ranks
+# of a (2, 1) ("data", "model") mesh sharing the card; each rank dispatches
+# its own row (set_dispatch_groups(2) under shardings.use_mesh)
+MOE_DP = {"arch": "grok-1-314b", "batch": 2, "seq": 4096, "ranks": 2}
+# bf16 against one process's _moe_dense(x, G=2): the same products at other
+# batch shapes round apart; the limit is 2x the gap measured on NVIDIA H100
+# 80GB HBM3 at 700 W (0.001953: one bf16 ulp at the outputs' magnitude)
+MOE_DP_TOL = {"atol": 0.004, "rtol": 0.0}
+MOE_DP_CHILD = r"""
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs import get_arch
+from repro_torch.fl import distributed
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import moe, shardings
+coord, ranks, rank, inp, out = sys.argv[2:7]
+ranks, rank = int(ranks), int(rank)
+distributed.initialize(coord, ranks, rank)
+mesh = make_mesh((ranks, 1), ("data", "model"))
+cfg = get_arch("grok-1-314b").with_layers(1)
+m = moe.MoE(cfg, torch.Generator(device="cuda").manual_seed(0))
+x = torch.load(inp)
+rows = x.shape[0] // ranks
+i = mesh.coords["data"]
+mine = x[i * rows:(i + 1) * rows].to("cuda")
+moe.set_dispatch_groups(ranks)
+with shardings.use_mesh(mesh):
+    moe.apply_moe(cfg, m, mine)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, aux = moe.apply_moe(cfg, m, mine)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+local = float(moe._moe_dense(cfg, m, mine, 1)[1])
+torch.save(y.cpu(), out + f".{rank}.pt")
+print("MOEDP " + json.dumps({"coord": i, "aux": float(aux), "local_aux": local, "ms": ms}), flush=True)
+distributed.shutdown()
+"""
+
+
+def moe_dispatch_phase(torch, card: str) -> dict:
+    """(a) each rank's output against this process's ``_moe_dense(x, G=2)``
+    on the whole batch at ``MOE_DP_TOL``; each rank's aux loss the mean of
+    the two local ones (float32 on the host: the same sum)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import fl_spawn
+    from repro_torch.models import moe
+
+    cfg = get_arch(MOE_DP["arch"]).with_layers(1)
+    B, S, R = MOE_DP["batch"], MOE_DP["seq"], MOE_DP["ranks"]
+    OUT.mkdir(parents=True, exist_ok=True)
+    inp, out = OUT / "moe_dp_x.pt", OUT / "moe_dp_y"
+    x = (torch.randn((B, S, cfg.d_model), generator=torch.Generator().manual_seed(1)) * 0.5).to(torch.bfloat16)
+    torch.save(x, inp)
+    coord = f"127.0.0.1:{fl_spawn.free_port()}"
+    log(f"phase 19 (a) {cfg.name} one MoE layer at full width, {B} x {S} bf16, on {R} gloo ranks of a "
+        f"({R}, 1) mesh sharing the card")
+    ranks = sharded_children(fl_spawn, R, lambda i: [coord, str(R), str(i), str(inp), str(out)],
+                             MOE_DP_CHILD, "moe_dp", "MOEDP")
+    m = moe.MoE(cfg, torch.Generator(device=DEV).manual_seed(0))
+    xd = x.to(DEV)
+    moe._moe_dense(cfg, m, xd, R)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, _ = moe._moe_dense(cfg, m, xd, R)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    local = [float(moe._moe_dense(cfg, m, xd[g * (B // R):(g + 1) * (B // R)], 1)[1]) for g in range(R)]
+    gaps = []
+    for r in ranks:
+        g = r["coord"]
+        y = torch.load(f"{out}.{ranks.index(r)}.pt").to(DEV).float()
+        ref_rows = want[g * (B // R):(g + 1) * (B // R)].float()
+        gaps.append(max_err(y, ref_rows))
+        check(bool(torch.isclose(y, ref_rows, **MOE_DP_TOL).all()),
+              f"data-parallel dispatch rank {g}: max |diff| {gaps[-1]:.4g} from _moe_dense(x, G={R}) "
+              f"exceeds {MOE_DP_TOL}")
+        check(abs(r["local_aux"] - local[g]) <= 1e-5 * abs(local[g]),
+              f"rank {g}: local aux {r['local_aux']} against this process's {local[g]}")
+    mean = float(sum(torch.tensor(r["local_aux"], dtype=torch.float32) for r in ranks) / R)
+    check(all(abs(r["aux"] - mean) <= 1e-6 * abs(mean) for r in ranks),
+          f"the ranks' aux {[r['aux'] for r in ranks]} is not the mean of their local auxes {mean}")
+    rank_ms = ", ".join("%.2f" % r["ms"] for r in ranks)
+    log(f"phase 19 (a) on {card}: each rank's {B // R} x {S} rows = its rows of _moe_dense(x, G={R}) within "
+        f"max |diff| {max(gaps):.4g} (tol {MOE_DP_TOL}); aux on every rank {ranks[0]['aux']:.6f} = the mean "
+        f"of the ranks' local auxes {[r['local_aux'] for r in ranks]} (this process's {local}); a rank's "
+        f"dispatch {rank_ms} ms (2 ranks sharing the card), one process's G = {R} {ms:.2f} ms")
+    del m, xd, want
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(gaps), "aux": ranks[0]["aux"]}
+
+
+# (b) three dry-run combos on the card machine's host, on the (16, 16) mesh;
+# (c) a (1, 1) dry-run of gemma-2b's prefill at phase 8's batch 4 x 64, held
+# to the same prefill on the card
+DRYRUN_COMBOS = (["--arch", "gemma-2b", "--shape", "train_4k"], ["--arch", "grok-1-314b", "--shape", "train_4k"],
+                 ["--fl-round"])
+DRYRUN_CHILD = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch import roofline
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import InputShape
+from repro_torch.kernels import _build
+from repro_torch.launch import dryrun, serve
+from repro_torch.models import model as M
+out, combos = sys.argv[2], json.loads(sys.argv[3])
+for argv in combos:
+    dryrun.main([*argv, "--out", out, "--force"])
+B, S = 4, 64
+r = dryrun.lower_one("gemma-2b", "prefill_64", "single", input_shape=InputShape("prefill_64", S, B, "prefill"),
+                     mesh_dims=((1, 1), ("data", "model")))
+_build.library()
+torch.cuda.synchronize()
+before = torch.cuda.memory_allocated()
+cfg = get_arch("gemma-2b")
+model = serve.build(cfg, 0, torch.device("cuda"))
+tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(1),
+                       dtype=torch.int32).to("cuda")
+torch.cuda.synchronize()
+held = torch.cuda.memory_allocated() - before
+M.prefill(model, {"tokens": tokens})
+cost = roofline.DeviceCostMode()
+with cost:
+    M.prefill(model, {"tokens": tokens})
+torch.cuda.synchronize()
+print("DRYRUN " + json.dumps({"argument_bytes": r["memory"]["argument_size_in_bytes"], "held": held,
+                              "dry_flops": r["cost"]["flops_per_device"], "card_flops": cost.flops,
+                              "layers": cfg.n_layers, "heads": cfg.n_heads, "hd": cfg.hd}), flush=True)
+"""
+
+
+def dryrun_phase(torch, card: str) -> dict:
+    """(b) ``launch/dryrun.py`` on ``DRYRUN_COMBOS`` over the production
+    mesh (the card machine's host; no card): each combo's bottleneck and
+    three roofline terms.  (c) the (1, 1) dry-run of gemma-2b's prefill:
+    its argument bytes = the bytes the card holds for the same parameters
+    and tokens (``memory_allocated`` before and after); its FLOPs = the
+    card's prefill under the same ``DeviceCostMode`` plus the plain
+    attention's 4·B·H·S·S·D a layer, which the dry-run counts (its fake
+    tensors take the plain route) and the card's ``flash_attention``
+    launches hide from the mode."""
+    out = OUT / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    OUT.mkdir(parents=True, exist_ok=True)
+    log_path = OUT / "dryrun_child.log"
+    argv = [sys.executable, "-c", DRYRUN_CHILD, str(ROOT / "src"), str(out), json.dumps(DRYRUN_COMBOS)]
+    log(f"phase 19 (b)-(c): python -m repro_torch.launch.dryrun "
+        + " ; ".join(" ".join(a) for a in DRYRUN_COMBOS) + " ; a (1, 1) gemma-2b prefill 4 x 64")
+    with open(log_path, "w") as f:
+        rc = subprocess.run(argv, stdout=f, stderr=subprocess.STDOUT, timeout=600).returncode
+    text = log_path.read_text()
+    check(rc == 0, f"dry-run child exited {rc}: {text[-3000:]}")
+    rows = []
+    for name in ("gemma-2b__train_4k__single", "grok-1-314b__train_4k__single",
+                 "mafl-adaboost-f__fl_round__single"):
+        r = json.loads((out / f"{name}.json").read_text())
+        check("error" not in r and "roofline" in r, f"dry-run {name}: {r.get('error')}\n{r.get('traceback')}")
+        t = r["roofline"]
+        rows.append(f"{name}: bottleneck {t['bottleneck']}, compute {t['compute_s']:.4g} s, memory "
+                    f"{t['memory_s']:.4g} s, collective {t['collective_s']:.4g} s ({r['n_devices']} devices, "
+                    f"{r['cost']['flops_per_device']:.4g} FLOPs a device, collectives {r['collectives']['ops']})")
+    log(f"phase 19 (b) dry-run on the card machine's host (bounds from shapes and H100 datasheet peaks): "
+        + "; ".join(rows))
+    line = [ln for ln in text.splitlines() if ln.startswith("DRYRUN ")]
+    check(len(line) == 1, "dry-run child printed no DRYRUN line")
+    c = json.loads(line[0][len("DRYRUN "):])
+    attention = c["layers"] * 4 * 4 * c["heads"] * 64 * 64 * c["hd"]
+    check(c["argument_bytes"] == c["held"],
+          f"(1, 1) dry-run argument bytes {c['argument_bytes']} != the card's {c['held']}")
+    check(c["dry_flops"] == c["card_flops"] + attention,
+          f"(1, 1) dry-run FLOPs {c['dry_flops']} != the card's {c['card_flops']} + attention {attention}")
+    log(f"phase 19 (c) (1, 1) dry-run of gemma-2b prefill 4 x 64 against the card ({card}): argument bytes "
+        f"{c['argument_bytes']} = memory_allocated's {c['held']}; FLOPs {c['dry_flops']:.6g} = the card's "
+        f"{c['card_flops']:.6g} + the plain attention's {attention:.6g} ({c['layers']} layers)")
+    return c
 
 
 def main() -> int:
@@ -4155,7 +4575,7 @@ def main() -> int:
     phase_done(6)
 
     # 7. serving; the pendigits sync run is the serving main path
-    serve_launches, serve_dispatches = serve_phase(torch, ops, ref, card)
+    serve_launches, serve_counts = serve_phase(torch, ops, ref, card)
     launches["vote_argmax"] = serve_launches["vote_argmax"]
     phase_done(7)
 
@@ -4215,6 +4635,12 @@ def main() -> int:
     # cross and window + softcap routes; the reduced three card vs CPU
     frontends = frontend_phase(torch, ops, ref, card)
     phase_done(18)
+
+    # 19. the data-parallel MoE dispatch on 2 gloo ranks at grok-1's full
+    # width; the production-mesh dry-run, and a (1, 1) one held to the card
+    moe_dispatch_phase(torch, card)
+    dryrun_phase(torch, card)
+    phase_done(19)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
 
@@ -4227,7 +4653,16 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name],
             "launches_per_round": launches[name] / MAIN["rounds"] if training else None,
-            "launches_per_batch": launches[name] / serve_dispatches if name == "vote_argmax" else None,
+            # phase 7 serves from cached CUDA graphs: a program's first batch
+            # launches eagerly and captures the graph (wrapper_captures, no
+            # launch), every later batch replays it (replayed_launches: the
+            # graph's captured vote_argmax times its replays); launches is both
+            "launches_per_batch": (launches[name] / serve_counts["batches"]
+                                   if name == "vote_argmax" else None),
+            "replayed_launches": serve_counts["replayed_launches"] if name == "vote_argmax" else None,
+            "wrapper_captures": serve_counts["captures"] if name == "vote_argmax" else None,
+            "graph_replays": serve_counts["graph_replays"] if name == "vote_argmax" else None,
+            "batches": serve_counts["batches"] if name == "vote_argmax" else None,
             "launches_per_prefill": launches[name] if name == "flash_attention" else None,
             # phase 12: the chaos run's training launches, the registry's votes
             "launches_elastic": elastic_launches.get(name, 0),

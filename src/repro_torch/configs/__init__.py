@@ -1,4 +1,4 @@
 """Architecture configurations (the port's copy of ``repro/configs``)."""
-from repro_torch.configs.base import ArchConfig, LayerDesc, get_arch
+from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, InputShape, LayerDesc, all_archs, get_arch
 
-__all__ = ["ArchConfig", "LayerDesc", "get_arch"]
+__all__ = ["INPUT_SHAPES", "ArchConfig", "InputShape", "LayerDesc", "all_archs", "get_arch"]

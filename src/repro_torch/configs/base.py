@@ -21,8 +21,10 @@ encoder of ``encoder_layers`` layers over ``encoder_seq`` frame
 embeddings and a cross-attention sublayer in every decoder layer; a
 ``vlm`` architecture takes ``prefix_tokens`` patch embeddings before its
 tokens; ``post_norm`` (gemma2) norms each sublayer's output before its
-residual add.  ``fsdp`` belongs to the production mesh (item 13g) and is
-not kept.  gemma-2b, xlstm-1.3b, grok-1-314b and llama4-scout-17b-a16e
+residual add.  ``fsdp`` additionally shards a large parameter dimension
+over the production mesh's ``data`` axis (``models/shardings.py``).
+``INPUT_SHAPES`` are the dry-run's four input shapes (``launch/dryrun.py``).
+gemma-2b, xlstm-1.3b, grok-1-314b and llama4-scout-17b-a16e
 are registered, as in the JAX package.  :meth:`ArchConfig.with_layers`
 cuts an architecture's depth (the card's runs of grok-1 and llama4-scout,
 and of xlstm-1.3b's train step).
@@ -82,6 +84,8 @@ class ArchConfig:
     norm_eps: float = 1e-6
     post_norm: bool = False  # gemma2 extra post-norms
     dtype: str = "bfloat16"
+    # Distribution
+    fsdp: bool = False  # additionally shard big param dims over the data axis
     remat: bool = True  # recompute each layer's activations in the backward
 
     @property
@@ -171,8 +175,25 @@ class ArchConfig:
             encoder_seq=min(self.encoder_seq, 32) if self.encoder_seq else 0,
             prefix_tokens=min(self.prefix_tokens, 16) if self.prefix_tokens else 0,
             d_state=8,
+            fsdp=False,
             dtype="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 _ARCH_REGISTRY: Dict[str, ArchConfig] = {}
@@ -189,6 +210,12 @@ def get_arch(name: str) -> ArchConfig:
     if name not in _ARCH_REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_ARCH_REGISTRY)}")
     return _ARCH_REGISTRY[name]
+
+
+def all_archs() -> Dict[str, ArchConfig]:
+    if not _ARCH_REGISTRY:
+        _load_all()
+    return dict(_ARCH_REGISTRY)
 
 
 def _load_all() -> None:

@@ -15,5 +15,6 @@ GEMMA_2B = register_arch(ArchConfig(
     tie_embeddings=True,
     embed_scale=True,
     layer_pattern="full",
+    fsdp=False,
     source="arXiv:2403.08295 (Gemma: Open Models Based on Gemini)",
 ))

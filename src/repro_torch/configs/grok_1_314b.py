@@ -18,5 +18,6 @@ GROK_1_314B = register_arch(ArchConfig(
     logit_softcap=30.0,
     mlp_type="geglu",
     layer_pattern="full",
+    fsdp=True,
     source="hf:xai-org/grok-1 (model card + released config)",
 ))

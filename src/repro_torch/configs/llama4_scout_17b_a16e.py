@@ -21,5 +21,6 @@ LLAMA4_SCOUT_17B_A16E = register_arch(ArchConfig(
     pattern_period=4,  # 3 chunked-local + 1 global
     window=8192,
     mlp_type="swiglu",
+    fsdp=True,
     source="hf:meta-llama/Llama-4-Scout-17B-16E (model card)",
 ))

@@ -13,5 +13,6 @@ XLSTM_1_3B = register_arch(ArchConfig(
     vocab_size=50304,
     layer_pattern="xlstm",
     slstm_every=8,  # xLSTM[7:1] — one sLSTM block per 8
+    fsdp=False,
     source="arXiv:2405.04517 (xLSTM: Extended Long Short-Term Memory)",
 ))

@@ -149,3 +149,16 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = library().repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA launch failed: cudaError {rc} ({msg})")
+
+
+def count(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel: in ``wrapper.launches``, or,
+    when the call is captured into a CUDA graph (which launches nothing
+    until it is replayed), in ``wrapper.captures``.  A graph's replays add
+    their launches themselves (``ops.count_replay``)."""
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captures += 1
+    else:
+        wrapper.launches += 1

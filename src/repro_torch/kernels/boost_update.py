@@ -128,7 +128,7 @@ def weighted_errors(
                 C, H, n, plan.cs, plan.rows, stream,
             )
         _build.check(rc, "weighted_errors")
-        weighted_errors.launches += 1
+        _build.count(weighted_errors)
     return out
 
 
@@ -167,7 +167,7 @@ def weight_update(
                 out.data_ptr(), N, plan.cs, plan.threads, stream,
             )
         _build.check(rc, "weight_update")
-        weight_update.launches += 1
+        _build.count(weight_update)
     return out
 
 
@@ -205,10 +205,13 @@ def weight_update_product(
                 out.data_ptr(), N, plan.blocks, plan.threads, stream,
             )
         _build.check(rc, "weight_update_product")
-        weight_update_product.launches += 1
+        _build.count(weight_update_product)
     return out
 
 
 weighted_errors.launches = 0  # kernel launches since the last reset
+weighted_errors.captures = 0  # calls captured into a CUDA graph
 weight_update.launches = 0
+weight_update.captures = 0
 weight_update_product.launches = 0
+weight_update_product.captures = 0

@@ -143,8 +143,9 @@ def flash_attention(
             B, H, Hkv, S, T, D, int(causal), window or 0, scale, float(softcap or 0.0), stream,
         )
     _build.check(rc, "flash_attention")
-    flash_attention.launches += 1
+    _build.count(flash_attention)
     return out
 
 
 flash_attention.launches = 0  # kernel launches since the last reset (CPU calls never count)
+flash_attention.captures = 0  # calls captured into a CUDA graph

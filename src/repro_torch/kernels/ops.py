@@ -25,17 +25,31 @@ KERNELS = {
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch and capture counts to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
+        fn.captures = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def capture_counts() -> Dict[str, int]:
+    """Each kernel's wrapper calls captured into a CUDA graph since the
+    last reset (no launch: the graph's replays launch them)."""
+    return {name: fn.captures for name, fn in KERNELS.items()}
+
+
+def count_replay(captured: Dict[str, int]) -> None:
+    """Count the launches one replay of a CUDA graph makes: ``captured``
+    holds the kernels the graph's capture recorded, by name."""
+    for name, n in captured.items():
+        KERNELS[name].launches += n
+
+
 __all__ = [
     "tree_hist", "weighted_errors", "weight_update", "weight_update_product", "vote_argmax",
     "flash_attention",
-    "reset_launches", "launch_counts",
+    "reset_launches", "launch_counts", "capture_counts", "count_replay",
 ]

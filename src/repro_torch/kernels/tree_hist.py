@@ -118,7 +118,7 @@ def _launch(bin_idx, leaf, wy, n_leaves: int, n_bins_p1: int) -> torch.Tensor:
             H, n, d, n_leaves, n_bins_p1, K, plan.dblk, plan.cs, plan.threads, stream,
         )
     _build.check(rc, "tree_hist")
-    tree_hist.launches += 1
+    _build.count(tree_hist)
     return out
 
 
@@ -140,3 +140,4 @@ def tree_hist(
 
 
 tree_hist.launches = 0  # kernel launches since the last reset (CPU calls never count)
+tree_hist.captures = 0  # calls captured into a CUDA graph

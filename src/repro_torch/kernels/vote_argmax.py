@@ -99,8 +99,9 @@ def vote_argmax(
             T, n, n_classes, plan.classes_per_thread, plan.threads, stream,
         )
     _build.check(rc, "vote_argmax")
-    vote_argmax.launches += 1
+    _build.count(vote_argmax)
     return out
 
 
 vote_argmax.launches = 0  # kernel launches since the last reset (CPU calls never count)
+vote_argmax.captures = 0  # calls captured into a CUDA graph

@@ -1,6 +1,6 @@
-"""The torch form of the JAX package's device mesh (answers to
-``repro/launch/mesh.py``'s ``make_host_mesh``; its production meshes are
-ROADMAP Queue 1 item 13g).
+"""The torch form of the JAX package's device meshes (``repro/launch/mesh.py``):
+``make_host_mesh`` and ``make_mesh`` for runs over real ranks, and
+``make_production_mesh`` for the dry-run's 256- or 512-device meshes.
 
 A ``jax.sharding.Mesh((C, m), ("data", "model"))`` is one program over
 C·m devices.  Here it is C·m processes of one ``torch.distributed``
@@ -17,8 +17,9 @@ an axis of size 1 is the identity, and is skipped.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import torch.distributed as dist
 
@@ -52,6 +53,12 @@ class Mesh:
             r //= self.shape[a]
         self.coords: Dict[str, int] = {a: coords[a] for a in self.axis_names}
 
+    @property
+    def device_mesh(self):
+        """The ``DeviceMesh`` over this mesh's ranks (None for a one-position
+        mesh outside ``fake_mesh``)."""
+        return self._device_mesh
+
     def group(self, axis: str) -> Optional[dist.ProcessGroup]:
         """The process group along ``axis`` (None for an axis of size 1)."""
         if self.shape[axis] == 1:
@@ -73,3 +80,46 @@ def make_host_mesh() -> Mesh:
     """The degenerate ``(1, 1)`` mesh over ``("data", "model")``: the same
     code paths in one process."""
     return Mesh((1, 1), ("data", "model"))
+
+
+@contextlib.contextmanager
+def make_production_mesh(*, multi_pod: bool = False) -> Iterator[Mesh]:
+    """The production mesh: ``(16, 16)`` over ``("data", "model")``, or
+    ``(2, 16, 16)`` over ``("pod", "data", "model")`` with ``multi_pod``
+    (256 or 512 devices; ``pod`` is the federation axis).
+
+    It lives in this one process: a ``"fake"`` process group of that world
+    size (``torch.testing._internal.distributed.fake_pg``), whose
+    collectives complete at once without moving data, so DTensors over the
+    mesh propagate shardings and issue their collectives as on the real
+    mesh.  The group is process-wide state, so this is a context manager
+    that destroys it on exit; it refuses to start while another process
+    group is live.
+    """
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    with fake_mesh(shape, axes) as mesh:
+        yield mesh
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Iterator[Mesh]:
+    """A mesh of any shape over a ``"fake"`` process group in this process,
+    seen from rank 0 (``make_production_mesh``'s; the tests' small ones);
+    its ``device_mesh`` exists even at one position.  The group is
+    destroyed on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised; a fake mesh needs its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(shape))
+    try:
+        mesh = Mesh(shape, axis_names)
+        if mesh._device_mesh is None:
+            from torch.distributed.device_mesh import init_device_mesh
+
+            mesh._device_mesh = init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axis_names))
+        yield mesh
+    finally:
+        dist.destroy_process_group()

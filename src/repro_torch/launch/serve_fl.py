@@ -29,7 +29,8 @@ versions on the CPU).  Serving drives the micro-batching engine over the
 test split (ragged tail included) under ``--policy sync`` (submit/flush)
 or ``--policy deadline`` (a partial batch runs by itself after
 ``--t-max-ms``), reports req/s and p50/p99 latency, then replays the same
-traffic against the shard-resident vote cache.
+traffic against the shard-resident vote cache.  On the card each batch
+replays the engine's cached CUDA graph (``serve/compile_cache.py``).
 """
 from __future__ import annotations
 
@@ -107,7 +108,7 @@ def _drive_engine(args, engine: ServeEngine, Xte: np.ndarray, min_seconds: float
 def serve(args, learner, lspec, ensemble, Xte: np.ndarray, yte: np.ndarray, *,
           committee: bool = False) -> dict:
     engine = ServeEngine(learner, lspec, ensemble, batch_size=args.batch, committee=committee)
-    engine.warmup()  # the kernel library loaded before traffic arrives
+    engine.warmup()  # the program built (a graph captured) before traffic arrives
 
     pred, served, dt, queue_wait = _drive_engine(args, engine, Xte, args.serve_seconds)
     n = Xte.shape[0]

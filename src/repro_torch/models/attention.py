@@ -27,6 +27,7 @@ is the updated one.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -34,11 +35,16 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops, ref
-from repro_torch.models.layers import make_param, pdtype, rope
+from repro_torch.models.layers import make_param, matmul, pdtype, rope
+from repro_torch.models import shardings
+from repro_torch.models.shardings import maybe_gather_weight as _mg
 
 
 class Attention(nn.Module):
     """``wq [d, H, D]``, ``wk``/``wv [d, Kv, D]``, ``wo [H, D, d]``."""
+
+    AXES = {"wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "embed")}
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator):
         super().__init__()
@@ -51,18 +57,34 @@ class Attention(nn.Module):
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[B, S, d] @ [d, H, D] -> [B, S, H, D], one matmul, last axis contiguous."""
-    return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+    """[B, S, d] @ [d, H, D] -> [B, S, H, D], one matmul, last axis contiguous.
+    Over DTensors, a local region (``shardings.projection_specs``): DTensor
+    cannot split the flattened head dim of a product, or of its gradient,
+    over an axis the heads do not divide."""
+    if shardings.is_dtensor(w):
+        xs, ws, outs = shardings.projection_specs(x, w)
+        return shardings.local_region(_heads, (xs, ws), outs, x, w)
+    return matmul(x, w.flatten(1)).unflatten(-1, w.shape[1:])
 
 
 def _project_qkv(p: Attention, x: torch.Tensor, kv_x: Optional[torch.Tensor] = None):
     kv_x = x if kv_x is None else kv_x
-    return _heads(x, p.wq), _heads(kv_x, p.wk), _heads(kv_x, p.wv)
+    ax = Attention.AXES
+    return _heads(x, _mg(p.wq, ax["wq"])), _heads(kv_x, _mg(p.wk, ax["wk"])), _heads(kv_x, _mg(p.wv, ax["wv"]))
 
 
 def _out(p: Attention, o: torch.Tensor) -> torch.Tensor:
-    """[B, S, H, D] against ``wo [H, D, d]`` -> [B, S, d]."""
-    return o.reshape(*o.shape[:2], -1) @ p.wo.flatten(0, 1)
+    """[B, S, H, D] against ``wo [H, D, d]`` -> [B, S, d].  Over DTensors, a
+    local region (``shardings.output_specs``), for the reason ``_heads``
+    gives."""
+    if shardings.is_dtensor(p.wo):
+        os_, ws, outs = shardings.output_specs(o, p.wo)
+        return shardings.local_region(_out_local, (os_, ws), outs, o, p.wo)
+    return _out_local(o, p.wo)
+
+
+def _out_local(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    return matmul(o.reshape(*o.shape[:2], -1), wo.flatten(0, 1))
 
 
 # Block-local computation for sliding-window layers: O(S * 2w) instead of
@@ -132,14 +154,29 @@ def attend_full(
     S = q.shape[1]
     if (plain_attention and CHUNKED_LOCAL and window is not None and causal and kv_x is None
             and S % window == 0 and S // window >= 2):
-        out = _chunked_local_attention(cfg, q, k, v, window)
+        out = _heads_local(lambda q, k, v: _chunked_local_attention(cfg, q, k, v, window), q, k, v, 2)
     else:
+        # a float32 encoder output against bf16 queries (whisper's cross-attention
+        # over float32 frames) attends in float32, the result in q's dtype, as
+        # the JAX package's attention returns it
+        dt = torch.promote_types(q.dtype, k.dtype)
         attend = ref.attention_ref if plain_attention else ops.flash_attention
-        out = attend(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window, softcap=cfg.logit_softcap,
-        ).transpose(1, 2)  # [B, S, H, D]
+        out = _heads_local(functools.partial(attend, causal=causal, window=window, softcap=cfg.logit_softcap),
+                           q.transpose(1, 2).to(dt), k.transpose(1, 2), v.transpose(1, 2),
+                           1).transpose(1, 2).to(q.dtype)  # [B, S, H, D]
     return _out(p, out), (k, v)
+
+
+def _heads_local(fn, q, k, v, head_dim: int):
+    """``fn(q, k, v)``; over DTensors (the dry-run's production mesh), on
+    each device's block of batch rows and heads (``shardings.heads_spec``),
+    as the attention of one (row, head) needs no other's."""
+    if not shardings.is_dtensor(q):
+        return fn(q, k, v)
+    mesh = q.device_mesh
+    n = (q.shape[head_dim], k.shape[head_dim])
+    qs, ks = shardings.heads_spec(q, head_dim, n, mesh), shardings.heads_spec(k, head_dim, n, mesh)
+    return shardings.local_region(fn, (qs, ks, ks), qs, q, k, v)
 
 
 class LayerCache(NamedTuple):
@@ -195,17 +232,24 @@ def attend_decode(
         cache.v[:, slot] = vn[:, 0].to(cache.v.dtype)
         valid = torch.arange(T, device=x.device) <= pos  # a ring's every slot once pos >= T
 
+    out = _heads_local(functools.partial(_decode_attention, cfg, valid=valid), q, cache.k, cache.v, 2)
+    return _out(p, out), cache
+
+
+def _decode_attention(cfg: ArchConfig, q, k, v, valid) -> torch.Tensor:
+    """q [B, 1, H, D] against the cache's k, v [B, T, Kv, D] where ``valid``
+    [T] (None: every slot) -> [B, 1, H, D] in q's dtype."""
     # grouped heads attend without a repeated K/V: q [B,1,H,D] -> [B,1,Kv,g,D]
-    Kv, g, D = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    B, _, H, D = q.shape
+    Kv = k.shape[2]
     # 1/sqrt(D) in float32, rounded to q's type, as the JAX package scales
     scale = float((1.0 / torch.tensor(float(D)).sqrt()).to(q.dtype))
-    qg = q.reshape(B, 1, Kv, g, D) * scale
-    logits = torch.einsum("bsKgd,btKd->bKgst", qg.float(), cache.k.float())
+    qg = q.reshape(B, 1, Kv, H // Kv, D) * scale
+    logits = torch.einsum("bsKgd,btKd->bKgst", qg.float(), k.float())
     if cfg.logit_softcap is not None:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     if valid is not None:
         logits = logits.masked_fill(~valid, -1e30)
     att = torch.softmax(logits, dim=-1)  # [B, Kv, g, 1, T]
-    out = torch.einsum("bKgst,btKd->bsKgd", att, cache.v.float())
-    out = out.reshape(B, 1, cfg.n_heads, D).to(x.dtype)
-    return _out(p, out), cache
+    out = torch.einsum("bKgst,btKd->bsKgd", att, v.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)

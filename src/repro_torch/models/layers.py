@@ -8,7 +8,9 @@ initialised with ``make_param``'s scales from an explicit
 ``torch.Generator``, without ``requires_grad``: ``models/model.py``'s
 ``train_step`` turns gradients on for the length of a step, and every
 function here is differentiable as written (the serving path runs the
-same operations).
+same operations).  Each module's ``AXES`` names its parameters' logical
+axes, as the JAX init functions' axes trees do (``models/shardings.py``
+resolves them onto a mesh).
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.shardings import embedding_local, is_dtensor
+from repro_torch.models.shardings import maybe_gather_weight as _mg
 
 
 def pdtype(cfg: ArchConfig) -> torch.dtype:
@@ -39,6 +43,16 @@ def make_param(
     return nn.Parameter(w.to(dtype), requires_grad=False)
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in their promoted dtype, as a JAX product of a float32
+    activation and a bf16 weight computes in float32 (whisper's encoder
+    over float32 frames); two operands of one dtype multiply as they are."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def _zeros(shape: Tuple[int, ...], device) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, dtype=torch.float32, device=device), requires_grad=False)
 
@@ -54,6 +68,8 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
 
 class RMSNorm(nn.Module):
     """``gamma`` starts at 0: the scale is ``1 + gamma``."""
+
+    AXES = {"gamma": ("embed",)}
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
@@ -95,6 +111,9 @@ class MLP(nn.Module):
     """GLU (swiglu, geglu: ``w_gate``, ``w_up``, ``w_down``) or plain gelu
     (``w_up``, ``b_up``, ``w_down``, ``b_down``) weights."""
 
+    AXES = {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"), "w_down": ("ff", "embed"),
+            "b_up": ("ff",), "b_down": ("embed",)}
+
     def __init__(self, cfg: ArchConfig, gen: torch.Generator):
         super().__init__()
         d, ff, dt = cfg.d_model, cfg.d_ff, pdtype(cfg)
@@ -112,12 +131,14 @@ class MLP(nn.Module):
 
 
 def apply_mlp(cfg: ArchConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    up_ax, down_ax = MLP.AXES["w_up"], MLP.AXES["w_down"]
+    w_up, w_down = _mg(p.w_up, up_ax), _mg(p.w_down, down_ax)
     if cfg.mlp_type == "swiglu":
-        return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+        return matmul(F.silu(matmul(x, _mg(p.w_gate, up_ax))) * matmul(x, w_up), w_down)
     if cfg.mlp_type == "geglu":
-        return (F.gelu(x @ p.w_gate, approximate="tanh") * (x @ p.w_up)) @ p.w_down
-    h = F.gelu(x @ p.w_up + p.b_up.to(x.dtype), approximate="tanh")
-    return h @ p.w_down + p.b_down.to(x.dtype)
+        return matmul(F.gelu(matmul(x, _mg(p.w_gate, up_ax)), approximate="tanh") * matmul(x, w_up), w_down)
+    h = F.gelu(matmul(x, w_up) + p.b_up.to(x.dtype), approximate="tanh")
+    return matmul(h, w_down) + p.b_down.to(x.dtype)
 
 
 # -- embeddings ---------------------------------------------------------------
@@ -126,6 +147,8 @@ def apply_mlp(cfg: ArchConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
 class Embed(nn.Module):
     """``embedding [V, d]`` over the padded vocabulary, and ``unembed
     [d, V]`` unless the embeddings are tied."""
+
+    AXES = {"embedding": ("vocab", "embed"), "unembed": ("embed", "vocab")}
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator):
         super().__init__()
@@ -136,7 +159,10 @@ class Embed(nn.Module):
 
 
 def embed_tokens(cfg: ArchConfig, p: Embed, tokens: torch.Tensor) -> torch.Tensor:
-    x = p.embedding[tokens]
+    if is_dtensor(p.embedding):  # a table sharded over a mesh: the vocabulary-parallel lookup
+        x = embedding_local(tokens, p.embedding)
+    else:
+        x = p.embedding[tokens]
     if cfg.embed_scale:  # sqrt(d) in float32, rounded to the activation type
         x = x * float(torch.tensor(float(cfg.d_model)).sqrt().to(x.dtype))
     return x

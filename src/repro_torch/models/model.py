@@ -17,21 +17,27 @@ A ``TrainState`` holds the model itself as its parameters, and
 ``train_step`` updates them and the AdamW moments in place: a state is
 consumed by the step that advances it, as a ``ServeState`` is by the
 serving step (its caches are written in place).  The decode position is a
-host ``int``: the loop never reads it back from the device.  The dry-run
-input specs are item 13g.
+host ``int``: the loop never reads it back from the device.
+
+For the production-mesh dry-run (``launch/dryrun.py``): ``param_axes``
+gives each parameter's logical axes beside ``param_tree``,
+``abstract_model`` builds a model whose parameters are fake tensors (shapes
+and dtypes, no storage, as ``jax.eval_shape`` gives), and ``input_specs``
+the stand-ins of an ``InputShape``'s inputs.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import init_cache
 from repro_torch.models.layers import pdtype, unembed
+from repro_torch.models.shardings import constrain_microbatch, is_dtensor, place_state, whole_batch
 from repro_torch.models.transformer import Cache, Transformer, init_caches, init_state
 from repro_torch.optim.optimizers import AdamWConfig, AdamWState, Tree, adamw_update, init_adamw
 
@@ -46,9 +52,11 @@ MOE_AUX_WEIGHT = 0.01
 def _chunk_loss(cfg: ArchConfig, embed, h, t, m):
     logits = unembed(cfg, embed, h)  # [B, c, V] f32
     lse = torch.logsumexp(logits, dim=-1)
-    # the JAX package contracts with a one-hot (for sharding); the gather
-    # picks the same value exactly
-    ll = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+    if is_dtensor(logits):  # a vocabulary sharded over a mesh: contract with a one-hot, as JAX does
+        hit = torch.arange(logits.shape[-1], device=logits.device) == t.long()[..., None]
+        ll = torch.sum(logits * hit.to(logits.dtype), dim=-1)
+    else:  # the gather picks the one-hot contraction's value exactly
+        ll = torch.gather(logits, -1, t.long()[..., None])[..., 0]
     return torch.sum((lse - ll) * m), torch.sum(m)
 
 
@@ -119,6 +127,29 @@ def param_tree(model: Transformer) -> Tree:
     return {k: named[k] for k in sorted(named, key=lambda k: _jax_key(k, period))}
 
 
+def param_axes(model: Transformer) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Each parameter's logical axes ("vocab", "embed", "ff", "heads", ...),
+    keyed and ordered as ``param_tree``: the ``AXES`` table of the module
+    that owns it, the JAX package's axes tree leaf without its ``"layers"``
+    axis."""
+    owners = dict(model.named_modules())
+    out = {}
+    for name in param_tree(model):
+        mod, _, leaf = name.rpartition(".")
+        out[name] = type(owners[mod]).AXES[leaf]
+    return out
+
+
+def abstract_model(cfg: ArchConfig, mode=None) -> Transformer:
+    """The model of ``cfg`` with fake-tensor parameters under ``mode`` (a
+    ``FakeTensorMode``; a new one by default): every shape and dtype,
+    nothing allocated, so grok-1's 314 G parameters fit on any host."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with mode or FakeTensorMode():
+        return Transformer(cfg, torch.Generator())
+
+
 class TrainState(NamedTuple):
     params: Transformer
     opt: AdamWState
@@ -174,10 +205,12 @@ def train_step(
         if B % accum:
             raise ValueError(f"batch {B} does not split into {accum} micro-batches")
         mb = B // accum
+        stacked = {k: constrain_microbatch(whole_batch(v).reshape(accum, mb, *v.shape[1:]))
+                   for k, v in batch.items()}
         loss = torch.zeros((), device=batch["tokens"].device)
-        grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
+        grads = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
         for i in range(accum):
-            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            micro = {k: v[i] for k, v in stacked.items()}
             l, gi = _loss_and_grads(cfg, model, params, micro)
             loss = loss + l
             for k, g in gi.items():
@@ -204,12 +237,14 @@ def init_serve_state(cfg: ArchConfig, batch: int, cache_len: int, device) -> Ser
     return ServeState(init_caches(cfg, batch, cache_len, device), 0)
 
 
-def _prefill_caches(model: Transformer, batch: int, cache_len: int, n_frames: int, device) -> List[Cache]:
+def _prefill_caches(model: Transformer, batch: int, cache_len: int, n_frames: int, device,
+                    cross_dtype=None) -> List[Cache]:
     """The state prefill fills: full layers at ``cache_len`` slots (zero
     past the prompt; the decode mask ``j <= pos`` ignores them), window
     layers at ``window`` slots whatever the prompt, recurrent layers'
     states at their constant size; an audio layer's cross cache at the
-    ``n_frames`` the encoder sees."""
+    ``n_frames`` the encoder sees, in ``cross_dtype`` (default the
+    model's)."""
     cfg = model.cfg
 
     def one(layer) -> Cache:
@@ -223,7 +258,7 @@ def _prefill_caches(model: Transformer, batch: int, cache_len: int, n_frames: in
             c = init_cache(cfg, batch, cache_len if layer.window is None else layer.window, None,
                            pdtype(cfg), device)
         if layer.has_cross:
-            return c, init_cache(cfg, batch, n_frames, None, pdtype(cfg), device)
+            return c, init_cache(cfg, batch, n_frames, None, cross_dtype or pdtype(cfg), device)
         return c
 
     return [one(layer) for layer in model.layers]
@@ -244,7 +279,12 @@ def prefill(
     B = tokens.shape[0]
     end = tokens.shape[1] + (0 if prefix is None else prefix.shape[1])
     n_frames = model.cfg.encoder_seq if frames is None else frames.shape[1]
-    caches = _prefill_caches(model, B, max(end, cache_len or end), n_frames, tokens.device)
+    # the cross caches hold the encoder output's K/V in its promoted dtype
+    # (float32 from float32 frames), as the JAX prefill returns them
+    cross = None if frames is None else torch.promote_types(frames.dtype, pdtype(model.cfg))
+    caches = _prefill_caches(model, B, max(end, cache_len or end), n_frames, tokens.device, cross)
+    if is_dtensor(tokens):  # the dry-run's mesh: the caches are DTensors too
+        caches = place_state(caches, B, tokens.device_mesh)
     state = ServeState(caches, end)
     hidden = model(tokens, prefix=prefix, frames=frames, caches=state.caches)
     logits = unembed(model.cfg, model.embed, hidden[:, -1:, :])[:, 0]
@@ -258,3 +298,33 @@ def serve_step(
     """token [B, 1] -> (logits [B, V] float32, the advanced state)."""
     logits, caches = model.decode_step(state.caches, token, state.pos)
     return logits, ServeState(caches, state.pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# Dry-run input specs (fake-tensor stand-ins: no allocation)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape, mode=None) -> Dict[str, Any]:
+    """Stand-ins of every model input of ``shape``, fake tensors under
+    ``mode`` (a ``FakeTensorMode``; a new one by default): ``tokens`` (train
+    ``[B, S + 1]``, prefill ``[B, S]``) with a VLM's ``prefix`` or an audio
+    model's ``frames`` in the model's dtype, or, for decode, ``token [B, 1]``
+    and the ``init_serve_state`` of ``S`` slots."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    B, S = shape.global_batch, shape.seq_len
+    i32, dt = torch.int32, pdtype(cfg)
+    with mode or FakeTensorMode():
+        ex: Dict[str, Any] = {}
+        if cfg.arch_type == "vlm":
+            ex["prefix"] = torch.empty((B, cfg.prefix_tokens, cfg.d_model), dtype=dt)
+        if cfg.arch_type == "audio":
+            ex["frames"] = torch.empty((B, cfg.encoder_seq, cfg.d_model), dtype=dt)
+        if shape.kind == "train":
+            return {"tokens": torch.empty((B, S + 1), dtype=i32), **ex}
+        if shape.kind == "prefill":
+            return {"tokens": torch.empty((B, S), dtype=i32), **ex}
+        if shape.kind == "decode":
+            return {"token": torch.empty((B, 1), dtype=i32), "state": init_serve_state(cfg, B, S, "cpu")}
+    raise ValueError(shape.kind)

@@ -36,13 +36,24 @@ profile attributes the device time of an MoE layer to them.
 
 ``DISPATCH_GROUPS`` (``set_dispatch_groups``) splits the tokens into G
 groups that sort and fill their own expert buffers, as the JAX package's
-dense grouped dispatch does.  Its ``shard_map`` branch, which pins each
-group to a data-parallel device group, needs a mesh of such devices and
-has no one-card counterpart (ROADMAP Queue 1 item 13g).
+dense grouped dispatch does.  When G equals the size of the current mesh's
+data-parallel axes, the dispatch is data-parallel (the JAX ``shard_map``
+branch): each data-parallel rank runs ``_moe_dense(x_local, G=1)`` on its
+own ``B / dp`` rows, and the aux loss is the mean of the ranks' local aux
+losses.  The mesh is a DTensor's own (the dry-run: the branch is then a
+``local_map`` region), or, for plain tensors, the port ``Mesh`` of
+``shardings.use_mesh`` (ranks of a process group: each rank's ``x`` is its
+own rows, and the aux mean is a host all-reduce over the data axes).
+
+Over DTensors (the dry-run's production mesh) every other dispatch also
+runs in a ``local_map`` region, on all the tokens (G groups of them) and
+each device's block of the experts' ``ff`` dim: the sort, gather and
+scatter have no DTensor sharding rule, and the global dispatch gathers
+the tokens, as the JAX package's auto-partitioned dispatch does.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch import nn
@@ -50,12 +61,17 @@ from torch.nn import functional as F
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import shardings
 from repro_torch.models.layers import make_param, pdtype
+from repro_torch.models.shardings import maybe_gather_weight as _mg
 
 
 class MoE(nn.Module):
     """``router [d, E]`` float32, ``w_gate``/``w_up [E, d, ff]`` and
     ``w_down [E, ff, d]`` in the model's dtype."""
+
+    AXES = {"router": ("embed", None), "w_gate": ("experts", "embed", "ff"),
+            "w_up": ("experts", "embed", "ff"), "w_down": ("experts", "ff", "embed")}
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator):
         super().__init__()
@@ -103,11 +119,62 @@ def route(cfg: ArchConfig, p: MoE, xf: torch.Tensor):
 def apply_moe(cfg: ArchConfig, p: MoE, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (out [B, S, d], the aux load-balance loss, a float32
     scalar).  ``DISPATCH_GROUPS`` > 1 dispatches in that many groups when
-    it divides the token count."""
+    it divides the token count, data-parallel when it is the current
+    mesh's data-parallel size (the module docstring)."""
     B, S, _ = x.shape
-    N = B * S
+    dt = shardings.is_dtensor(x)
+    mesh = x.device_mesh if dt else shardings.current_mesh()
+    dp = shardings.dp_size(mesh) if mesh is not None else 1
+    N = B * S * (1 if dt else dp)  # the global token count: a rank's x holds its own rows
     G = DISPATCH_GROUPS if (DISPATCH_GROUPS > 1 and N % DISPATCH_GROUPS == 0) else 1
+    if G > 1 and G == dp:
+        return _dp_dispatch(cfg, p, x, mesh)
+    if dt:
+        return _moe_region(cfg, p, x, (None, None, None), G)
     return _moe_dense(cfg, p, x, G)
+
+
+class _Experts(NamedTuple):
+    router: torch.Tensor
+    w_gate: torch.Tensor
+    w_up: torch.Tensor
+    w_down: torch.Tensor
+
+
+def _dp_dispatch(cfg: ArchConfig, p: MoE, x: torch.Tensor, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The data-parallel dispatch: each rank's rows through ``_moe_dense(.,
+    G=1)``, the aux loss the mean of the local ones."""
+    axes = shardings.batch_axes(mesh)
+    if shardings.is_dtensor(x):
+        out, aux = _moe_region(cfg, p, x, (axes, None, None), 1)
+        return out, torch.mean(aux)
+    out, aux = _moe_dense(cfg, p, x, 1)
+    total = aux.detach().to("cpu").clone()
+    for a in axes:
+        if mesh.shape[a] > 1:
+            torch.distributed.all_reduce(total, group=mesh.group(a))
+    return out, total.to(aux.device) / shardings.dp_size(mesh)
+
+
+def _moe_region(cfg: ArchConfig, p: MoE, x: torch.Tensor, x_spec, G: int):
+    """``_moe_dense(x, G)`` in a ``local_map`` region: ``x`` at ``x_spec``,
+    the experts at their model-only layouts (a 'data' shard gathered), the
+    output summed over the axes the experts' ``ff`` dim is split over.
+    With a sharded batch, each device's aux comes back as one entry of a
+    ``[dp]`` vector."""
+    mesh = x.device_mesh
+    w_specs = {k: shardings.model_only_spec(MoE.AXES[k], getattr(p, k).shape, mesh) for k in _Experts._fields}
+    summed = tuple(a for s in w_specs.values() for e in s for a in ((e,) if isinstance(e, str) else e or ()))
+    dp_rows = x_spec[0] is not None
+
+    def local(xl, *ws):
+        out, aux = _moe_dense(cfg, _Experts(*ws), xl, G)
+        return out, (aux[None] if dp_rows else aux)
+
+    aux_spec = (x_spec[0],) if dp_rows else ()
+    return shardings.local_region(local, (x_spec, *w_specs.values()),
+                                  [shardings.Summed(x_spec, summed), aux_spec],
+                                  x, *(getattr(p, k) for k in _Experts._fields))
 
 
 def _moe_dense(cfg: ArchConfig, p: MoE, x: torch.Tensor, G: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -156,9 +223,10 @@ def _moe_dense(cfg: ArchConfig, p: MoE, x: torch.Tensor, G: int) -> Tuple[torch.
 
     # the experts: silu(x W_gate) * (x W_up) W_down, batched over E
     with record_function("moe.experts"):
-        h = F.silu(torch.einsum("gecd,edf->gecf", inp, p.w_gate)) * \
-            torch.einsum("gecd,edf->gecf", inp, p.w_up)
-        out_e = torch.einsum("gecf,efd->gecd", h, p.w_down).reshape(G, E * cap, d)
+        ax = MoE.AXES
+        h = F.silu(torch.einsum("gecd,edf->gecf", inp, _mg(p.w_gate, ax["w_gate"]))) * \
+            torch.einsum("gecd,edf->gecf", inp, _mg(p.w_up, ax["w_up"]))
+        out_e = torch.einsum("gecf,efd->gecd", h, _mg(p.w_down, ax["w_down"])).reshape(G, E * cap, d)
 
     # the combine: each (token, choice) reads its slot's gate-weighted
     # output (the zero row E*cap when dropped), added onto zeros in choice order

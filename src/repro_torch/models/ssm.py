@@ -101,6 +101,10 @@ class Mamba(nn.Module):
     2 ds]``, ``dt_proj [dtr, di]``, ``dt_bias [di]``, ``A_log [di, ds]``
     (log 1..ds), ``D [di]`` (ones), ``out_proj [di, d]``."""
 
+    AXES = {"in_proj": ("embed", "dinner"), "conv_w": (None, "dinner"), "x_proj": ("dinner", None),
+            "dt_proj": (None, "dinner"), "dt_bias": ("dinner",), "A_log": ("dinner", None),
+            "D": ("dinner",), "out_proj": ("dinner", "embed")}
+
     def __init__(self, cfg: ArchConfig, gen: torch.Generator):
         super().__init__()
         d = cfg.d_model
@@ -226,6 +230,10 @@ class MLSTM(nn.Module):
     and ``b_if [2, H]`` (input and forget gates, float32), ``down_proj
     [di, d]``."""
 
+    AXES = {"up_proj": ("embed", "dinner"), "wq": ("dinner", "heads", "head_dim"),
+            "wk": ("dinner", "heads", "head_dim"), "wv": ("dinner", "heads", "head_dim"),
+            "w_if": ("dinner", None, "heads"), "b_if": (None, "heads"), "down_proj": ("dinner", "embed")}
+
     def __init__(self, cfg: ArchConfig, gen: torch.Generator):
         super().__init__()
         d, H = cfg.d_model, cfg.n_heads
@@ -350,6 +358,9 @@ class SLSTM(nn.Module):
     [4, H, Dh, Dh]`` (from each head's h, float32), ``b [4, H, Dh]``
     (float32), and the post-block gated FFN ``w_ff_up [d, 2 ffd]``,
     ``w_ff_down [ffd, d]`` (ffd = 4/3 d, the xLSTM paper's)."""
+
+    AXES = {"w_x": ("embed", None, "heads", "head_dim"), "r_h": (None, "heads", "head_dim", None),
+            "b": (None, "heads", "head_dim"), "w_ff_up": ("embed", "ff"), "w_ff_down": ("ff", "embed")}
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator):
         super().__init__()

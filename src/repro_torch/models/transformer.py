@@ -38,6 +38,7 @@ adds the sin/cos table at each position.
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -48,6 +49,7 @@ from repro_torch.configs.base import ARCH_TYPES, ArchConfig, LayerDesc
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
+from repro_torch.models import shardings
 from repro_torch.models.layers import (
     MLP,
     Embed,
@@ -72,14 +74,43 @@ class _Recurrent(NamedTuple):
     forward: Callable  # (cfg, p, x) -> (out, final state)
     decode: Callable  # (cfg, p, x, state) -> (out, new state)
     init_state: Callable  # (cfg, batch, device) -> zero state
+    state: type  # the state's NamedTuple
 
 
 _RECURRENT = {
     "mamba": _Recurrent(ssm.Mamba, ssm.mamba_prefill, ssm.mamba_decode,
-                        lambda cfg, batch, device: ssm.init_mamba_state(cfg, batch, pdtype(cfg), device)),
-    "mlstm": _Recurrent(ssm.MLSTM, ssm.apply_mlstm, ssm.mlstm_decode, ssm.init_mlstm_state),
-    "slstm": _Recurrent(ssm.SLSTM, ssm.apply_slstm, ssm.slstm_decode, ssm.init_slstm_state),
+                        lambda cfg, batch, device: ssm.init_mamba_state(cfg, batch, pdtype(cfg), device),
+                        ssm.MambaState),
+    "mlstm": _Recurrent(ssm.MLSTM, ssm.apply_mlstm, ssm.mlstm_decode, ssm.init_mlstm_state, ssm.MLSTMState),
+    "slstm": _Recurrent(ssm.SLSTM, ssm.apply_slstm, ssm.slstm_decode, ssm.init_slstm_state, ssm.SLSTMState),
 }
+
+
+def _recurrent(kind: str, step: str, cfg: ArchConfig, mixer, x: torch.Tensor, *state):
+    """A recurrent mixer's ``forward`` or ``decode`` (``step``): (out, state).
+    Over DTensors (the dry-run's mesh) it runs on each device's batch rows
+    with the mixer's weights whole: its scans and gates have no DTensor
+    sharding rules, and a row's recurrence needs no other row."""
+    rec = _RECURRENT[kind]
+    fn = getattr(rec, step)
+    if not shardings.is_dtensor(x):
+        return fn(cfg, mixer, x, *state)
+    names = [n for n, _ in mixer.named_parameters(recurse=False)]
+
+    def local(xl, *rest):
+        ws, st = rest[:len(names)], rest[len(names):]
+        out, new = fn(cfg, SimpleNamespace(**dict(zip(names, ws))), xl, *((rec.state(*st),) if st else ()))
+        return out, *new
+
+    def row(t):
+        return shardings.batch_spec(t, x.device_mesh)
+
+    flat = [t for s in state for t in s]
+    weights = [getattr(mixer, n) for n in names]
+    in_specs = (row(x), *((None,) * w.ndim for w in weights), *(row(t) for t in flat))
+    zero = rec.init_state(cfg, x.shape[0], "meta")  # the state's shapes
+    res = shardings.local_region(local, in_specs, [row(x)] + [row(t) for t in zero], x, *weights, *flat)
+    return res[0], rec.state(*res[1:])
 
 
 def _check_config(cfg: ArchConfig) -> None:
@@ -159,7 +190,7 @@ def _apply_layer(cfg: ArchConfig, layer: Layer, x: torch.Tensor, positions: torc
     self_c, cross_c = cache if (layer.has_cross and cache is not None) else (cache, None)
     h = layer.norm1(x)
     if layer.recurrent:
-        out, state = _RECURRENT[layer.kind].forward(cfg, layer.mixer, h)
+        out, state = _recurrent(layer.kind, "forward", cfg, layer.mixer, h)
         if self_c is not None:
             for dst, src in zip(self_c, state):
                 dst.copy_(src)
@@ -191,13 +222,14 @@ def _run_layers(cfg: ArchConfig, layers, x: torch.Tensor, positions: torch.Tenso
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for i, layer in enumerate(layers):
+        x = shardings.constrain_batch(x)
         fn = functools.partial(_apply_layer, cfg, layer, positions=positions,
                                cache=None if caches is None else caches[i],
                                plain_attention=plain_attention, causal=causal, enc_out=enc_out)
         x, a = checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False) if remat else fn(x)
         if a is not None:
             aux = aux + a
-    return x, aux
+    return shardings.constrain_batch(x), aux
 
 
 class Encoder(nn.Module):
@@ -212,12 +244,13 @@ class Encoder(nn.Module):
         self.final_norm = RMSNorm(cfg, gen.device)
 
     def forward(self, frames: torch.Tensor, plain_attention: bool = False) -> torch.Tensor:
-        """frames [B, F, d] (the post-conv frame embeddings, cast to the
-        model's dtype) -> the encoder output [B, F, d]."""
+        """frames [B, F, d] (the post-conv frame embeddings) -> the encoder
+        output [B, F, d].  The stream keeps ``frames.dtype``, as the JAX
+        package's does: float32 frames run the encoder in float32 against
+        the weights (each product promotes, ``layers.matmul``)."""
         cfg = self.cfg
         positions = torch.arange(frames.shape[1], device=frames.device)
-        x = frames.to(pdtype(cfg))
-        x = x + sinusoidal(positions, cfg.d_model)[None].to(x.dtype)
+        x = frames + sinusoidal(positions, cfg.d_model)[None].to(frames.dtype)
         x, _ = _run_layers(cfg, self.layers, x, positions, None, plain_attention, causal=False)
         return self.final_norm(x)
 
@@ -289,10 +322,11 @@ class Transformer(nn.Module):
         x = self._positional(embed_tokens(cfg, self.embed, token), torch.full((1,), pos, device=token.device))
         new_caches = []
         for layer, cache in zip(self.layers, caches):
+            x = shardings.constrain_batch(x)
             self_c, cross_c = cache if layer.has_cross else (cache, None)
             h = layer.norm1(x)
             if layer.recurrent:
-                out, self_c = _RECURRENT[layer.kind].decode(cfg, layer.mixer, h, self_c)
+                out, self_c = _recurrent(layer.kind, "decode", cfg, layer.mixer, h, self_c)
             else:
                 out, self_c = attn.attend_decode(cfg, layer.mixer, h, self_c, pos,
                                                  window=layer.window, use_rope=layer.use_rope)

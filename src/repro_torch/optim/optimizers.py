@@ -108,6 +108,12 @@ def _on(table_fn, arg, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(table_fn(arg)).to(device)
 
 
+def clear_tables() -> None:
+    """Drop the tables built for each device: a pass over fake tensors (the
+    dry-run's) builds fake ones, which must not outlive it."""
+    _on.cache_clear()
+
+
 def _lookup(table: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
     """``table[min(step, len - 1)]`` as a 0-dim tensor, read on the device."""
     return torch.take(table, step.clamp(max=table.numel() - 1).long())

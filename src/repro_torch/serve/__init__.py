@@ -8,18 +8,20 @@ federation's trained strong hypothesis taken to batched inference.
     rolling checkpoint stream (``publish_artifact`` / ``latest_artifact``)
     a still-training federation hands to serving;
   * ``engine``    — fixed-shape micro-batching with one ``vote_argmax``
-    kernel launch per batch; ``EngineConfig(mesh=...)`` swaps in the
+    kernel launch per batch, replayed from a CUDA graph on the card;
+    ``EngineConfig(mesh=...)`` swaps in the
     batch-sharded predict of ``fl/sharded.make_batch_predict``, so one
     engine spans a mesh of ranks (one ``vote_argmax`` launch per rank a
     batch, over its slice);
   * ``scheduler`` — the async deadline dispatch loop: a partial batch
     runs on its own by its requests' deadlines, no ``flush()`` needed;
+  * ``compile_cache`` — the process-wide predict programs, one per
+    (structure, batch size), shared by engines of one structure;
   * ``cache``     — shard-resident incremental vote cache;
   * ``registry``  — the multi-tenant registry: one engine per subscribed
     checkpoint stream, hot-swapped or rebuilt on ``refresh()``.
 
-Driver: ``launch/serve_fl.py``.  Not ported yet: the compile cache
-(ROADMAP Queue 4).
+Driver: ``launch/serve_fl.py``.
 """
 from repro_torch.serve.artifact import (
     LoadedArtifact,

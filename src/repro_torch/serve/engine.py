@@ -42,16 +42,23 @@ deadline scheduler's default ``t_max_s``, the mesh) so a caller such as
 on the same traffic, scores its slice of the batch over the federation
 axes and gathers the others' (admission requires the batch size to
 divide over the shards, and a homogeneous ensemble).  There is no kernel
-switch: ``ops`` dispatches on the tensors' device.  Not ported: the
-process-wide compile cache (its counterpart here would be a CUDA graph
-per batch size, ROADMAP Queue 4).
+switch: ``ops`` dispatches on the tensors' device.
+
+A batch runs a *program* from the process-wide ``serve/compile_cache``:
+on the card a CUDA graph of the predict at that batch size, shared by
+every engine of the same structure (``EngineStats.compiles`` counts the
+programs this engine built, ``cache_hits`` those it found built); on the
+CPU, and for a mesh engine, the eager predict.  ``EngineConfig(
+cuda_graphs=False)`` serves each batch eagerly on the card instead (the
+comparison that the graphs' votes and speed are held to).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import time
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -62,6 +69,7 @@ from repro_torch.core.hetero import HeterogeneousSpec
 from repro_torch.kernels import ops
 from repro_torch.learners.base import LearnerSpec, WeakLearner
 from repro_torch.obs import metrics as obs_metrics, trace
+from repro_torch.serve import compile_cache
 from repro_torch.serve.artifact import ensemble_device, ensemble_signature
 
 # Process-wide engine metric families: every engine reports into these in
@@ -75,6 +83,13 @@ _M_BATCHES = obs_metrics.counter(
 _M_PADDED = obs_metrics.counter(
     "mafl_engine_padded_rows_total", "Padding rows dispatched across all engines."
 )
+_M_COMPILES = obs_metrics.counter(
+    "mafl_engine_compiles_total", "Predict programs built (process-wide cache misses)."
+)
+_M_CACHE_HITS = obs_metrics.counter(
+    "mafl_engine_cache_hits_total",
+    "Predict programs borrowed warm from the process-wide compile cache.",
+)
 _M_BATCH_SECONDS = obs_metrics.histogram(
     "mafl_engine_batch_seconds", "Per-batch dispatch wall seconds (all engines)."
 )
@@ -82,6 +97,39 @@ _M_REQ_LATENCY = obs_metrics.histogram(
     "mafl_engine_request_latency_seconds",
     "Per-request submit-to-result seconds (all engines).",
 )
+
+
+# -- predict programs (module-level: the process-wide cache shares them
+# across engines, so nothing here may close over one) --------------------
+
+
+def _predict(learner, spec, committee: bool, active, ensemble, used: torch.Tensor,
+             Xb: torch.Tensor) -> torch.Tensor:
+    """[B, d] rows -> [B] int32 classes: every member's vote (a mix's
+    active groups stacked), one ``vote_argmax``."""
+    if isinstance(spec, HeterogeneousSpec):
+        preds = hetero.hetero_member_predictions(spec, ensemble, Xb, committee=committee,
+                                                 active=active)
+    else:
+        preds = scoring.member_prediction(learner, spec, ensemble.params, Xb,
+                                          committee=committee)  # [T, B]
+    return ops.vote_argmax(preds, used, n_classes=spec.n_classes)
+
+
+def _build_program(learner, spec, committee: bool, active, ensemble, used: torch.Tensor,
+                   batch_size: int) -> Callable:
+    """The program of one (structure, batch size): a CUDA graph on the
+    card, the eager predict elsewhere."""
+    predict = functools.partial(_predict, learner, spec, committee, active)
+    if used.device.type != "cuda":
+        return predict
+    return compile_cache.GraphProgram(predict, ensemble, used, batch_size, spec.n_features)
+
+
+def _build_mesh_program(mesh_predict: Callable) -> Callable:
+    # the batch-sharded predict's gloo collectives run on host tensors,
+    # which no graph holds: the program is the eager call
+    return lambda ensemble, used, Xb: mesh_predict(ensemble.params, ensemble.alpha, ensemble.count, Xb)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,12 +143,14 @@ class EngineConfig:
     every static batch over the mesh's federation axes
     (``fl/sharded.make_batch_predict``), every rank of the mesh serving
     the same traffic.  There is no kernel flag: the card always runs the
-    kernel."""
+    kernel.  ``cuda_graphs`` (the default) serves the card's batches by
+    replaying cached CUDA graphs; False runs them eagerly."""
 
     batch_size: int = 256
     committee: bool = False
     t_max_s: float = 0.005
     mesh: Any = None  # launch/mesh.Mesh | None
+    cuda_graphs: bool = True
 
 
 @dataclasses.dataclass
@@ -108,9 +158,15 @@ class EngineStats:
     requests: int = 0
     batches: int = 0
     padded_rows: int = 0
-    # zero batches run by ``warmup``: each launches the kernels once, so a
-    # run's vote_argmax launches are batches + warmup_batches
+    # zero batches run by ``warmup``
     warmup_batches: int = 0
+    # programs this engine built, and programs it found already built by
+    # another engine (the per-tenant view of the process-wide cache)
+    compiles: int = 0
+    cache_hits: int = 0
+    # batches (warm-ups included) served by replaying a CUDA graph; a
+    # graph's first batch, which captures it, runs eagerly and is not one
+    graph_replays: int = 0
     # fixed-memory log-spaced histograms: ``.count`` is the sample count,
     # ``.percentile(p)`` estimates quantiles within ~5% (obs/metrics.py)
     batch_seconds: obs_metrics.Histogram = dataclasses.field(
@@ -182,6 +238,9 @@ class ServeEngine:
         self.committee = committee
         self.batch_size = int(batch_size)
         self.device = ensemble_device(ensemble)
+        # engine-local view of the process-wide cache, keyed by (B, active
+        # mask) for lock-free steady-state lookups
+        self._programs: Dict[tuple, Callable] = {}
         # ONE publication point for everything a hot swap changes: readers
         # snapshot (ensemble, used weights, active groups) with a single
         # attribute load, so a concurrent update_ensemble is never seen
@@ -229,22 +288,63 @@ class ServeEngine:
         used = hetero.hetero_used_weights(ensemble, committee=self.committee, active=active)
         return ensemble, used, active
 
+    def _active_key(self, ensemble, active) -> Optional[tuple]:
+        """The active-group mask as the cache keys it: a plain mix's mask,
+        all groups when none holds a member (the predict then stacks every
+        group); None for committees and homogeneous ensembles."""
+        if not self.hetero or self.committee:
+            return None
+        return active if active is not None else (True,) * len(ensemble)
+
+    def _program(self, B: int, live: tuple) -> Callable:
+        """The ``(ensemble, used, Xb) -> [B] int32`` program for one batch
+        size and active mask, from the process-wide ``compile_cache``: a
+        structurally identical engine elsewhere in the process makes this a
+        hit."""
+        ensemble, used, active = live
+        akey = self._active_key(ensemble, active)
+        local_key = (B, akey)
+        fn = self._programs.get(local_key)
+        if fn is not None:
+            return fn
+        if not self.config.cuda_graphs and self.device.type == "cuda" and self._mesh_predict is None:
+            fn = functools.partial(_predict, self.learner, self.spec, self.committee, active)
+            self._programs[local_key] = fn
+            return fn
+        key = compile_cache.program_key(
+            self.spec, ensemble_signature(ensemble), batch_size=B, committee=self.committee,
+            device=self.device, mesh=self.config.mesh, active_mask=akey)
+        if self._mesh_predict is not None:
+            build = functools.partial(_build_mesh_program, self._mesh_predict)
+        else:
+            build = functools.partial(_build_program, self.learner, self.spec, self.committee,
+                                      active, ensemble, used, B)
+        with trace.span("serve.compile", batch_size=B) as sp:
+            fn, hit = compile_cache.get_or_build(key, build)
+            sp.set(cache_hit=hit)
+        if hit:
+            self.stats.cache_hits += 1
+            _M_CACHE_HITS.inc()
+        else:
+            self.stats.compiles += 1
+            _M_COMPILES.inc()
+        self._programs[local_key] = fn
+        return fn
+
     def _predict(self, ensemble, used: torch.Tensor, active, Xb: torch.Tensor) -> torch.Tensor:
         """[B, d] rows -> [B] int32 classes, on the device."""
-        if self._mesh_predict is not None:
-            return self._mesh_predict(ensemble.params, ensemble.alpha, ensemble.count, Xb)
-        if self.hetero:
-            preds = hetero.hetero_member_predictions(self.spec, ensemble, Xb,
-                                                     committee=self.committee, active=active)
-        else:
-            preds = scoring.member_prediction(self.learner, self.spec, ensemble.params, Xb,
-                                              committee=self.committee)  # [T, B]
-        return ops.vote_argmax(preds, used, n_classes=self.spec.n_classes)
+        program = self._program(Xb.shape[0], (ensemble, used, active))
+        if isinstance(program, compile_cache.GraphProgram):
+            out, replayed = program.run(ensemble, used, Xb)
+            self.stats.graph_replays += replayed
+            return out
+        return program(ensemble, used, Xb)
 
     def warmup(self) -> None:
-        """Run one batch of zeros at the steady-state shape, so the kernel
-        library's load (and build, at first use) and the device's first
-        launches are paid before traffic arrives."""
+        """Run one batch of zeros at the steady-state shape, so the
+        program's build (a graph capture, the kernel library's load at
+        first use) and the device's first launches are paid before traffic
+        arrives."""
         X = torch.zeros(self.batch_size, self.spec.n_features, device=self.device)
         self._predict(*self._live, X).cpu()
         self.stats.warmup_batches += 1

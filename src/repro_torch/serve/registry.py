@@ -18,11 +18,10 @@ stream (a publish directory with a ``LATEST`` pointer), backed by its own
     nothing here: dequantized leaves keep their float32 shapes, so the
     structural signature, and with it the hot swap, is unchanged.
 
-The port's engine is eager and builds nothing per batch size, so
-``stats()`` has no compile counters (the JAX package's ``compiles``,
-``cache_hits`` and ``compile_cache``): their counterpart, a CUDA graph per
-batch size shared by engines of one structure, is ROADMAP Queue 4 (item
-9a, first part).
+  * **Shared programs.**  Tenants of one structure share their predict
+    programs through the process-wide ``serve/compile_cache`` (a CUDA
+    graph per batch size on the card): ``stats()`` reports each tenant's
+    ``compiles`` and ``cache_hits`` and the cache's own counters.
 """
 from __future__ import annotations
 
@@ -35,6 +34,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.obs import metrics as obs_metrics, trace
+from repro_torch.serve import compile_cache
 from repro_torch.serve.artifact import latest_artifact, load_artifact
 from repro_torch.serve.engine import EngineConfig, ServeEngine
 
@@ -163,9 +163,10 @@ class ModelRegistry:
 
     # -- observability ------------------------------------------------------
     def stats(self) -> dict:
-        """Per-tenant serving counters: the version and artifact served,
-        swaps, rebuilds, requests and batches (the live engine's)."""
-        return {"tenants": {
+        """Per-tenant serving counters plus the process compile cache:
+        the version and artifact served, swaps, rebuilds, requests,
+        batches, programs built and borrowed warm (the live engine's)."""
+        tenants = {
             n: {
                 "version": t.version,
                 "artifact": str(t.path),
@@ -173,6 +174,9 @@ class ModelRegistry:
                 "rebuilds": t.rebuilds,
                 "requests": t.engine.stats.requests,
                 "batches": t.engine.stats.batches,
+                "compiles": t.engine.stats.compiles,
+                "cache_hits": t.engine.stats.cache_hits,
             }
             for n, t in self._tenants.items()
-        }}
+        }
+        return {"tenants": tenants, "compile_cache": compile_cache.cache_stats()}

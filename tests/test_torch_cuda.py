@@ -440,7 +440,7 @@ def test_vote_argmax_kernel_equals_a_member_by_member_tally(dev, spread):
 def test_engine_on_the_card_launches_the_kernel_once_per_batch(dev):
     from repro_torch.core import boosting
     from repro_torch.learners import LearnerSpec, get_learner
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import ServeEngine, compile_cache
 
     g = torch.Generator().manual_seed(0)
     spec = LearnerSpec("decision_tree", 6, 5, {"depth": 3, "n_bins": 16})
@@ -452,12 +452,17 @@ def test_engine_on_the_card_launches_the_kernel_once_per_batch(dev):
     ens.alpha.copy_(torch.randint(1, 9, (8,), generator=g) * 0.5)  # exact vote sums
     ens = boosting.Ensemble(ens.params, ens.alpha, 6)
     X = torch.randn(300, 6, generator=g).numpy()
+    compile_cache.clear_cache()
     engine = ServeEngine(learner, spec, ens, batch_size=64)
     calls = dict(ref.device_calls)
     before = ops.launch_counts()["vote_argmax"]
     got = engine.predict(X)
     assert engine.stats.batches == 5
     assert ops.launch_counts()["vote_argmax"] == before + engine.stats.batches
+    # the first batch captured the engine's graph, the other four replayed it
+    assert engine.stats.compiles == 1 and engine.stats.graph_replays == engine.stats.batches - 1
+    (program,) = compile_cache._CACHE.values()
+    assert isinstance(program, compile_cache.GraphProgram) and program.captured == {"vote_argmax": 1}
     assert ref.device_calls == calls
     cpu = ServeEngine(learner, spec, boosting.ensemble_to(ens, "cpu"), batch_size=64)
     assert (got == cpu.predict(X)).all()
@@ -476,8 +481,139 @@ def test_serving_on_the_card_goes_through_the_kernel(dev, tmp_path):
     stats = out["stats"]
     assert stats.batches == 3 and stats.warmup_batches == 1
     assert ops.launch_counts()["vote_argmax"] == stats.batches + stats.warmup_batches
+    # the warm-up captured the engine's graph, every served batch replayed it
+    assert stats.graph_replays == stats.batches and ops.capture_counts()["vote_argmax"] == stats.compiles
     assert ref.device_calls == calls
     assert 0.0 < out["f1"] <= 1.0
+
+
+def _card_ensemble(dev, T=8, count=6):
+    from repro_torch.core import boosting
+    from repro_torch.learners import LearnerSpec, get_learner
+
+    g = torch.Generator().manual_seed(3)
+    spec = LearnerSpec("decision_tree", 6, 5, {"depth": 3, "n_bins": 16})
+    learner = get_learner("decision_tree")
+    ens = boosting.init_ensemble(learner, spec, T, dev)
+    ens.params.feature.copy_(torch.randint(0, 6, (T, 3), generator=g, dtype=torch.int32))
+    ens.params.threshold.copy_(torch.randn(T, 3, generator=g))
+    ens.params.leaf_logits.copy_(torch.randn(T, 8, 5, generator=g))
+    ens.alpha.copy_(torch.rand(T, generator=g) + 0.1)
+    return learner, spec, boosting.Ensemble(ens.params, ens.alpha, count)
+
+
+def test_an_eager_engine_on_the_card_launches_the_kernel_once_per_batch(dev):
+    """``EngineConfig(cuda_graphs=False)``: every batch calls the wrapper,
+    which launches the kernel; nothing is captured or replayed."""
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    learner, spec, ens = _card_ensemble(dev)
+    X = torch.randn(300, 6, generator=torch.Generator().manual_seed(7)).numpy()
+    engine = ServeEngine(learner, spec, ens, config=EngineConfig(batch_size=64, cuda_graphs=False))
+    calls = dict(ref.device_calls)
+    before, captured = ops.launch_counts()["vote_argmax"], ops.capture_counts()["vote_argmax"]
+    engine.predict(X)
+    assert engine.stats.batches == 5
+    assert ops.launch_counts()["vote_argmax"] == before + engine.stats.batches
+    assert ops.capture_counts()["vote_argmax"] == captured
+    assert (engine.stats.compiles, engine.stats.graph_replays) == (0, 0)
+    assert ref.device_calls == calls
+
+
+@pytest.mark.parametrize("batch", [64, 256])
+def test_graph_replay_votes_equal_eager_votes_bit_for_bit(dev, batch):
+    """The cached CUDA graph of a batch size (``serve/compile_cache``)
+    answers every row as the eager engine does, to the bit, ragged tail
+    included; the first batch captures a graph holding one vote_argmax,
+    every later batch replays it."""
+    from repro_torch.serve import EngineConfig, ServeEngine, compile_cache
+
+    learner, spec, ens = _card_ensemble(dev)
+    X = torch.randn(1000, 6, generator=torch.Generator().manual_seed(4)).numpy()
+    compile_cache.clear_cache()
+    graphs = ServeEngine(learner, spec, ens, config=EngineConfig(batch_size=batch))
+    eager = ServeEngine(learner, spec, ens, config=EngineConfig(batch_size=batch, cuda_graphs=False))
+    got, want = graphs.predict(X), eager.predict(X)
+    assert (got == want).all()
+    assert graphs.stats.graph_replays == graphs.stats.batches - 1 == -(-1000 // batch) - 1
+    assert (graphs.stats.compiles, eager.stats.compiles) == (1, 0)
+    (program,) = compile_cache._CACHE.values()
+    assert isinstance(program, compile_cache.GraphProgram) and program.captured == {"vote_argmax": 1}
+
+
+def test_a_capture_beside_another_engines_scheduler_serves_both_right(dev):
+    """A graph is captured (a new batch size's first batch) while another
+    engine's deadline scheduler serves from its own thread, syncing with
+    the host at every batch: CUDA's thread-local capture mode holds only
+    the capturing thread to the capture's rules, so neither side raises
+    and both answer as the eager engine does."""
+    import threading
+
+    from repro_torch.serve import EngineConfig, ServeEngine, compile_cache
+
+    learner, spec, ens = _card_ensemble(dev)
+    X = torch.randn(600, 6, generator=torch.Generator().manual_seed(8)).numpy()
+    want = ServeEngine(learner, spec, ens, config=EngineConfig(batch_size=64, cuda_graphs=False)).predict(X)
+    compile_cache.clear_cache()
+    serving = ServeEngine(learner, spec, ens, config=EngineConfig(batch_size=64))
+    serving.warmup()
+    answers, errors, stop, started = [], [], threading.Event(), threading.Event()
+    with serving.scheduler(t_max_s=0.0005) as sched:
+        def traffic():
+            try:
+                while not stop.is_set():
+                    ids = []
+                    for i in range(0, len(X), 37):
+                        ids += sched.submit(X[i:i + 37])
+                    answers.append(sched.results(ids, timeout_s=60.0))
+                    started.set()
+            except Exception as e:  # surfaced by the asserts below
+                errors.append(e)
+                started.set()
+
+        t = threading.Thread(target=traffic)
+        t.start()
+        assert started.wait(60.0)
+        batches = serving.stats.batches
+        got = {}
+        for batch in (96, 128, 192):
+            other = ServeEngine(learner, spec, ens, config=EngineConfig(batch_size=batch))
+            got[batch] = other.predict(X)
+            assert other.stats.compiles == 1
+        stop.set()
+        t.join(120.0)
+    assert not errors and not t.is_alive()
+    assert serving.stats.batches > batches  # it served while the others captured
+    assert len(compile_cache._CACHE) == 4
+    for batch, votes in got.items():
+        assert (votes == want).all(), batch
+    for votes in answers:
+        assert (votes == want).all()
+
+
+def test_a_swap_replays_the_same_graph(dev):
+    """A hot swap (``update_ensemble``) and a second engine of the same
+    structure replay the one cached graph: no new program, the eager
+    engine's votes for the new ensemble."""
+    from repro_torch.core import boosting
+    from repro_torch.serve import EngineConfig, ServeEngine, compile_cache
+
+    learner, spec, ens = _card_ensemble(dev)
+    X = torch.randn(300, 6, generator=torch.Generator().manual_seed(5)).numpy()
+    compile_cache.clear_cache()
+    engine = ServeEngine(learner, spec, ens, batch_size=64)
+    engine.predict(X)
+    (program,) = compile_cache._CACHE.values()
+    replays = program.replays
+    grown = boosting.Ensemble(ens.params, ens.alpha * 1.5, 8)
+    engine.update_ensemble(grown)
+    got = engine.predict(X)
+    other = ServeEngine(learner, spec, grown, batch_size=64)
+    assert (other.predict(X) == got).all()
+    want = ServeEngine(learner, spec, grown, config=EngineConfig(batch_size=64, cuda_graphs=False)).predict(X)
+    assert (got == want).all()
+    assert list(compile_cache._CACHE.values()) == [program] and program.replays == replays + 10
+    assert (engine.stats.compiles, other.stats.compiles, other.stats.cache_hits) == (1, 0, 1)
 
 
 # flash_attention: tests/test_kernels.py's sweep, the fully-masked-tiles case
@@ -814,6 +950,8 @@ def test_registry_on_the_card_swaps_rebuilds_and_serves_through_the_kernel(dev, 
     before = ops.launch_counts()["vote_argmax"]
     got = reg.predict("v", X)
     assert ops.launch_counts()["vote_argmax"] == before + reg.engine("v").stats.batches == before + 5
+    st = reg.engine("v").stats  # a graph it built was captured by its first batch, then replayed
+    assert st.graph_replays == st.batches - st.compiles
     assert ref.device_calls == calls
     art = load_artifact(latest_artifact(tmp_path), "cpu")
     cpu = ServeEngine.from_artifact(art).predict(X)

@@ -384,3 +384,34 @@ def test_serve_main_draws_the_front_end_inputs(name, monkeypatch, capsys):
     assert key == ("frames" if name == "whisper" else "prefix") and tuple(val.shape) == (2, n, cfg.d_model)
     assert val.dtype == torch.float32 and 0.015 < float(val.std()) < 0.025
     assert serve.front_end_inputs(get_arch("gemma-2b").reduced(), 2, gen) == {}
+
+
+# bf16 whisper: logits 2x the 0.0234 measured (the decoder's bf16 rounding in
+# either package, whatever the frames); the cross caches from float32 frames
+# are the float32 encoder's, 1.9e-6 apart measured, so 1e-5; from bf16 frames
+# both encoders run bf16, 0.031 apart measured, so 0.0625
+BF16_LOGIT_ATOL, F32_CROSS_ATOL, BF16_CROSS_ATOL = 0.05, 1e-5, 0.0625
+
+
+@pytest.mark.parametrize("frames_dtype", ["float32", "bfloat16"])
+def test_bf16_whisper_encoder_keeps_the_frames_dtype_as_jax(frames_dtype):
+    """The reduced whisper in bf16 through both packages' prefill from the
+    same frames: float32 frames keep the encoder in float32 (its output's
+    K/V, the cross caches, come back float32 as the JAX prefill's), bf16
+    frames keep it in bf16; the logits and every cross cache agree."""
+    cfg_j, cfg = (dataclasses.replace(c, dtype="bfloat16") for c in _cfgs("whisper"))
+    params = JM.init_params(cfg_j, jax.random.PRNGKey(11))
+    model = model_params_from_numpy(cfg, jax.tree.map(lambda a: np.asarray(a, np.float32), params), device="cpu")
+    tok, frames = _tokens(7, (B, PROMPT["whisper"])), _extras(cfg_j, 8)["frames"]
+    want, state = jax.jit(lambda p, b: JM.prefill(cfg_j, p, b))(
+        params, {"tokens": jnp.asarray(tok), "frames": jnp.asarray(frames).astype(frames_dtype)})
+    got, st = M.prefill(model, {"tokens": torch.from_numpy(tok),
+                                "frames": torch.from_numpy(frames).to(getattr(torch, frames_dtype))})
+    _close(got, want, BF16_LOGIT_ATOL)
+    atol = F32_CROSS_ATOL if frames_dtype == "float32" else BF16_CROSS_ATOL
+    period = len(cfg.pattern()[0])
+    for r, (_, cross) in enumerate(st.caches):
+        jc = state.caches[f"L{r % period}"][1]
+        assert str(cross.k.dtype) == f"torch.{jc.k.dtype}" == f"torch.{frames_dtype}"
+        _close(cross.k, jc.k[r // period], atol)
+        _close(cross.v, jc.v[r // period], atol)

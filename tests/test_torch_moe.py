@@ -17,7 +17,8 @@ Tolerances, float32 on both sides: 2e-5 absolute on MoE outputs (measured
 at most 1.9e-6), 1e-5 relative on the aux loss, 1e-4 absolute on logits
 (``tests/test_torch_window.py``'s); the loss, grad-norm and parameters
 after a step at ``tests/test_torch_train.py``'s (loss 1e-5 relative,
-grad-norm 1e-4, parameters 1e-4 absolute).
+grad-norm 1e-4, parameters 1e-4 absolute).  The prefill-and-decode and
+train-step checks are in ``tests/test_torch_moe_model.py``.
 """
 import dataclasses
 import functools
@@ -31,13 +32,11 @@ import torch
 from repro.configs import get_arch as jax_get_arch
 from repro.models import model as JM
 from repro.models import moe as jmoe
-from repro.optim import optimizers as JO
 from repro_torch.configs import get_arch
-from repro_torch.convert import model_params_from_numpy, train_state_from_numpy
+from repro_torch.convert import model_params_from_numpy
 from repro_torch.models import model as M
 from repro_torch.models import moe
 from repro_torch.models.layers import unembed
-from repro_torch.optim import optimizers as O
 
 ARCHS = ["grok-1-314b", "llama4-scout-17b-a16e"]
 CAPACITY = {"drop_free": None, "cf_1.25_skewed": 1.25}
@@ -245,32 +244,6 @@ def test_nope_global_layer_matches_jax_and_differs_from_rope():
     assert float((roped - got).abs().max()) > 1e-3
 
 
-@pytest.mark.parametrize("cap", list(CAPACITY))
-@pytest.mark.parametrize("name", ARCHS)
-def test_prefill_logits_and_greedy_decode_match_jax(name, cap, drops):
-    """A 128-token prefill (two of llama4's reduced 64-token windows), then
-    24 greedy steps, each side feeding its own argmax: the tokens agree and
-    every step's logits within ``LOGIT_ATOL``."""
-    cfg_j, params, cfg, model = _pair(name, CAPACITY[cap])
-    S, steps = 128, 24
-    tok = _tokens(7, (2, S))
-    lj, stj = JM.prefill(cfg_j, params, {"tokens": jnp.asarray(tok)}, cache_len=S + steps)
-    lt, stt = M.prefill(model, {"tokens": torch.from_numpy(tok)}, cache_len=S + steps)
-    _close(lt, lj, LOGIT_ATOL)
-    step_j = jax.jit(lambda st, t: JM.serve_step(cfg_j, params, st, t))
-    tj, tt = jnp.argmax(lj, -1)[:, None].astype(jnp.int32), torch.argmax(lt, -1)[:, None]
-    for _ in range(steps):
-        np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
-        lj, stj = step_j(stj, tj)
-        lt, stt = M.serve_step(model, stt, tt)
-        _close(lt, lj, LOGIT_ATOL)
-        tj, tt = jnp.argmax(lj, -1)[:, None].astype(jnp.int32), torch.argmax(lt, -1)[:, None]
-    n_moe = sum(layer.moe for layer in model.layers)
-    prefill_drops = drops[:n_moe]
-    assert (sum(prefill_drops) > 0) == (CAPACITY[cap] is not None), prefill_drops
-    assert sum(drops[n_moe:]) == 0  # a decode step's few tokens fit (the 8-slot floor)
-
-
 @pytest.mark.parametrize("name", ARCHS)
 def test_decode_equals_a_cache_free_forward(name):
     """Drop-free (``reduced()``): each decode step's logits equal the port's
@@ -326,33 +299,6 @@ def test_param_tree_is_the_jax_leaf_order_with_the_moe_leaves():
     assert list(tree) == expected
     assert [n for n in expected if n.startswith("layers.0.ffn")] == \
         ["layers.0.ffn.router", "layers.0.ffn.w_down", "layers.0.ffn.w_gate", "layers.0.ffn.w_up"]
-
-
-@pytest.mark.parametrize("cap", list(CAPACITY))
-@pytest.mark.parametrize("name", ARCHS)
-def test_train_step_equals_jax(name, cap, drops):
-    """One AdamW step from the same state and tokens: the loss (aux
-    included), the grad-norm and every parameter."""
-    cfg_j, cfg = _cfgs(name, CAPACITY[cap])
-    state_j = JM.init_train_state(cfg_j, jax.random.PRNGKey(2))
-    if CAPACITY[cap]:
-        state_j = state_j._replace(params=_skew(state_j.params, layer_key=True))
-    tree = jax.tree.map(np.asarray, state_j)
-    state = train_state_from_numpy(cfg, tree.params, tree.opt, device="cpu")
-    opt_j, opt = JO.AdamWConfig(warmup_steps=2, total_steps=10), O.AdamWConfig(warmup_steps=2, total_steps=10)
-    tok = _tokens(10, (2, 129))
-    state_j, m_j = jax.jit(lambda s, b: JM.train_step(cfg_j, s, b, opt_j))(state_j, {"tokens": jnp.asarray(tok)})
-    state, m = M.train_step(cfg, state, {"tokens": torch.from_numpy(tok)}, opt)
-    np.testing.assert_allclose(float(m["loss"]), float(m_j["loss"]), rtol=LOSS_RTOL)
-    np.testing.assert_allclose(float(m["grad_norm"]), float(m_j["grad_norm"]), atol=GNORM_ATOL)
-    want = train_state_from_numpy(cfg, *(jax.tree.map(np.asarray, (state_j.params, state_j.opt))),
-                                  device="cpu")
-    got_p, want_p = M.param_tree(state.params), M.param_tree(want.params)
-    assert list(got_p) == list(want_p)
-    for k in got_p:
-        np.testing.assert_allclose(got_p[k].numpy(), want_p[k].numpy(), atol=PARAM_ATOL, rtol=0, err_msg=k)
-    assert any(k.endswith("ffn.router") for k in got_p)
-    assert (sum(drops) > 0) == (CAPACITY[cap] is not None), drops
 
 
 def test_with_layers_cuts_the_depth_and_keeps_the_unit_positions():

@@ -5,9 +5,9 @@ Checkpoint streams are published by the JAX package (``publish_artifact``,
 its quantized flavours included) or by either package's federations, and
 the same bytes are served by both registries: the port's votes must equal
 the JAX registry's outside the near-tie gap, and swaps and rebuilds are
-counted as in the JAX package.  The compile-cache counters of the JAX
-registry's ``stats()`` have no counterpart in the port (its engine builds
-nothing per batch size)."""
+counted as in the JAX package, as are the compile-cache counters of
+``stats()`` (``tests/test_torch_compile_cache.py`` holds them to the JAX
+registry's)."""
 import dataclasses
 import time
 
@@ -40,7 +40,8 @@ from repro_torch.serve import (
 from test_serve import _blobs, _small_ensemble
 
 B = 64
-STATS_KEYS = {"version", "artifact", "swaps", "rebuilds", "requests", "batches"}
+STATS_KEYS = {"version", "artifact", "swaps", "rebuilds", "requests", "batches", "compiles",
+              "cache_hits"}
 
 
 def _votes_agree(got, want, votes, what):
@@ -75,7 +76,8 @@ def test_registry_multi_tenant_predict_and_stats(tmp_path):
     for sub in ("fedA", "fedB", "fedC"):
         _votes_agree(reg.predict(sub, Xn), jreg.predict(sub, Xn), votes, sub)
     s = reg.stats()
-    assert set(s) == {"tenants"}  # no compile_cache section
+    assert set(s) == {"tenants", "compile_cache"} == set(jreg.stats())
+    assert set(s["compile_cache"]) == set(jreg.stats()["compile_cache"])
     for t in s["tenants"].values():
         assert set(t) == STATS_KEYS
         assert t["version"] == 1 and t["swaps"] == t["rebuilds"] == 0
