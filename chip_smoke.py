@@ -8,8 +8,8 @@ Phases, each of which raises (non-zero exit) on failure:
 1. print the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, and
    check ptxas's report (no spill in the bf16 ``flash_attention``
-   instances, ``tree_hist``, ``weighted_errors``, ``weight_update`` or
-   ``vote_argmax``) and ``tree_hist``'s SASS (its shared-memory atomics
+   instances, the float32 one at D = 64, ``tree_hist``,
+   ``weighted_errors``, ``weight_update`` or ``vote_argmax``) and ``tree_hist``'s SASS (its shared-memory atomics
    are integer adds, no CAS loop);
 3. hold every kernel to its plain PyTorch version on the card, at the main
    paths' shapes (training: adult, letter, forestcover; C = 8, depth 4, 16
@@ -270,7 +270,10 @@ Phases, each of which raises (non-zero exit) on failure:
    1500, 64]`` non-causal, its cross-attention 64 queries against 1500
    keys, its decoder self-attention, gemma2's windowed and full layers with
    the softcap, internvl2's ``[4, 48, 1088, 128]`` over 8 KV heads), each
-   also replayed from a CUDA graph with the eager bits;
+   also replayed from a CUDA graph with the eager bits, and whisper's
+   encoder and cross-attention in float32 (the 3xTF32 route, the cross's
+   keys split over clusters of 8) with both of that route's bounds and
+   float32 SDPA's time;
 19. the production mesh: (a) grok-1-314b's MoE layer at full width, 1
    layer, batch 2 x 4096, through the data-parallel dispatch on 2 gloo
    ranks of a (2, 1) mesh sharing the card, each rank against one
@@ -313,6 +316,7 @@ OUT = ROOT / "build" / "chip_smoke"  # run histories (--history-out)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense (3xTF32 takes three)
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 MAIN = {"dataset": "adult", "rounds": 10, "collaborators": 8, "depth": 4, "eval_every": 5}
 SHAPES = {  # dataset: (n per collaborator, d, K) with C = 8
@@ -367,7 +371,7 @@ SERVE = OUT / "serve"  # serving artifacts and the rolling checkpoint stream
 WINDOW_S = 1.0  # seconds each policy serves pendigits' test split for
 # flash_attention [B, H, Hkv, S, T, D, causal, window, softcap, bf16]:
 # tests/test_kernels.py's sweep and fully-masked-tiles case in float32 (the
-# CUDA-core route) and each again in bf16 (the TMA/wgmma route: D = 32, 64,
+# 3xTF32 route) and each again in bf16 (the TMA/wgmma route: D = 32, 64,
 # 128, 256), a 130-row case (its last block's second warpgroup holds no row
 # inside S) and a 40-query chunk against 200 keys (one warpgroup, several
 # tiles), then gemma-2b's heads at the serving defaults' prefill (batch 4,
@@ -412,23 +416,32 @@ FLASH_CASES = {
     "internvl2_1088": (4, 48, 8, 1088, 1088, 128, True, None, None, True),
     # whisper's encoder over float32 frames runs in float32, as the JAX
     # package's does, and so does its cross-attention against the float32
-    # encoder output: the float32 (CUDA-core) route at these two shapes
+    # encoder output: the float32 (3xTF32) route at these two shapes, the
+    # second split along the keys over clusters of 8
     "whisper_encoder_1500_f32": (4, 20, 20, 1500, 1500, 64, False, None, None, False),
     "whisper_cross_64x1500_f32": (4, 20, 20, 64, 1500, 64, False, None, None, False),
+    # the float32 route's other plans: a key split over a ragged T, a causal
+    # chunk with S < T and a window split 2 ways, D = 128 with the softcap
+    # and grouped heads, and D = 256 (32-key tiles, one CTA an SM)
+    "split_40x1000_f32": (1, 4, 4, 40, 1000, 64, False, None, None, False),
+    "chunk_window_96x1000_f32": (1, 4, 2, 96, 1000, 64, True, 256, None, False),
+    "softcap_gqa_d128_f32": (2, 8, 2, 200, 200, 128, True, None, 30.0, False),
+    "d256_2048_f32": (1, 8, 1, 2048, 2048, 256, True, None, None, False),
 }
 FRONTEND_FLASH = ("whisper_encoder_1500", "whisper_cross_64x1500", "whisper_self_64",
                   "gemma2_window_8192_softcap", "gemma2_8192_softcap", "internvl2_1088",
                   "whisper_encoder_1500_f32", "whisper_cross_64x1500_f32")
 # timed: both routes, bf16 at gemma-2b's shapes and float32 at "ragged"
+# and at D = 256
 FLASH_TIMED = ("gemma_serve", "gemma_2048", "ragged", "gemma_window_8192", "gemma_8192",
-               "grok_8192_softcap", "llama4_window_16384", "llama4_16384") + FRONTEND_FLASH
+               "grok_8192_softcap", "llama4_window_16384", "llama4_16384", "d256_2048_f32") + FRONTEND_FLASH
 # the MoE prefills' shapes: the plain version runs a KV head's group at a time
 # (its float32 scores of one call would hold 13-43 GB), timed eagerly; the
 # kernel is also replayed from a CUDA graph and must give the eager bits
 FLASH_BIG = ("grok_8192_softcap", "llama4_window_16384", "llama4_16384", "gemma2_window_8192_softcap",
              "gemma2_8192_softcap")
 # replayed from a CUDA graph, which must give the eager bits
-FLASH_REPLAY = FLASH_BIG + FRONTEND_FLASH
+FLASH_REPLAY = FLASH_BIG + FRONTEND_FLASH + ("ragged", "split_40x1000_f32", "d256_2048_f32")
 LLM = {"arch": "gemma-2b", "batch": 4, "prompt_len": 64, "tokens": 32, "layers": 18}
 # bf16 keeps 8 bits, and prefill(S + 1) and prefill(S) + one decode step
 # round at different places through 18 layers.  Measured at full width: at
@@ -1438,8 +1451,10 @@ def check_flash_attention(torch, ops, ref, g):
     case logged, then any that disagree named); at gemma-2b's shapes the kernel's, the plain
     version's and SDPA's device times (SDPA's causal mask aligns top-left,
     so it computes the same function only at S == T, as here) and the
-    bound: 4·D flops per visible pair over the bf16 peak, against q, k, v
-    and o moved once.  At the MoE prefills' and gemma2-27b's shapes
+    bound: 4·D flops per visible pair over the bf16 peak (float32: three
+    TF32 products over the TF32 peak, and beside it 4·D over the float32
+    peak of the CUDA cores), against q, k, v and o moved once.  At the MoE
+    prefills' and gemma2-27b's shapes
     (``FLASH_BIG``) the plain version runs a KV head's group at a time;
     there and at phase 18's other shapes (``FLASH_REPLAY``) the kernel is
     replayed from a CUDA graph with the eager bits.  SDPA is timed as the
@@ -1488,7 +1503,10 @@ def check_flash_attention(torch, ops, ref, g):
             elt = q.element_size()
             nbytes = elt * (2 * q.numel() + k.numel() + v.numel())
             pairs = visible_pairs(S, T, causal, window)
-            bms, by = bound_ms(nbytes, 4 * D * B * H * pairs, BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
+            # bf16: one product on the tensor cores; float32: three TF32 products
+            # (3xTF32), beside the bound of float32 on the CUDA cores
+            bms, by = bound_ms(nbytes, 4 * D * B * H * pairs * (1 if bf16 else 3),
+                               BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S)
             kernel = lambda: ops.flash_attention(q, k, v, **kw)
             if big and window:
                 ke, ve = (x.repeat_interleave(H // Hkv, dim=1) for x in (k, v))
@@ -1506,6 +1524,8 @@ def check_flash_attention(torch, ops, ref, g):
                          + (f", window {window}" if window else "")
                          + (f", softcap {softcap}" if softcap else ""), "max_abs_err": err,
                 "bound_ms": bms, "bound_by": by, "visible_pairs": pairs,
+                **({} if bf16 else dict(zip(("cuda_core_bound_ms", "cuda_core_bound_by"),
+                                            bound_ms(nbytes, 4 * D * B * H * pairs)))),
                 **(big_timings(torch, kernel, plain, library) if big else timings(torch, kernel, plain, library)),
             }
             if name in FLASH_REPLAY:
@@ -3519,7 +3539,7 @@ def counted_serve(torch, ops, ref, what: str, call, flash: int, shape: tuple, vo
 def flash_routes(ops):
     """Counts the ``flash_attention`` calls made inside by (q's dtype, S,
     T, causal): the route each attention takes (bf16: TMA + wgmma, float32:
-    CUDA cores)."""
+    3xTF32 on mma.sync)."""
     seen, inner = collections.Counter(), ops.flash_attention
 
     def recording(q, k, v, **kw):
@@ -4163,6 +4183,8 @@ def frontend_serving(torch, ops, ref, card: str, tag: str) -> dict:
         check(f32 == want, f"{tag}: float32 flash routes {f32}, not the encoder's and the cross's {want}")
     per_prefill = ops.launch_counts()["flash_attention"] / 2
     check(per_prefill == run["flash"], f"{tag}: {per_prefill} flash_attention launches a prefill, not {run['flash']}")
+    # each route's launches a prefill: (q dtype, S x T, causal) -> launches
+    routes = {f"{d} {s}x{t} {'causal' if c else 'non-causal'}": n // 2 for (d, s, t, c), n in routes.items()}
     check(st.pos == P + S + N, f"{tag}: the state's position {st.pos} after {N} steps, not P + S + N = {P + S + N}")
     del again, st
     torch.cuda.empty_cache()
@@ -4183,7 +4205,8 @@ def frontend_serving(torch, ops, ref, card: str, tag: str) -> dict:
         + (f" + {cfg.encoder_layers} encoder layers over {cfg.encoder_seq} frames" if cfg.encoder_layers else "")
         + (f", a {cfg.prefix_tokens}-patch prefix" if P else "")
         + f"; {n_params / 1e9:.3f} G parameters, {n_bytes / 1e9:.2f} GB bf16) on {card}: prefill {B}x{S} "
-        f"{timed['prefill_ms']:.3f} ms (warm; generate's first {served['prefill_ms']:.3f}), decode "
+        f"{timed['prefill_ms']:.3f} ms (warm; generate's first {served['prefill_ms']:.3f}; flash_attention "
+        f"routes a prefill: {', '.join(f'{k}: {n}' for k, n in routes.items())}), decode "
         f"{decode_ms:.3f} ms/step = {B * 1e3 / decode_ms:.1f} tok/s ({N} greedy steps); two prefills the same "
         f"bits: {timed['same_bits']}; state position P + S = {P + S}; peak memory "
         f"{timed['peak_bytes'] / 2**30:.2f} GiB (generate's run {served_peak / 2**30:.2f} GiB); launches "
@@ -4194,7 +4217,8 @@ def frontend_serving(torch, ops, ref, card: str, tag: str) -> dict:
     del model
     torch.cuda.empty_cache()
     return {"launches": launches, **timed, "tok_per_s": B * 1e3 / decode_ms, "served": served,
-            "served_peak_bytes": served_peak, "decode_vs_forward": dec, "params": n_params, "pos": P + S}
+            "served_peak_bytes": served_peak, "decode_vs_forward": dec, "params": n_params, "pos": P + S,
+            "flash_routes_per_prefill": routes}
 
 
 def frontend_card_vs_cpu(torch, card: str) -> None:
@@ -4457,12 +4481,16 @@ def main() -> int:
 
         log("flash_attention ptxas (D: registers, spill bytes): bf16 " + "; ".join(map(row, sm90))
             + " | float32 " + "; ".join(row(e) for e in flash if e not in sm90)
-            + " | shared memory is dynamic (bf16, D = 256: 197 672 bytes a 2-warpgroup block)")
+            + " | shared memory is dynamic (bf16, D = 256: 197 672 bytes a 2-warpgroup block; float32, "
+            "D = 64: 52 224 bytes of q and the K/V ring a block of 4 warps, 4 blocks an SM at 128 registers)")
         check(len(sm90) == 4 and len(flash) == 8,
               f"ptxas reported {len(sm90)} bf16 and {len(flash) - len(sm90)} float32 flash "
               "instances, not 4 and 4")
         spilled = [row(e) for e in sm90 if flash[e].get("spill_bytes", 1) != 0]
         check(not spilled, f"bf16 flash_attention instances spill: {spilled}")
+        f32_64 = [row(e) for e in flash if e not in sm90 and "ILi64E" in e]
+        check(len(f32_64) == 1 and f32_64[0].endswith(", 0"),
+              f"the float32 flash_attention instance at D = 64 (whisper's) spills: {f32_64}")
         core = {e: i for e, i in report.items() if any(k in e for k in CORE_KERNELS)}
         log("tree_hist / weighted_errors / weight_update / weight_update_product / vote_argmax "
             "ptxas (registers, spill bytes): " + "; ".join(kernel_row(e, i) for e, i in core.items()))

@@ -69,6 +69,7 @@ from repro_torch.obs import trace
 
 _HDR = struct.Struct("<II")  # (json header length, payload length)
 _READY_TIMEOUT_S = 300.0  # round-0 handshake: a first kernel build must not trip deadlines
+_DONE_TIMEOUT_S = 30.0  # for each collaborator to hang up after the last round
 _PHASE_TIMEOUT_S = 120.0  # errs/wsum phases: generous, only real death should trip
 
 
@@ -229,6 +230,7 @@ class ElasticCoordinator:
                                   device=dev)
         self._q: "queue.Queue[Tuple[int, str, Dict[str, Any], bytes]]" = queue.Queue()
         self.peers: Dict[int, _Peer] = {}
+        self._readers: List[threading.Thread] = []
         # hyp uploads that surfaced after their round closed: whichever
         # collection phase drains them, they merge at the next round open
         self._late_uploads: List[Tuple[int, int, bytes]] = []
@@ -263,7 +265,9 @@ class ElasticCoordinator:
                 raise ConnectionError(f"expected a hello, got {kind!r}")
             peer = _Peer(int(meta["pid"]), sock)  # mafl: allow[host-sync] a JSON int
             self.peers[peer.pid] = peer
-            threading.Thread(target=self._reader, args=(peer,), daemon=True).start()
+            reader = threading.Thread(target=self._reader, args=(peer,), daemon=True)
+            reader.start()
+            self._readers.append(reader)
         srv.close()
 
     def _evict(self, pid: int) -> None:
@@ -474,7 +478,19 @@ class ElasticCoordinator:
                         "round_seconds": time.perf_counter() - t_round,
                     })
         self._broadcast("done", {})
+        self._close()
         return self.history
+
+    def _close(self) -> None:
+        """Wait for every reader thread to see its collaborator hang up
+        (each closes its socket on ``done``; an evicted one is closed
+        already), then close the sockets: no reader may still be running
+        when the interpreter exits, since a daemon thread woken while the
+        process finalizes can abort it."""
+        for reader in self._readers:
+            reader.join(timeout=_DONE_TIMEOUT_S)
+        for peer in self.peers.values():
+            peer.sock.close()
 
     def summary(self) -> Dict[str, Any]:
         return {

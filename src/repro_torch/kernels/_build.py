@@ -55,6 +55,8 @@ _SIGNATURES = {  # every extern "C" function of the sources: (restype, argtypes)
     "repro_vote_argmax": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "repro_flash_attention_f32": (_I, _FLASH),
     "repro_flash_attention_bf16": (_I, _FLASH),
+    # B, H, Hkv, S, T, D, causal, window, plan[3]
+    "repro_flash_attention_f32_plan": (_I, [_I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -10,8 +10,14 @@ wrapper launches a hand-written kernel or raises; the dtype picks it:
   shared memory and ``wgmma`` on bf16 tiles with float32 accumulators.
   TMA needs 16-byte aligned base addresses and strides, so a view it
   cannot describe raises (:func:`check_tma_views`); nothing is copied;
-* float32: ``csrc/flash_attention.cu``, float32 on the CUDA cores (TF32
-  tensor cores would keep about three decimal digits).
+* float32: ``csrc/flash_attention.cu``, both products on the tensor cores
+  in 3xTF32 (each operand split into two TF32 numbers, three products
+  into a float32 accumulator: near float32's error, where one TF32
+  product would keep about three decimal digits), K/V tiles through a
+  ``cp.async`` ring, and where the grid would not fill the card, clusters
+  that split the keys (:func:`f32_plan`).  16-byte copies need 16-byte
+  aligned addresses and strides, so a view they cannot take raises
+  (:func:`check_cp_async_views`).
 
 The source notes give each kernel's bound and design.  On CPU tensors the
 wrapper runs the plain version, ``ref.attention_ref``.  Block sizes are
@@ -27,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,7 +41,52 @@ from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (32, 64, 128, 256)  # the kernels' compiled head dimensions
 MAX_GRID_Y = 65535  # B·H blocks along the float32 kernel's grid y axis
-TMA_ALIGN = 16  # bytes: TMA's alignment of base addresses and strides
+COPY_ALIGN = 16  # bytes: TMA's and cp.async's alignment of base addresses and strides
+SMS = 132  # streaming multiprocessors of an H100 SXM
+F32_BQ = 64  # query rows of a float32 CTA: four warps of 16
+F32_MAX_SPLIT = 8  # CTAs of a float32 cluster along the keys (the portable size)
+
+
+class F32Plan(NamedTuple):
+    splits: int  # CTAs per cluster, each walking a contiguous share of the key tiles
+    bq: int  # query rows per CTA
+    bk: int  # keys per tile
+
+
+def f32_key_tile(D: int) -> int:
+    """Keys per staged tile: 32 (64 at D = 32), so that q and a 2-stage K/V
+    ring leave room for four CTAs an SM at D <= 64."""
+    return 64 if D == 32 else 32
+
+
+def visible_tiles(S: int, T: int, q0: int, bk: int, causal: bool, window: Optional[int]) -> Tuple[int, int]:
+    """The key tiles ``[first, last)`` of ``bk`` keys that any row of the
+    query block starting at ``q0`` can see."""
+    off = T - S
+    pos_lo, pos_hi = q0 + off, min(q0 + F32_BQ, S) - 1 + off
+    k_end = min(T, pos_hi + 1) if causal else T
+    k_begin = max(0, pos_lo - window + 1) if window else 0
+    return k_begin // bk, -(-k_end // bk)
+
+
+def key_split(first: int, last: int, splits: int) -> List[Tuple[int, int]]:
+    """Each cluster rank's contiguous share ``[lo, hi)`` of the tiles ``[first, last)``."""
+    n = last - first
+    return [(first + n * r // splits, first + n * (r + 1) // splits) for r in range(splits)]
+
+
+def f32_plan(B: int, H: int, S: int, T: int, D: int, causal: bool, window: Optional[int]) -> F32Plan:
+    """The float32 kernel's launch plan (``csrc/flash_attention.cu`` computes
+    the same): one CTA per 64 query rows of a (b, h) when those fill the
+    SMs; else clusters of up to 8 CTAs along the keys, each with at least
+    two key tiles of the longest range."""
+    bk = f32_key_tile(D)
+    nqb = -(-S // F32_BQ)
+    if B * H * nqb >= SMS:
+        return F32Plan(1, F32_BQ, bk)
+    most = max(last - first for first, last in
+               (visible_tiles(S, T, qb * F32_BQ, bk, causal, window) for qb in range(nqb)))
+    return F32Plan(max(1, min(F32_MAX_SPLIT, most // 2)), F32_BQ, bk)
 
 
 def _check_inputs(q, k, v, causal: bool, window: Optional[int], softcap: Optional[float]) -> None:
@@ -87,24 +138,47 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
         raise RuntimeError("flash_attention kernel has no backward; call it under torch.no_grad()")
 
 
+def kernel_f32_plan(B: int, H: int, Hkv: int, S: int, T: int, D: int, causal: bool,
+                    window: Optional[int]) -> F32Plan:
+    """The plan ``csrc/flash_attention.cu`` launches for these shapes (it
+    builds the kernels): the card's tests hold it to :func:`f32_plan`."""
+    plan = (ctypes.c_int * 3)()
+    rc = _build.library().repro_flash_attention_f32_plan(B, H, Hkv, S, T, D, int(causal), window or 0, plan)
+    _build.check(rc, "flash_attention plan")
+    return F32Plan(*plan)
+
+
+def _check_copy_views(q, k, v, kernel: str, copier: str, zero_strides: bool) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % COPY_ALIGN:
+            raise ValueError(
+                f"flash_attention {kernel} kernel: {name}'s address is not {COPY_ALIGN}-byte aligned "
+                f"({copier} cannot load it); pass a tensor that starts on a 16-byte boundary"
+            )
+        bad = [a for a in range(3)
+               if t.shape[a] > 1 and ((t.stride(a) < 1 and not zero_strides)
+                                      or t.stride(a) * t.element_size() % COPY_ALIGN)]
+        if bad:
+            raise ValueError(
+                f"flash_attention {kernel} kernel: {name}'s strides {tuple(t.stride())} (elements) "
+                f"on axes {bad} are not {'' if zero_strides else 'positive '}multiples of "
+                f"{COPY_ALIGN} bytes ({copier} cannot take the view)"
+            )
+
+
 def check_tma_views(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise unless TMA can describe each bf16 input as it lies in memory:
     a base address and the strides of axes b, h and s (where they hold
     more than one element) that are multiples of 16 bytes."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % TMA_ALIGN:
-            raise ValueError(
-                f"flash_attention bf16 kernel: {name}'s address is not {TMA_ALIGN}-byte aligned "
-                "(TMA cannot load it); pass a tensor that starts on a 16-byte boundary"
-            )
-        bad = [a for a in range(3)
-               if t.shape[a] > 1 and (t.stride(a) < 1 or t.stride(a) * t.element_size() % TMA_ALIGN)]
-        if bad:
-            raise ValueError(
-                f"flash_attention bf16 kernel: {name}'s strides {tuple(t.stride())} (elements) "
-                f"on axes {bad} are not positive multiples of {TMA_ALIGN} bytes (TMA cannot "
-                "describe the view)"
-            )
+    _check_copy_views(q, k, v, "bf16", "TMA", zero_strides=False)
+
+
+def check_cp_async_views(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise unless 16-byte ``cp.async`` copies can load each float32 input:
+    a base address and the strides of axes b, h and s (where they hold
+    more than one element) that are multiples of 16 bytes, that is of 4
+    elements.  A zero stride (a broadcast row) copies the same row again."""
+    _check_copy_views(q, k, v, "float32", "16-byte cp.async copies", zero_strides=True)
 
 
 def flash_attention(
@@ -123,8 +197,7 @@ def flash_attention(
         return ref.attention_ref(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
     check_kernel_inputs(q, k, v)
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        check_tma_views(q, k, v)
+    (check_tma_views if bf16 else check_cp_async_views)(q, k, v)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     out = torch.empty_like(q)  # q's strides where q is dense: a transposed view stays one

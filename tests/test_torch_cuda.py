@@ -668,6 +668,72 @@ def test_flash_attention_kernel_takes_transposed_views(dev):
     torch.testing.assert_close(got, ref.attention_ref(q, k, v), rtol=0, atol=2e-5)
 
 
+# the float32 kernel's own cases: whisper-large-v3's encoder and cross-attention
+# (split 8 ways along the keys), a key split over a ragged T, a causal chunk with
+# S < T and a window, D = 128 with the softcap and grouped heads, and D = 256
+# (32-key tiles), with and without a split; atol 2e-5, as chip_smoke.py holds it
+F32_FLASH = [  # B, H, Hkv, S, T, D, causal, window, softcap
+    (4, 20, 20, 1500, 1500, 64, False, None, None),
+    (4, 20, 20, 64, 1500, 64, False, None, None),
+    (1, 4, 4, 40, 1000, 64, False, None, None),
+    (1, 4, 2, 96, 1000, 64, True, 256, None),
+    (2, 8, 2, 200, 200, 128, True, None, 30.0),
+    (1, 4, 2, 130, 130, 256, True, None, None),
+    (1, 8, 1, 2048, 2048, 256, True, None, None),
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,window,softcap", F32_FLASH)
+def test_flash_attention_f32_kernel_matches_plain_with_its_plan_and_the_same_bits_twice(
+        dev, B, H, Hkv, S, T, D, causal, window, softcap):
+    """The 3xTF32 kernel against the plain version at atol 2e-5; a second
+    call gives the same bits (the cluster merges its partials in rank
+    order); the kernel launches the plan the wrapper's ``f32_plan`` names."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(S + T + D)
+    q, k, v = (torch.randn(shape, generator=g).to(dev)
+               for shape in ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+    kw = {"causal": causal, "window": window, "softcap": softcap}
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    torch.testing.assert_close(got, want, rtol=0.0, atol=2e-5)
+    assert torch.equal(ops.flash_attention(q, k, v, **kw), got)
+    assert fa.kernel_f32_plan(B, H, Hkv, S, T, D, causal, window) == fa.f32_plan(B, H, S, T, D, causal, window)
+
+
+def test_flash_attention_f32_kernel_plan_equals_the_wrappers(dev):
+    """``csrc/flash_attention.cu`` computes the plan ``f32_plan`` computes,
+    over a sweep of grids under and over the SM count."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for B, H, S, T, D, causal, window in [(b, h, s, t, d, c, w) for b in (1, 3) for h in (1, 20, 44)
+                                          for s, t in ((1, 1), (40, 1000), (64, 1500), (300, 300), (64, 4096))
+                                          for d in (32, 64, 128, 256) for c in (False, True)
+                                          for w in (None, 100) if not (c and s > t)]:
+        assert fa.kernel_f32_plan(B, H, 1, S, T, D, causal, window) == fa.f32_plan(B, H, S, T, D, causal, window)
+
+
+@pytest.mark.parametrize("bad", ["address", "row_stride"])
+def test_flash_attention_f32_kernel_raises_on_views_cp_async_cannot_load(dev, bad):
+    """A float32 view whose address or strides are not multiples of 16
+    bytes raises; it is neither copied nor handed to another kernel."""
+    if bad == "address":  # 4 bytes into an aligned buffer
+        q = torch.zeros(1, 2, 64, 72, device=dev)[..., 1:65]
+    else:  # 264 bytes between rows
+        q = torch.zeros(1, 2, 64, 66, device=dev)[..., :64]
+    k = torch.zeros(1, 2, 64, 64, device=dev)
+    before = ops.launch_counts()["flash_attention"]
+    calls = dict(ref.device_calls)
+    with pytest.raises(ValueError, match="cp.async"):
+        ops.flash_attention(q, k, k)
+    assert ops.launch_counts()["flash_attention"] == before
+    assert ref.device_calls == calls
+
+
 def test_flash_attention_bf16_kernel_takes_transposed_views(dev):
     """The same in bfloat16, the model's dtype: the tensor maps are built
     from the views' strides, so nothing is copied."""
