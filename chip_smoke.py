@@ -390,6 +390,17 @@ FLASH_CASES = {
     "bf16": (1, 8, 2, 128, 128, 128, True, None, None, True),
     "ragged_130_bf16": (2, 2, 1, 130, 130, 128, True, None, None, True),
     "chunk_40x200_bf16": (1, 4, 1, 40, 200, 128, True, None, None, True),
+    # the D = 128 kernel's edges (128 query rows a block, 128-key tiles): a
+    # tail of one row, a chunk with S < T, window edges inside a tile, the
+    # softcap with a window, groups of 5, 6 and 8 heads, non-causal, S = 1
+    "ragged_257_bf16": (1, 2, 1, 257, 257, 128, True, None, None, True),
+    "chunk_40x300_bf16": (1, 4, 1, 40, 300, 128, True, None, None, True),
+    "window_100_bf16": (1, 4, 2, 300, 300, 128, True, 100, None, True),
+    "window_200_bf16": (1, 4, 2, 300, 300, 128, True, 200, None, True),
+    "softcap_window_g6_bf16": (1, 6, 1, 500, 500, 128, True, 200, 30.0, True),
+    "noncausal_g5_bf16": (1, 5, 1, 200, 200, 128, False, None, None, True),
+    "s1_g1_bf16": (1, 8, 8, 1, 1, 128, True, None, None, True),
+    "s1_over_77_softcap_g8_bf16": (1, 8, 1, 1, 77, 128, True, None, 50.0, True),
     "gemma_serve": (4, 8, 1, 64, 64, 256, True, None, None, True),
     "gemma_2048": (1, 8, 1, 2048, 2048, 256, True, None, None, True),
     # phase 14's windowed gemma-2b prefill: its local layers and its full ones
@@ -440,8 +451,12 @@ FLASH_TIMED = ("gemma_serve", "gemma_2048", "ragged", "gemma_window_8192", "gemm
 # kernel is also replayed from a CUDA graph and must give the eager bits
 FLASH_BIG = ("grok_8192_softcap", "llama4_window_16384", "llama4_16384", "gemma2_window_8192_softcap",
              "gemma2_8192_softcap")
+FLASH_D128_EDGES = ("ragged_257_bf16", "chunk_40x300_bf16", "window_100_bf16", "window_200_bf16",
+                    "softcap_window_g6_bf16", "noncausal_g5_bf16", "s1_g1_bf16",
+                    "s1_over_77_softcap_g8_bf16")
 # replayed from a CUDA graph, which must give the eager bits
-FLASH_REPLAY = FLASH_BIG + FRONTEND_FLASH + ("ragged", "split_40x1000_f32", "d256_2048_f32")
+FLASH_REPLAY = FLASH_BIG + FRONTEND_FLASH + FLASH_D128_EDGES + ("ragged", "split_40x1000_f32",
+                                                               "d256_2048_f32")
 LLM = {"arch": "gemma-2b", "batch": 4, "prompt_len": 64, "tokens": 32, "layers": 18}
 # bf16 keeps 8 bits, and prefill(S + 1) and prefill(S) + one decode step
 # round at different places through 18 layers.  Measured at full width: at
@@ -709,6 +724,23 @@ def kernel_row(entry: str, info: dict) -> str:
     name = next(k for k in CORE_KERNELS if k in entry)[: -len("_kernel")]
     m = re.search(r"_kernelILi(\d+)E", entry)
     return f"{name}{f'<{m.group(1)}>' if m else ''}: {info.get('registers')}, {info.get('spill_bytes')}"
+
+
+def register_roles(build, entry: str) -> dict:
+    """The register counts the kernel whose name contains ``entry`` sets
+    with ``setmaxnreg``, read from its SASS (``USETMAXREG``): ``{"alloc":
+    [...], "dealloc": [...]}`` (consumers raise, the producer lowers)."""
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path())],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()[:500]}")
+    roles = {"alloc": [], "dealloc": []}
+    for function in sass.stdout.split("Function : ")[1:]:
+        if entry in function.splitlines()[0]:
+            for kind, n in re.findall(r"USETMAXREG\.(TRY_ALLOC|DEALLOC)\S*\s+(?:U?P\w+,\s*)?(0x[0-9a-f]+|\d+)",
+                                      function):
+                roles["alloc" if kind == "TRY_ALLOC" else "dealloc"].append(int(n, 0))
+    return roles
 
 
 def shared_atomics(build, entry: str) -> set:
@@ -4481,13 +4513,29 @@ def main() -> int:
 
         log("flash_attention ptxas (D: registers, spill bytes): bf16 " + "; ".join(map(row, sm90))
             + " | float32 " + "; ".join(row(e) for e in flash if e not in sm90)
-            + " | shared memory is dynamic (bf16, D = 256: 197 672 bytes a 2-warpgroup block; float32, "
+            + " | shared memory is dynamic (bf16, D = 256: 197 672 bytes a 2-warpgroup block; D = 128: "
+            "164 952 bytes a 3-warpgroup block; float32, "
             "D = 64: 52 224 bytes of q and the K/V ring a block of 4 warps, 4 blocks an SM at 128 registers)")
-        check(len(sm90) == 4 and len(flash) == 8,
-              f"ptxas reported {len(sm90)} bf16 and {len(flash) - len(sm90)} float32 flash "
-              "instances, not 4 and 4")
+        ws = sorted(e for e in sm90 if "ws_kernel" in e)
+        check(len(sm90) == 4 and len(flash) == 8 and len(ws) == 2
+              and any("ILi64E" in e for e in ws) and any("ILi128E" in e for e in ws),
+              f"ptxas reported {len(sm90)} bf16 ({len(ws)} warp-specialised) and "
+              f"{len(flash) - len(sm90)} float32 flash instances, not 4 (2: D = 64, 128) and 4")
         spilled = [row(e) for e in sm90 if flash[e].get("spill_bytes", 1) != 0]
         check(not spilled, f"bf16 flash_attention instances spill: {spilled}")
+        # the warp-specialised kernel (D = 64, 128): registers by role
+        # (setmaxnreg in its SASS), and no wgmma that ptxas serialised (its
+        # "Potential Performance Loss" remarks)
+        roles = register_roles(_build, "flash_attention_sm90_ws_kernel")
+        log("flash_attention bf16 warp-specialised (D: ptxas registers a thread at launch, spill bytes): "
+            + "; ".join(map(row, ws)) + f"; consumers raised to {roles['alloc']}, the producer lowered to "
+            f"{roles['dealloc']} registers (setmaxnreg, both instances)")
+        check(len(roles["alloc"]) == 2 and len(set(roles["alloc"])) == 1
+              and len(roles["dealloc"]) == 2 and len(set(roles["dealloc"])) == 1,
+              f"the warp-specialised kernel's SASS sets no single register count per role: {roles}")
+        serialised = [ln.strip() for ln in _build.build_log.splitlines()
+                      if "wgmma.mma_async instructions are serialized" in ln and "ws_kernel" in ln]
+        check(not serialised, f"ptxas serialised the warp-specialised kernel's wgmma: {serialised}")
         f32_64 = [row(e) for e in flash if e not in sm90 and "ILi64E" in e]
         check(len(f32_64) == 1 and f32_64[0].endswith(", 0"),
               f"the float32 flash_attention instance at D = 64 (whisper's) spills: {f32_64}")

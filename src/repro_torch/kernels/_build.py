@@ -57,6 +57,8 @@ _SIGNATURES = {  # every extern "C" function of the sources: (restype, argtypes)
     "repro_flash_attention_bf16": (_I, _FLASH),
     # B, H, Hkv, S, T, D, causal, window, plan[3]
     "repro_flash_attention_f32_plan": (_I, [_I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # B, H, Hkv, S, T, D, causal, window, plan[cap], cap
+    "repro_flash_attention_bf16_plan": (_I, [_I, _I, _I, _I, _I, _I, _I, _I, _P, _I]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -8,8 +8,12 @@ wrapper launches a hand-written kernel or raises; the dtype picks it:
 
 * bfloat16: ``csrc/flash_attention_sm90.cu``, TMA loads into swizzled
   shared memory and ``wgmma`` on bf16 tiles with float32 accumulators.
-  TMA needs 16-byte aligned base addresses and strides, so a view it
-  cannot describe raises (:func:`check_tma_views`); nothing is copied;
+  Head dims 64 and 128 take a warp-specialised kernel (a producer
+  warpgroup, 128-key tiles, two consumer warpgroups taking turns at the
+  tensor cores, the softcap on the exp unit); 32 and 256 the first design
+  (:func:`bf16_plan`).  TMA needs 16-byte aligned base addresses and
+  strides, so a view it cannot describe raises (:func:`check_tma_views`);
+  nothing is copied;
 * float32: ``csrc/flash_attention.cu``, both products on the tensor cores
   in 3xTF32 (each operand split into two TF32 numbers, three products
   into a float32 accumulator: near float32's error, where one TF32
@@ -47,6 +51,47 @@ F32_BQ = 64  # query rows of a float32 CTA: four warps of 16
 F32_MAX_SPLIT = 8  # CTAs of a float32 cluster along the keys (the portable size)
 
 
+BF16_WS_DIMS = (64, 128)  # head dims the warp-specialised bf16 kernel serves
+BF16_BM = 64  # query rows of a consumer warpgroup (both bf16 kernels)
+BF16_BN = 64  # keys a tile, the first design
+BF16_WS_BN = 128  # keys a tile, the warp-specialised kernel
+
+
+class Bf16Plan(NamedTuple):
+    kernel: str  # "ws": the warp-specialised kernel (D = 64, 128); "sm90": the first design
+    bm: int  # query rows a block
+    bn: int  # keys a tile
+    tiles: Tuple[Tuple[int, int], ...]  # each query block's key tiles [first, last), by first row
+
+
+def block_tiles(S: int, T: int, q0: int, rows: int, bn: int, causal: bool,
+                window: Optional[int]) -> Tuple[int, int]:
+    """The tiles ``[first, last)`` of ``bn`` keys that any of the ``rows``
+    query rows from ``q0`` can see: the tiles a bf16 block loads (the
+    kernels' ``block_tiles``)."""
+    off = T - S
+    pos_lo, pos_hi = q0 + off, min(q0 + rows, S) - 1 + off
+    k_end = min(T, pos_hi + 1) if causal else T
+    k_begin = max(0, pos_lo - window + 1) if window else 0
+    first = k_begin // bn
+    return first, first + max(0, -(-k_end // bn) - first)
+
+
+def bf16_plan(B: int, H: int, Hkv: int, S: int, T: int, D: int, causal: bool,
+              window: Optional[int]) -> Bf16Plan:
+    """The bf16 route's launch plan (``repro_flash_attention_bf16_plan``
+    computes the same).  D = 64, 128: blocks of 128 query rows (two
+    consumer warpgroups) over 128-key tiles; D = 32, 256: the first
+    design's blocks of 128 rows (64 where S <= 64) over 64-key tiles.
+    The grid is ``B·H`` by the query blocks, whatever the plan."""
+    if D in BF16_WS_DIMS:
+        kernel, bm, bn = "ws", 2 * BF16_BM, BF16_WS_BN
+    else:
+        kernel, bm, bn = "sm90", (1 if S <= BF16_BM else 2) * BF16_BM, BF16_BN
+    tiles = tuple(block_tiles(S, T, q0, bm, bn, causal, window) for q0 in range(0, S, bm))
+    return Bf16Plan(kernel, bm, bn, tiles)
+
+
 class F32Plan(NamedTuple):
     splits: int  # CTAs per cluster, each walking a contiguous share of the key tiles
     bq: int  # query rows per CTA
@@ -61,12 +106,8 @@ def f32_key_tile(D: int) -> int:
 
 def visible_tiles(S: int, T: int, q0: int, bk: int, causal: bool, window: Optional[int]) -> Tuple[int, int]:
     """The key tiles ``[first, last)`` of ``bk`` keys that any row of the
-    query block starting at ``q0`` can see."""
-    off = T - S
-    pos_lo, pos_hi = q0 + off, min(q0 + F32_BQ, S) - 1 + off
-    k_end = min(T, pos_hi + 1) if causal else T
-    k_begin = max(0, pos_lo - window + 1) if window else 0
-    return k_begin // bk, -(-k_end // bk)
+    float32 kernel's query block starting at ``q0`` can see."""
+    return block_tiles(S, T, q0, F32_BQ, bk, causal, window)
 
 
 def key_split(first: int, last: int, splits: int) -> List[Tuple[int, int]]:
@@ -146,6 +187,20 @@ def kernel_f32_plan(B: int, H: int, Hkv: int, S: int, T: int, D: int, causal: bo
     rc = _build.library().repro_flash_attention_f32_plan(B, H, Hkv, S, T, D, int(causal), window or 0, plan)
     _build.check(rc, "flash_attention plan")
     return F32Plan(*plan)
+
+
+def kernel_bf16_plan(B: int, H: int, Hkv: int, S: int, T: int, D: int, causal: bool,
+                     window: Optional[int]) -> Bf16Plan:
+    """The plan ``csrc/flash_attention_sm90.cu`` launches for these shapes
+    (it builds the kernels): the card's tests hold it to :func:`bf16_plan`."""
+    cap = 4 + 2 * -(-S // BF16_BM)
+    plan = (ctypes.c_int * cap)()
+    rc = _build.library().repro_flash_attention_bf16_plan(
+        B, H, Hkv, S, T, D, int(causal), window or 0, plan, cap)
+    _build.check(rc, "flash_attention bf16 plan")
+    kernel, bm, bn, nq = plan[:4]
+    tiles = tuple((plan[4 + 2 * i], plan[5 + 2 * i]) for i in range(nq))
+    return Bf16Plan("ws" if kernel else "sm90", bm, bn, tiles)
 
 
 def _check_copy_views(q, k, v, kernel: str, copier: str, zero_strides: bool) -> None:

@@ -636,7 +636,18 @@ FLASH = [  # B, H, Hkv, S, T, D, causal, window, softcap, dtype
     (4, 8, 1, 64, 64, 256, True, None, None, torch.bfloat16),
     (2, 2, 1, 130, 130, 128, True, None, None, torch.bfloat16),
     (1, 4, 1, 40, 200, 128, True, None, None, torch.bfloat16),
+    # the D = 128 kernel's edges: 128 query rows a block over 128-key tiles
+    (1, 2, 1, 257, 257, 128, True, None, None, torch.bfloat16),  # a one-row tail
+    (1, 4, 1, 40, 300, 128, True, None, None, torch.bfloat16),  # a chunk, S < T
+    (1, 4, 2, 300, 300, 128, True, 100, None, torch.bfloat16),  # window edges inside a tile
+    (1, 4, 2, 300, 300, 128, True, 200, None, torch.bfloat16),
+    (1, 6, 1, 500, 500, 128, True, 200, 30.0, torch.bfloat16),  # softcap and window, g = 6
+    (1, 5, 1, 200, 200, 128, False, None, None, torch.bfloat16),  # non-causal, g = 5
+    (1, 8, 8, 1, 1, 128, True, None, None, torch.bfloat16),  # S = 1, g = 1
+    (1, 8, 1, 1, 77, 128, True, None, 50.0, torch.bfloat16),  # S = 1 over 77 keys, g = 8
 ]
+# the bf16 cases the warp-specialised kernel serves (D = 64 and 128)
+BF16_WS = [case[:9] for case in FLASH if case[5] in (64, 128) and case[9] == torch.bfloat16]
 
 
 @pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,window,softcap,dtype", FLASH)
@@ -654,6 +665,54 @@ def test_flash_attention_kernel_matches_plain(dev, B, H, Hkv, S, T, D, causal, w
     bf16 = dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2 if bf16 else 0.0,
                                atol=4e-3 if bf16 else 2e-5)
+
+
+def _graph_replay(fn):
+    """``fn()`` captured in a CUDA graph (warmed up on a side stream) and
+    replayed once: the replay's output."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,window,softcap", BF16_WS)
+def test_flash_attention_bf16_ws_kernel_gives_the_same_bits_and_its_plan(
+        dev, B, H, Hkv, S, T, D, causal, window, softcap):
+    """The warp-specialised kernel (D = 64, 128): the same bits from a second call
+    and from a CUDA-graph replay (its consumers take turns in a fixed
+    order, and each sums its own rows), and the plan the wrapper's
+    ``bf16_plan`` names."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(S + T + D + 1)
+    q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
+               for shape in ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+    kw = {"causal": causal, "window": window, "softcap": softcap}
+    got = ops.flash_attention(q, k, v, **kw)
+    assert torch.equal(ops.flash_attention(q, k, v, **kw), got)
+    assert torch.equal(_graph_replay(lambda: ops.flash_attention(q, k, v, **kw)), got)
+    plan = fa.kernel_bf16_plan(B, H, Hkv, S, T, D, causal, window)
+    assert plan == fa.bf16_plan(B, H, Hkv, S, T, D, causal, window) and plan.kernel == "ws"
+
+
+def test_flash_attention_bf16_kernel_plan_equals_the_wrappers(dev):
+    """``csrc/flash_attention_sm90.cu`` computes the plan ``bf16_plan``
+    computes, over every head dim, tails, chunks and windows."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for H, Hkv, S, T, D, causal, window in [
+            (h, hk, s, t, d, c, w) for h, hk in ((8, 1), (48, 8)) for s, t in ((1, 1), (40, 300), (64, 64),
+                                                                              (130, 130), (300, 300), (1088, 1088))
+            for d in (32, 64, 128, 256) for c in (False, True) for w in (None, 100, 200) if not (c and s > t)]:
+        assert fa.kernel_bf16_plan(1, H, Hkv, S, T, D, causal, window) == fa.bf16_plan(1, H, Hkv, S, T, D, causal, window)
 
 
 def test_flash_attention_kernel_takes_transposed_views(dev):

@@ -1,18 +1,25 @@
-"""The float32 ``flash_attention`` kernel's launch plan and view check, on
-the CPU: ``f32_plan`` (the rule ``csrc/flash_attention.cu`` also computes;
-the card's tests hold the two equal), ``visible_tiles`` and
-``key_split`` (which key tiles each CTA of a cluster walks), and
-``check_cp_async_views`` (what 16-byte copies can load).  Pure Python on
-shapes: the kernel itself is held to the plain version on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""The ``flash_attention`` kernels' launch plans and view check, on the
+CPU: ``f32_plan`` (the rule ``csrc/flash_attention.cu`` also computes;
+the card's tests hold the two equal), ``visible_tiles`` and ``key_split``
+(which key tiles each CTA of a cluster walks), ``check_cp_async_views``
+(what 16-byte copies can load); the bf16 route's ``bf16_plan`` (which
+kernel a head dim takes, its tiles, each query block's key tiles) and the
+softcap arithmetic of its warp-specialised kernel.  Pure Python
+on shapes: the kernels themselves are held to the plain version on the
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
+import math
+
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import (
-    F32_BQ, F32_MAX_SPLIT, SMS, F32Plan, check_cp_async_views, f32_key_tile, f32_plan, key_split,
-    visible_tiles,
+    F32_BQ, F32_MAX_SPLIT, SMS, F32Plan, bf16_plan, block_tiles, check_cp_async_views, f32_key_tile,
+    f32_plan, key_split, visible_tiles,
 )
+
+LOG2E = 1.4426950408889634
 
 SHAPES = [  # B, H, S, T, D, causal, window
     (4, 20, 1500, 1500, 64, False, None),  # whisper's encoder
@@ -119,3 +126,120 @@ def test_cp_async_check_refuses_views_16_byte_copies_cannot_load(bad):
         check_cp_async_views(q, k, k)
     with pytest.raises(ValueError, match="cp.async"):
         check_cp_async_views(k, q, k)
+
+
+# the bf16 route's plan (``bf16_plan``; ``repro_flash_attention_bf16_plan``
+# computes the same, and the card's tests hold the two equal): the six D = 128
+# model shapes, ragged edges of the 128-row, 128-key tiles, then the other
+# head dims
+BF16_SHAPES = [  # B, H, Hkv, S, T, D, causal, window
+    (1, 48, 8, 8192, 8192, 128, True, None),  # grok-1 (softcap 30)
+    (1, 40, 8, 16384, 16384, 128, True, 8192),  # llama4-scout's chunked-local layers
+    (1, 40, 8, 16384, 16384, 128, True, None),  # llama4-scout's NoPE global layer
+    (1, 32, 16, 8192, 8192, 128, True, 4096),  # gemma2-27b's local layers (softcap 50)
+    (1, 32, 16, 8192, 8192, 128, True, None),  # gemma2-27b's global layers
+    (4, 48, 8, 1088, 1088, 128, True, None),  # internvl2-26b (1024 patches + 64 tokens)
+    (2, 2, 1, 130, 130, 128, True, None),  # a 2-row tail
+    (1, 2, 1, 257, 257, 128, True, None),
+    (1, 4, 1, 40, 300, 128, True, None),  # a chunk, S < T
+    (1, 4, 2, 96, 1000, 128, True, 256),
+    (1, 4, 2, 300, 300, 128, True, 100),  # window edges inside a tile
+    (1, 4, 2, 300, 300, 128, True, 200),
+    (1, 6, 1, 500, 500, 128, True, 200),
+    (1, 5, 1, 200, 200, 128, False, None),
+    (1, 4, 1, 200, 700, 128, False, 100),  # non-causal with a window
+    (1, 8, 8, 1, 1, 128, True, None),  # S <= 64: the second warpgroup holds no row
+    (1, 8, 1, 1, 77, 128, True, None),
+    (1, 4, 1, 64, 64, 128, True, None),
+    (1, 8, 1, 2048, 2048, 256, True, None),  # the first design's D = 256 and 32
+    (4, 8, 1, 64, 64, 256, True, None),
+    (1, 2, 2, 256, 256, 32, True, 16),
+    (1, 2, 2, 96, 160, 32, True, None),
+    (4, 20, 20, 64, 64, 64, True, None),  # whisper's decoder self-attention
+    (4, 20, 20, 1500, 1500, 64, False, None),  # its encoder and cross-attention
+    (4, 20, 20, 64, 1500, 64, False, None),
+]
+
+
+def _row_intervals(S, T, causal, window):
+    """Each query row's visible keys ``[lo, hi]`` (empty where lo > hi)."""
+    pos = np.arange(S) + T - S
+    hi = np.minimum(T - 1, pos) if causal else np.full(S, T - 1)
+    lo = np.maximum(0, pos - window + 1) if window else np.zeros(S, dtype=int)
+    return lo, hi
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,window", BF16_SHAPES)
+def test_bf16_plan_tiles_cover_every_visible_pair_once_and_load_no_invisible_tile(
+        B, H, Hkv, S, T, D, causal, window):
+    """Per query block: every visible (row, key) pair lies in one of its key
+    tiles (the tiles partition the keys, so it lies in exactly one), and
+    every tile it loads holds a pair some row of the block can see."""
+    plan = bf16_plan(B, H, Hkv, S, T, D, causal, window)
+    assert len(plan.tiles) == -(-S // plan.bm)
+    lo, hi = _row_intervals(S, T, causal, window)
+    for i, (first, last) in enumerate(plan.tiles):
+        rows = slice(i * plan.bm, min((i + 1) * plan.bm, S))
+        blo, bhi = lo[rows], hi[rows]
+        seen = blo <= bhi
+        if not seen.any():
+            assert first == last
+            continue
+        blo, bhi = blo[seen], bhi[seen]
+        inside = (np.minimum(bhi, last * plan.bn - 1) - np.maximum(blo, first * plan.bn) + 1).clip(0)
+        assert inside.sum() == (bhi - blo + 1).sum()  # every visible pair inside [first, last)
+        for tile in range(first, last):  # each loaded tile is seen by some row
+            k0, k1 = tile * plan.bn, (tile + 1) * plan.bn - 1
+            assert ((blo <= k1) & (bhi >= k0)).any(), (i, tile)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,window", BF16_SHAPES)
+def test_bf16_plan_picks_the_kernel_by_head_dim(B, H, Hkv, S, T, D, causal, window):
+    """D = 64 and 128 take the warp-specialised kernel (128 query rows a
+    block, 128-key tiles); D = 32 and 256 keep the first design (64-key
+    tiles, 64 rows a block where S <= 64, else 128)."""
+    plan = bf16_plan(B, H, Hkv, S, T, D, causal, window)
+    if D in (64, 128):
+        assert (plan.kernel, plan.bm, plan.bn) == ("ws", 128, 128)
+    else:
+        assert (plan.kernel, plan.bm, plan.bn) == ("sm90", 64 if S <= 64 else 128, 64)
+
+
+def test_bf16_plan_at_the_model_shapes():
+    """The D = 128 prefills' tile walks: grok-1's last query block (rows
+    8064-8191) walks all 64 key tiles, its first only tile 0; llama4-scout's
+    windowed block at rows 16256-16383 starts at tile 63 (key 8065 lies in
+    it) and walks 65 tiles; internvl2's last block holds 64 rows and walks 9."""
+    grok = bf16_plan(1, 48, 8, 8192, 8192, 128, True, None)
+    assert grok.tiles[-1] == (0, 64) and grok.tiles[0] == (0, 1)
+    llama = bf16_plan(1, 40, 8, 16384, 16384, 128, True, 8192)
+    assert llama.tiles[-1] == (63, 128)
+    assert bf16_plan(4, 48, 8, 1088, 1088, 128, True, None).tiles[-1] == (0, 9)
+    assert block_tiles(16384, 16384, 16256, 128, 128, True, 8192) == (63, 128)
+
+
+def softcap_log2(s: torch.Tensor, scale: float, softcap: float) -> torch.Tensor:
+    """``softcap·tanh(scale·s / softcap)·log2(e)`` in float32 as the
+    warp-specialised kernel (``csrc/flash_attention_sm90.cu:ws_softmax``)
+    computes it: ``tanh(t) = 1 - 2 / (1 + 2^(2·log2(e)·t))``, the constants
+    folded on the host in double and rounded, one ``exp2`` and one
+    reciprocal, where the kernel uses the card's ``ex2.approx`` and
+    ``rcp.approx``."""
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+    a, c, m2c = f32(2 * LOG2E * scale / softcap), f32(softcap * LOG2E), f32(-2 * softcap * LOG2E)
+    return torch.addcmul(c, m2c, torch.reciprocal(1 + torch.exp2(s.float() * a)))
+
+
+@pytest.mark.parametrize("softcap", [30.0, 50.0])
+def test_softcap_arithmetic_of_the_ws_kernel_is_within_1e5_of_the_cap(softcap):
+    """The kernel's ``c - 2c / (1 + 2^(a·s))`` in float32 against
+    ``softcap·tanh`` in float64 over t = scale·s / softcap in [-30, 30]:
+    within 1e-5·softcap.  The card's ``ex2.approx`` and ``rcp.approx`` add
+    about 2^-22 of relative error each, 1e-7 of the cap."""
+    scale = 1 / math.sqrt(128)
+    t = torch.linspace(-30, 30, 200_001, dtype=torch.float64)
+    s = (t * softcap / scale).float()
+    got = softcap_log2(s, scale, softcap).double() / LOG2E
+    want = softcap * torch.tanh(s.double() * scale / softcap)
+    assert float((got - want).abs().max()) <= 1e-5 * softcap
+    assert float(got.abs().max()) <= softcap * (1 + 1e-6)  # saturates, no overflow at |t| = 30
