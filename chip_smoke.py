@@ -580,6 +580,13 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+def is_kernel(e, DeviceType) -> bool:
+    """Whether a profile's ``key_averages`` entry is device work: a program
+    span's device-side copy (a user annotation, which spans its kernels and
+    the gaps between them) is not."""
+    return e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -1701,7 +1708,7 @@ def profile_round(torch, fl_run, card: str, rounds: int = MAIN["rounds"], label:
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     rows = [(e.key, e.count, getattr(e, "device_time_total", None) or e.cuda_time_total)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages() if is_kernel(e, DeviceType)]
     busy_us = sum(r[2] for r in rows)
     rows.sort(key=lambda r: -r[2])
     if not busy_us:
@@ -1883,7 +1890,7 @@ def profile_serving(torch, path: Path, card: str) -> None:
         engine.predict(X)
         wall_us = 1e6 * (time.perf_counter() - t0)
     rows = [(e.key, e.count, getattr(e, "device_time_total", None) or e.cuda_time_total)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages() if is_kernel(e, DeviceType)]
     busy_us = sum(r[2] for r in rows)
     if not busy_us:
         log(f"serving profile: torch.profiler recorded no device time on {card}; busy share not measured")
@@ -2943,7 +2950,7 @@ def profile_llm(torch, model, tokens, card: str) -> None:
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
         rows = [(e.key, e.count, getattr(e, "device_time_total", None) or e.cuda_time_total)
-                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+                for e in prof.key_averages() if is_kernel(e, DeviceType)]
         busy_us = sum(r[2] for r in rows)
         if not busy_us:
             log(f"gemma-2b {what} profile: no device time recorded on {card}; busy share not measured")
@@ -3074,7 +3081,7 @@ def profile_train_step(torch, cfg, state, batch, opt, card: str):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     rows = [(e.key, e.count, getattr(e, "device_time_total", None) or e.cuda_time_total)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages() if is_kernel(e, DeviceType)]
     busy_us = sum(r[2] for r in rows)
     if not busy_us:
         log(f"phase 14 (a) train step profile: no device time recorded on {card}; busy share not measured")
@@ -3465,31 +3472,29 @@ def sharded_phase(torch, ops, ref, fl_run, card: str) -> dict:
 # -- phase 16: MoE layers, grok-1 and llama4-scout at full width ------------------------
 
 
-class DropCounter:
-    """While open, every ``models.moe.apply_moe`` call records how many
-    (token, choice) pairs its capacity dropped (read from the router: the
-    expert counts past ``capacity``)."""
+class MoeDrops:
+    """While open, the port's tracer records, so ``models/moe.py`` counts its
+    MoE layers' work; on leaving, ``dropped`` is the (token, choice) pairs
+    their capacity dropped meanwhile (``mafl_moe_rows_dropped_total``, every
+    phase)."""
 
-    def __init__(self, torch):
-        from repro_torch.models import moe
+    @staticmethod
+    def total() -> float:
+        from repro_torch.obs.metrics import REGISTRY
 
-        self.torch, self.moe, self.calls = torch, moe, []
+        return sum(c.value for c in REGISTRY.get("mafl_moe_rows_dropped_total").children())
 
     def __enter__(self):
-        torch, moe, apply = self.torch, self.moe, self.moe.apply_moe
+        from repro_torch.obs import trace
 
-        def counting(cfg, p, x):
-            B, S, d = x.shape
-            _, ids, _ = moe.route(cfg, p, x.reshape(1, B * S, d))
-            counts = torch.bincount(ids.reshape(-1), minlength=cfg.n_experts)
-            self.calls.append(int(torch.clamp_min(counts - moe.capacity(cfg, B * S), 0).sum()))
-            return apply(cfg, p, x)
-
-        self._apply, moe.apply_moe = apply, counting
+        self.trace, self.was_on, self.start = trace, trace.TRACER.enabled, self.total()
+        trace.enable()
         return self
 
     def __exit__(self, *exc):
-        self.moe.apply_moe = self._apply
+        if not self.was_on:
+            self.trace.disable()
+        self.dropped = int(self.total() - self.start)
 
 
 MOE_RANGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
@@ -3526,9 +3531,8 @@ def device_profile(torch, model, tokens, card: str, phase: str, labels: tuple) -
         def dev_ms(e):
             return (getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)) / 1e3
 
-        # a range's device time is its kernels' (the host-side range's total);
-        # the device-side range of the same name spans the idle gaps too
-        kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in labels]
+        # a range's device time is its kernels' (the host-side range's total)
+        kernels = [e for e in events if is_kernel(e, DeviceType)]
         busy = sum(dev_ms(e) for e in kernels)
         activities = sum(e.count for e in kernels)
         parts = {lab: sum(dev_ms(e) for e in events if e.key == lab and e.device_type == DeviceType.CPU)
@@ -3655,7 +3659,7 @@ def moe_serving(torch, ops, ref, card: str, tag: str) -> dict:
     model = serve.build(cfg, 0, torch.device(DEV))
     n_params = sum(p.numel() for p in model.parameters())
     tok = torch.randint(0, cfg.vocab_size, (1, S + N), generator=torch.Generator().manual_seed(1)).to(DEV)
-    drops = DropCounter(torch)
+    drops = MoeDrops()
     timed, again, st = prefill_twice_and_decode(torch, model, tok, S, N, tag, first_ctx=drops)
     prof = device_profile(torch, model, tok[:, :S], card, f"phase 16 {tag}", MOE_RANGES)
     del again, st
@@ -3664,13 +3668,13 @@ def moe_serving(torch, ops, ref, card: str, tag: str) -> dict:
     # decode against a cache-free forward, at a drop-free capacity
     Sc = MOE_DECODE_CHECK[tag]
     model.cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
-    with DropCounter(torch) as free:
+    with MoeDrops() as free:
         _, st = M.prefill(model, {"tokens": tok[:, :Sc]}, cache_len=Sc + N)
         for s in range(Sc, Sc + N):
             stepped, st = M.serve_step(model, st, tok[:, s:s + 1])
         with torch.no_grad():
             whole = unembed(model.cfg, model.embed, model(tok[:, :Sc + N])[:, -1:])[:, 0]
-    check(sum(free.calls) == 0, f"{tag}: the drop-free check dropped {free.calls}")
+    check(free.dropped == 0, f"{tag}: the drop-free check dropped {free.dropped}")
     d = (stepped - whole).abs()
     check(bool(torch.isclose(stepped, whole, **DECODE_TOL).all()),
           f"{tag}: decode past {Sc} vs a cache-free forward: max |diff| {float(d.max()):.4g} > {DECODE_TOL}")
@@ -3681,12 +3685,12 @@ def moe_serving(torch, ops, ref, card: str, tag: str) -> dict:
         f"launch.serve: prefill {1e3 * served_prefill_s:.3f} ms; two prefills the same bits: "
         f"{timed['same_bits']}; peak memory {timed['peak_bytes'] / 2**30:.2f} GiB (launch.serve's run "
         f"{served_peak / 2**30:.2f} GiB); capacity {moe.capacity(cfg, S)} slots an expert at {S} tokens, "
-        f"dropped (token, choice) pairs a layer {drops.calls}; launches {launches}; decode of {N} tokens past "
-        f"a {Sc}-token prompt vs a cache-free forward (drop-free capacity): max |diff| {float(d.max()):.4g}, "
-        f"mean {float(d.mean()):.4g} (tol {DECODE_TOL})")
+        f"dropped (token, choice) pairs over the {L} layers {drops.dropped}; launches {launches}; decode of {N} "
+        f"tokens past a {Sc}-token prompt vs a cache-free forward (drop-free capacity): max |diff| "
+        f"{float(d.max()):.4g}, mean {float(d.mean()):.4g} (tol {DECODE_TOL})")
     del model, st, stepped, whole
     torch.cuda.empty_cache()
-    return {"launches": launches, **timed, "served_peak_bytes": served_peak, "dropped": drops.calls,
+    return {"launches": launches, **timed, "served_peak_bytes": served_peak, "dropped": drops.dropped,
             "decode_vs_forward_max": float(d.max()), "profile": prof, "params": n_params}
 
 

@@ -253,9 +253,7 @@ def prefill(torch, cs, arch: str, n: int) -> dict:
             wall_ms = 1e3 * (time.perf_counter() - t0)
     by_family = {}
     for e in prof.key_averages():
-        # the MoE layer's ranges also appear as device-side annotations that
-        # span their kernels and the gaps between them: not kernels
-        if e.device_type == DeviceType.CUDA and e.key not in cs.MOE_RANGES:
+        if cs.is_kernel(e, DeviceType):
             ms = (getattr(e, "device_time_total", None) or e.cuda_time_total) / 1e3
             fam = by_family.setdefault(family(e.key), {"ms": 0.0, "launches": 0})
             fam["ms"] += ms

@@ -150,7 +150,7 @@ def whisper_prefill(torch, cs, n: int, B: int = 4, S: int = 64) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_family = {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if cs.is_kernel(e, DeviceType):
             ms = (getattr(e, "device_time_total", None) or e.cuda_time_total) / 1e3
             fam = by_family.setdefault(family(e.key), {"ms": 0.0, "launches": 0})
             fam["ms"] += ms

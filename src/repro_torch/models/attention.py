@@ -38,6 +38,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import make_param, matmul, pdtype, rope
 from repro_torch.models import shardings
 from repro_torch.models.shardings import maybe_gather_weight as _mg
+from repro_torch.obs import trace
 
 
 class Attention(nn.Module):
@@ -77,10 +78,11 @@ def _out(p: Attention, o: torch.Tensor) -> torch.Tensor:
     """[B, S, H, D] against ``wo [H, D, d]`` -> [B, S, d].  Over DTensors, a
     local region (``shardings.output_specs``), for the reason ``_heads``
     gives."""
-    if shardings.is_dtensor(p.wo):
-        os_, ws, outs = shardings.output_specs(o, p.wo)
-        return shardings.local_region(_out_local, (os_, ws), outs, o, p.wo)
-    return _out_local(o, p.wo)
+    with trace.span("attn.out"):
+        if shardings.is_dtensor(p.wo):
+            os_, ws, outs = shardings.output_specs(o, p.wo)
+            return shardings.local_region(_out_local, (os_, ws), outs, o, p.wo)
+        return _out_local(o, p.wo)
 
 
 def _out_local(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -147,10 +149,11 @@ def attend_full(
     given (T = S then).  The kernel takes the ``[B, H, S, D]`` transposes
     as strided views: nothing is copied for it.  ``plain_attention`` (the
     training forward's) takes the plain route."""
-    q, k, v = _project_qkv(p, x, kv_x)
-    if use_rope and cfg.pos_emb == "rope":
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions if kv_x is None else torch.arange(k.shape[1], device=k.device), cfg.rope_theta)
+    with trace.span("attn.qkv"):
+        q, k, v = _project_qkv(p, x, kv_x)
+        if use_rope and cfg.pos_emb == "rope":
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions if kv_x is None else torch.arange(k.shape[1], device=k.device), cfg.rope_theta)
     S = q.shape[1]
     if (plain_attention and CHUNKED_LOCAL and window is not None and causal and kv_x is None
             and S % window == 0 and S // window >= 2):
@@ -213,26 +216,27 @@ def attend_decode(
     slots: ``<= pos``, and every slot of a ring once ``pos >= T``; logits
     and softmax in float32.  A ``cross`` cache holds the encoder's K/V:
     only q is projected, nothing is written, every slot is valid."""
-    B = x.shape[0]
     T = cache.k.shape[1]
-    q = _heads(x, p.wq)  # [B, 1, H, D]
-    at = torch.full((1,), pos, device=x.device) if use_rope and cfg.pos_emb == "rope" else None
-    if at is not None:
-        q = rope(q, at, cfg.rope_theta)
-    if cross:
-        valid = None
-    else:
-        if pos < 0 or (not window and pos >= T):
-            raise ValueError(f"decode position {pos} outside the cache's {T} slots")
-        kn, vn = _heads(x, p.wk), _heads(x, p.wv)  # [B, 1, Kv, D]
+    if not cross and (pos < 0 or (not window and pos >= T)):
+        raise ValueError(f"decode position {pos} outside the cache's {T} slots")
+    with trace.span("attn.qkv"):
+        q = _heads(x, p.wq)  # [B, 1, H, D]
+        at = torch.full((1,), pos, device=x.device) if use_rope and cfg.pos_emb == "rope" else None
         if at is not None:
-            kn = rope(kn, at, cfg.rope_theta)
-        slot = pos % T if window else pos
-        cache.k[:, slot] = kn[:, 0].to(cache.k.dtype)
-        cache.v[:, slot] = vn[:, 0].to(cache.v.dtype)
-        valid = torch.arange(T, device=x.device) <= pos  # a ring's every slot once pos >= T
-
-    out = _heads_local(functools.partial(_decode_attention, cfg, valid=valid), q, cache.k, cache.v, 2)
+            q = rope(q, at, cfg.rope_theta)
+        if not cross:
+            kn, vn = _heads(x, p.wk), _heads(x, p.wv)  # [B, 1, Kv, D]
+            if at is not None:
+                kn = rope(kn, at, cfg.rope_theta)
+    with trace.span("attn.decode"):
+        if cross:
+            valid = None
+        else:
+            slot = pos % T if window else pos
+            cache.k[:, slot] = kn[:, 0].to(cache.k.dtype)
+            cache.v[:, slot] = vn[:, 0].to(cache.v.dtype)
+            valid = torch.arange(T, device=x.device) <= pos  # a ring's every slot once pos >= T
+        out = _heads_local(functools.partial(_decode_attention, cfg, valid=valid), q, cache.k, cache.v, 2)
     return _out(p, out), cache
 
 

@@ -24,6 +24,7 @@ from torch.nn import functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.shardings import embedding_local, is_dtensor
 from repro_torch.models.shardings import maybe_gather_weight as _mg
+from repro_torch.obs import trace
 
 
 def pdtype(cfg: ArchConfig) -> torch.dtype:
@@ -61,9 +62,10 @@ def _zeros(shape: Tuple[int, ...], device) -> nn.Parameter:
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * (1.0 + gamma.float())).to(x.dtype)
+    with trace.span("norm"):
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + eps) * (1.0 + gamma.float())).to(x.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -85,14 +87,15 @@ class RMSNorm(nn.Module):
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotate-half RoPE.  x: [B, S, H, D]; positions: [S] or [B, S]."""
-    half = x.shape[-1] // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
-    if positions.dim() == 1:
-        positions = positions[None, :]
-    ang = positions[:, :, None].float() * freqs[None, None, :]  # [B, S, half]
-    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    with trace.span("rope"):
+        half = x.shape[-1] // 2
+        freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+        if positions.dim() == 1:
+            positions = positions[None, :]
+        ang = positions[:, :, None].float() * freqs[None, None, :]  # [B, S, half]
+        cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+        x1, x2 = x[..., :half].float(), x[..., half:].float()
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
 def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -131,14 +134,15 @@ class MLP(nn.Module):
 
 
 def apply_mlp(cfg: ArchConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
-    up_ax, down_ax = MLP.AXES["w_up"], MLP.AXES["w_down"]
-    w_up, w_down = _mg(p.w_up, up_ax), _mg(p.w_down, down_ax)
-    if cfg.mlp_type == "swiglu":
-        return matmul(F.silu(matmul(x, _mg(p.w_gate, up_ax))) * matmul(x, w_up), w_down)
-    if cfg.mlp_type == "geglu":
-        return matmul(F.gelu(matmul(x, _mg(p.w_gate, up_ax)), approximate="tanh") * matmul(x, w_up), w_down)
-    h = F.gelu(matmul(x, w_up) + p.b_up.to(x.dtype), approximate="tanh")
-    return matmul(h, w_down) + p.b_down.to(x.dtype)
+    with trace.span("mlp"):
+        up_ax, down_ax = MLP.AXES["w_up"], MLP.AXES["w_down"]
+        w_up, w_down = _mg(p.w_up, up_ax), _mg(p.w_down, down_ax)
+        if cfg.mlp_type == "swiglu":
+            return matmul(F.silu(matmul(x, _mg(p.w_gate, up_ax))) * matmul(x, w_up), w_down)
+        if cfg.mlp_type == "geglu":
+            return matmul(F.gelu(matmul(x, _mg(p.w_gate, up_ax)), approximate="tanh") * matmul(x, w_up), w_down)
+        h = F.gelu(matmul(x, w_up) + p.b_up.to(x.dtype), approximate="tanh")
+        return matmul(h, w_down) + p.b_down.to(x.dtype)
 
 
 # -- embeddings ---------------------------------------------------------------
@@ -159,20 +163,22 @@ class Embed(nn.Module):
 
 
 def embed_tokens(cfg: ArchConfig, p: Embed, tokens: torch.Tensor) -> torch.Tensor:
-    if is_dtensor(p.embedding):  # a table sharded over a mesh: the vocabulary-parallel lookup
-        x = embedding_local(tokens, p.embedding)
-    else:
-        x = p.embedding[tokens]
-    if cfg.embed_scale:  # sqrt(d) in float32, rounded to the activation type
-        x = x * float(torch.tensor(float(cfg.d_model)).sqrt().to(x.dtype))
-    return x
+    with trace.span("embed"):
+        if is_dtensor(p.embedding):  # a table sharded over a mesh: the vocabulary-parallel lookup
+            x = embedding_local(tokens, p.embedding)
+        else:
+            x = p.embedding[tokens]
+        if cfg.embed_scale:  # sqrt(d) in float32, rounded to the activation type
+            x = x * float(torch.tensor(float(cfg.d_model)).sqrt().to(x.dtype))
+        return x
 
 
 def unembed(cfg: ArchConfig, p: Embed, x: torch.Tensor) -> torch.Tensor:
     """Float32 logits over the padded vocabulary, soft-capped if the
     architecture caps them."""
-    w = p.embedding.t() if cfg.tie_embeddings else p.unembed
-    logits = (x @ w).float()
-    if cfg.final_softcap is not None:
-        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
-    return logits
+    with trace.span("unembed"):
+        w = p.embedding.t() if cfg.tie_embeddings else p.unembed
+        logits = (x @ w).float()
+        if cfg.final_softcap is not None:
+            logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+        return logits

@@ -39,6 +39,7 @@ from repro_torch.models.attention import init_cache
 from repro_torch.models.layers import pdtype, unembed
 from repro_torch.models.shardings import constrain_microbatch, is_dtensor, place_state, whole_batch
 from repro_torch.models.transformer import Cache, Transformer, init_caches, init_state
+from repro_torch.obs import trace
 from repro_torch.optim.optimizers import AdamWConfig, AdamWState, Tree, adamw_update, init_adamw
 
 MOE_AUX_WEIGHT = 0.01
@@ -278,16 +279,17 @@ def prefill(
     tokens, prefix, frames = batch["tokens"], batch.get("prefix"), batch.get("frames")
     B = tokens.shape[0]
     end = tokens.shape[1] + (0 if prefix is None else prefix.shape[1])
-    n_frames = model.cfg.encoder_seq if frames is None else frames.shape[1]
-    # the cross caches hold the encoder output's K/V in its promoted dtype
-    # (float32 from float32 frames), as the JAX prefill returns them
-    cross = None if frames is None else torch.promote_types(frames.dtype, pdtype(model.cfg))
-    caches = _prefill_caches(model, B, max(end, cache_len or end), n_frames, tokens.device, cross)
-    if is_dtensor(tokens):  # the dry-run's mesh: the caches are DTensors too
-        caches = place_state(caches, B, tokens.device_mesh)
-    state = ServeState(caches, end)
-    hidden = model(tokens, prefix=prefix, frames=frames, caches=state.caches)
-    logits = unembed(model.cfg, model.embed, hidden[:, -1:, :])[:, 0]
+    with trace.span("model.prefill", rows=B, positions=end):
+        n_frames = model.cfg.encoder_seq if frames is None else frames.shape[1]
+        # the cross caches hold the encoder output's K/V in its promoted dtype
+        # (float32 from float32 frames), as the JAX prefill returns them
+        cross = None if frames is None else torch.promote_types(frames.dtype, pdtype(model.cfg))
+        caches = _prefill_caches(model, B, max(end, cache_len or end), n_frames, tokens.device, cross)
+        if is_dtensor(tokens):  # the dry-run's mesh: the caches are DTensors too
+            caches = place_state(caches, B, tokens.device_mesh)
+        state = ServeState(caches, end)
+        hidden = model(tokens, prefix=prefix, frames=frames, caches=state.caches)
+        logits = unembed(model.cfg, model.embed, hidden[:, -1:, :])[:, 0]
     return logits, state
 
 
@@ -296,7 +298,8 @@ def serve_step(
     model: Transformer, state: ServeState, token: torch.Tensor
 ) -> Tuple[torch.Tensor, ServeState]:
     """token [B, 1] -> (logits [B, V] float32, the advanced state)."""
-    logits, caches = model.decode_step(state.caches, token, state.pos)
+    with trace.span("model.serve_step", rows=token.shape[0], pos=state.pos):
+        logits, caches = model.decode_step(state.caches, token, state.pos)
     return logits, ServeState(caches, state.pos + 1)
 
 

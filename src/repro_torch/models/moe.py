@@ -30,9 +30,23 @@ Three places where PyTorch and JAX differ, and what this module does:
   zeros in choice order: the same sum as the scatter (addition of two
   terms commutes), deterministic by construction.
 
-The four stages run inside ``torch.profiler.record_function`` ranges
-(``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``), so a
-profile attributes the device time of an MoE layer to them.
+The four stages run inside spans (``obs/trace.py``: ``moe.route``,
+``moe.dispatch``, ``moe.experts``, ``moe.combine``), so a profile attributes
+the device time of an MoE layer to them.
+
+While a recorder is on (``trace.recording()``: the port's tracer or
+``torch.profiler``), each dense dispatch also counts its work into the
+``mafl_moe_*`` counter families, labelled ``phase``: ``prefill`` or
+``decode`` inside ``model.prefill`` or ``model.serve_step``, ``other``
+outside both (a training forward).  ``rows_routed`` (the (token, choice)
+pairs, ``n·k`` a group), ``rows_computed`` (the rows the experts multiply,
+``G·E·cap``) and ``experts_read`` (``E``: every expert's weights are read)
+are host ints.  ``rows_dropped`` (pairs past capacity) and
+``experts_routed`` (experts with a routed pair) are added on the device,
+with no host sync, into one ``[E + 1]`` accumulator a phase, which is
+copied to the host and folded into the families when one is read.  The
+counting runs inside ``moe.dispatch``, so a profile puts its cost in the
+MoE layer.  Off, nothing is counted.
 
 ``DISPATCH_GROUPS`` (``set_dispatch_groups``) splits the tokens into G
 groups that sort and fill their own expert buffers, as the JAX package's
@@ -53,17 +67,19 @@ the tokens, as the JAX package's auto-partitioned dispatch does.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import shardings
 from repro_torch.models.layers import make_param, pdtype
 from repro_torch.models.shardings import maybe_gather_weight as _mg
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace
 
 
 class MoE(nn.Module):
@@ -90,6 +106,64 @@ DISPATCH_GROUPS = 1
 def set_dispatch_groups(value: int) -> None:
     global DISPATCH_GROUPS
     DISPATCH_GROUPS = value
+
+
+# -- the counters (recorded only while trace.recording()) --------------------
+
+PHASES = {"model.prefill": "prefill", "model.serve_step": "decode"}  # enclosing span -> phase
+_ACC: dict = {}  # (phase, E, device) -> [E + 1] int64: dispatches that routed to each expert, pairs dropped
+_ACC_LOCK = threading.Lock()
+
+
+def _fold() -> None:
+    """Takes the accumulators into the families: one copy to the host a
+    phase."""
+    with _ACC_LOCK:
+        taken = list(_ACC.items())
+        _ACC.clear()
+    for (phase, E, _), acc in taken:
+        counts = acc.tolist()
+        EXPERTS_ROUTED.labels(phase=phase).inc(sum(counts[:E]))
+        ROWS_DROPPED.labels(phase=phase).inc(counts[E])
+
+
+ROWS_ROUTED = obs_metrics.counter("mafl_moe_rows_routed_total", "(token, choice) pairs routed",
+                                  labels=("phase",))
+ROWS_COMPUTED = obs_metrics.counter("mafl_moe_rows_computed_total", "expert rows multiplied (G*E*capacity)",
+                                    labels=("phase",))
+ROWS_DROPPED = obs_metrics.counter("mafl_moe_rows_dropped_total", "routed pairs past their expert's capacity",
+                                   labels=("phase",), fold=_fold)
+EXPERTS_READ = obs_metrics.counter("mafl_moe_experts_read_total", "experts whose weights the experts stage read",
+                                   labels=("phase",))
+EXPERTS_ROUTED = obs_metrics.counter("mafl_moe_experts_routed_total", "experts with at least one routed pair",
+                                     labels=("phase",), fold=_fold)
+
+
+def _phase() -> str:
+    for name in reversed(trace.open_spans()):
+        if name in PHASES:
+            return PHASES[name]
+    return "other"
+
+
+def _count(E: int, cap: int, flat_expert: torch.Tensor, keep: torch.Tensor) -> None:
+    """One dispatch's counts (``flat_expert [G, n·k]``, ``keep`` its pairs
+    within capacity): host ints, and on the device the experts with a pair
+    and the pairs dropped, added into the phase's accumulator."""
+    G, nk = flat_expert.shape
+    phase = _phase()
+    ROWS_ROUTED.labels(phase=phase).inc(G * nk)
+    ROWS_COMPUTED.labels(phase=phase).inc(G * E * cap)
+    EXPERTS_READ.labels(phase=phase).inc(E)
+    call = torch.zeros(E + 1, dtype=torch.int64, device=keep.device)
+    call.scatter_(0, flat_expert.reshape(-1), 1)  # 1 for each expert with a routed pair
+    call[E] = keep.numel() - keep.sum()
+    key = (phase, E, keep.device)
+    with _ACC_LOCK:
+        if key in _ACC:
+            _ACC[key].add_(call)
+        else:
+            _ACC[key] = call
 
 
 def capacity(cfg: ArchConfig, n: int) -> int:
@@ -184,7 +258,7 @@ def _moe_dense(cfg: ArchConfig, p: MoE, x: torch.Tensor, G: int) -> Tuple[torch.
     n = N // G  # tokens per dispatch group
     dev = x.device
     xf = x.reshape(G, n, d)
-    with record_function("moe.route"):
+    with trace.span("moe.route"):
         probs, expert_ids, gate_vals = route(cfg, p, xf)
         # Switch-style aux loss: E * sum_e f_e * P_e (global means)
         me = torch.mean(probs, dim=(0, 1))  # [E]
@@ -195,7 +269,7 @@ def _moe_dense(cfg: ArchConfig, p: MoE, x: torch.Tensor, G: int) -> Tuple[torch.
     # ---- sort-based dispatch (per group) ---------------------------------
     cap = capacity(cfg, n)
     nk = n * k
-    with record_function("moe.dispatch"):
+    with trace.span("moe.dispatch"):
         flat_expert = expert_ids.reshape(G, nk)
         flat_gate = gate_vals.reshape(G, nk)
         flat_token = torch.arange(n, device=dev).repeat_interleave(k).expand(G, nk)
@@ -220,9 +294,11 @@ def _moe_dense(cfg: ArchConfig, p: MoE, x: torch.Tensor, G: int) -> Tuple[torch.
         gates_slot = gates_slot[:, :E * cap]
         xpad = torch.cat([xf, torch.zeros((G, 1, d), dtype=xf.dtype, device=dev)], dim=1)
         inp = torch.take_along_dim(xpad, buf_tok[:, :, None], dim=1).reshape(G, E, cap, d)
+        if trace.recording():
+            _count(E, cap, flat_expert, keep)
 
     # the experts: silu(x W_gate) * (x W_up) W_down, batched over E
-    with record_function("moe.experts"):
+    with trace.span("moe.experts"):
         ax = MoE.AXES
         h = F.silu(torch.einsum("gecd,edf->gecf", inp, _mg(p.w_gate, ax["w_gate"]))) * \
             torch.einsum("gecd,edf->gecf", inp, _mg(p.w_up, ax["w_up"]))
@@ -230,7 +306,7 @@ def _moe_dense(cfg: ArchConfig, p: MoE, x: torch.Tensor, G: int) -> Tuple[torch.
 
     # the combine: each (token, choice) reads its slot's gate-weighted
     # output (the zero row E*cap when dropped), added onto zeros in choice order
-    with record_function("moe.combine"):
+    with trace.span("moe.combine"):
         valid = (buf_tok < n).to(out_e.dtype)
         contrib = out_e * (gates_slot * valid)[:, :, None].to(out_e.dtype)
         contrib = torch.cat([contrib, torch.zeros((G, 1, d), dtype=contrib.dtype, device=dev)], dim=1)

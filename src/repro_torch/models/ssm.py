@@ -39,8 +39,8 @@ The parameters are named as the JAX dict keys, with their dtypes (``w_if``,
 rest the activation type), so ``convert`` carries them by name and
 ``model.param_tree`` sorts them into the JAX leaf order.  Each mixer's
 projections, Mamba's scan, the mLSTM's chunk loop and the sLSTM's step
-loop run in ``torch.profiler.record_function`` ranges (``ssm.projections``,
-``ssm.mamba_scan``, ``ssm.mlstm_chunks``, ``ssm.slstm_steps``).
+loop run in spans (``obs/trace.py``: ``ssm.projections``, ``ssm.mamba_scan``,
+``ssm.mlstm_chunks``, ``ssm.slstm_steps``), profiler ranges while one records.
 """
 from __future__ import annotations
 
@@ -50,10 +50,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import _zeros, make_param, pdtype
+from repro_torch.obs import trace
 
 CHUNK = 128  # the scans' chunk length (the JAX package's min(128, S))
 
@@ -146,7 +146,7 @@ def _mamba_inner(cfg: ArchConfig, p: Mamba, xz: torch.Tensor, conv_init: torch.T
     chunk = chunk_len(S)
     n_chunks = S // chunk
 
-    with record_function("ssm.mamba_scan"):
+    with trace.span("ssm.mamba_scan"):
         # causal depthwise conv over time (kernel d_conv), float32
         xpad = torch.cat([conv_init.to(x.dtype), x], dim=1)  # [B, S + dc - 1, di]
         conv_tail = xpad[:, S:, :]  # the new trailing state (the last dc - 1 inputs)
@@ -185,10 +185,10 @@ def apply_mamba(cfg: ArchConfig, p: Mamba, x: torch.Tensor) -> torch.Tensor:
 
 def mamba_prefill(cfg: ArchConfig, p: Mamba, x: torch.Tensor) -> Tuple[torch.Tensor, MambaState]:
     state = init_mamba_state(cfg, x.shape[0], x.dtype, x.device)
-    with record_function("ssm.projections"):
+    with trace.span("ssm.projections"):
         xz = x @ p.in_proj
     y, state = _mamba_inner(cfg, p, xz, state.conv, state.ssm)
-    with record_function("ssm.projections"):
+    with trace.span("ssm.projections"):
         return y @ p.out_proj, state
 
 
@@ -202,10 +202,10 @@ def init_mamba_state(cfg: ArchConfig, batch: int, dtype, device) -> MambaState:
 
 def mamba_decode(cfg: ArchConfig, p: Mamba, x: torch.Tensor, state: MambaState):
     """One token. x: [B, 1, d]."""
-    with record_function("ssm.projections"):
+    with trace.span("ssm.projections"):
         xz = x @ p.in_proj
     y, new_state = _mamba_inner(cfg, p, xz, state.conv, state.ssm)
-    with record_function("ssm.projections"):
+    with trace.span("ssm.projections"):
         return y @ p.out_proj, new_state
 
 
@@ -303,7 +303,7 @@ def apply_mlstm(cfg: ArchConfig, p: MLSTM, x: torch.Tensor,
     B, S, _ = x.shape
     di, Dh = _mlstm_dims(cfg)
     chunk = chunk_len(S)
-    with record_function("ssm.projections"):
+    with trace.span("ssm.projections"):
         up = x @ p.up_proj
         xi, z = up.chunk(2, dim=-1)  # [B, S, di]
         q, k, v = _heads(xi, p.wq), _heads(xi, p.wk), _heads(xi, p.wv)
@@ -312,14 +312,14 @@ def apply_mlstm(cfg: ArchConfig, p: MLSTM, x: torch.Tensor,
     if state is None:
         state = init_mlstm_state(cfg, B, x.device)
     C, n = state
-    with record_function("ssm.mlstm_chunks"):
+    with trace.span("ssm.mlstm_chunks"):
         hs = []
         for lo in range(0, S, chunk):
             sl = slice(lo, lo + chunk)
             h, C, n = _mlstm_chunk(cfg, q[:, sl], k[:, sl], v[:, sl], log_i[:, sl], log_f[:, sl], C, n)
             hs.append(h)
         h = torch.cat(hs, dim=1).reshape(B, S, di)
-    with record_function("ssm.projections"):
+    with trace.span("ssm.projections"):
         out = (h.to(x.dtype) * F.silu(z)) @ p.down_proj
     return out, MLSTMState(C, n)
 
@@ -403,18 +403,18 @@ def apply_slstm(cfg: ArchConfig, p: SLSTM, x: torch.Tensor,
     """x: [B, S, d] -> ([B, S, d], final state). Sequential over S."""
     B, S, d = x.shape
     H, Dh = _slstm_dims(cfg)
-    with record_function("ssm.projections"):
+    with trace.span("ssm.projections"):
         gx = _heads(x, p.w_x).float()  # [B, S, 4, H, Dh]
     if state is None:
         state = init_slstm_state(cfg, B, x.device)
-    with record_function("ssm.slstm_steps"):
+    with trace.span("ssm.slstm_steps"):
         r = p.r_h.permute(1, 2, 0, 3).reshape(H, Dh, 4 * Dh)
         hs = []
         for t in range(S):
             state = _slstm_step(r, p.b, state, gx[:, t])
             hs.append(state.h)
         y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    with record_function("ssm.projections"):
+    with trace.span("ssm.projections"):
         # gated FFN
         u, g = (y @ p.w_ff_up).chunk(2, dim=-1)
         y = (u * F.gelu(g, approximate="tanh")) @ p.w_ff_down

@@ -60,6 +60,7 @@ from repro_torch.models.layers import (
     sinusoidal,
     unembed,
 )
+from repro_torch.obs import trace
 
 # one layer's decode state: an attention layer's KV cache or a recurrent
 # layer's state; an audio decoder layer's is (that, its cross cache)
@@ -354,8 +355,9 @@ def _write_prefill(cache: attn.LayerCache, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"window must divide prefill length (window {window}, prompt {S})")
         k, v = k[:, -window:], v[:, -window:]
         S = window
-    cache.k[:, :S] = k
-    cache.v[:, :S] = v
+    with trace.span("cache.write"):
+        cache.k[:, :S] = k
+        cache.v[:, :S] = v
 
 
 def init_state(cfg: ArchConfig, kind: str, batch: int, device) -> Cache:

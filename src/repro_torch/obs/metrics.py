@@ -7,7 +7,9 @@ log-spaced latency histograms with a Prometheus-text exposition dump
   * ``Histogram`` — FIXED-memory log-spaced buckets with quantile
     estimation (see the class docstring for the error bound);
   * ``MetricsRegistry`` — named families, optional Prometheus-style
-    labels, and ``prometheus_text()`` exposition.
+    labels, and ``prometheus_text()`` exposition.  A counter family
+    registered with ``fold`` calls it before it is read, to take in
+    counts its owner keeps on a device.
 
 The default process registry lives at module level (``counter()`` /
 ``gauge()`` / ``histogram()`` register into it); per-instance views
@@ -20,19 +22,23 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 
 class Counter:
-    """Monotonically increasing value (Prometheus ``counter``)."""
+    """Monotonically increasing value (Prometheus ``counter``).  A counter
+    of a family registered with ``fold`` calls it before it is read, to
+    take in counts still pending on a device."""
 
-    __slots__ = ("name", "labels", "_value", "_lock")
+    __slots__ = ("name", "labels", "_value", "_lock", "_fold")
 
-    def __init__(self, name: str, labels: Tuple[Tuple[str, str], ...] = ()):
+    def __init__(self, name: str, labels: Tuple[Tuple[str, str], ...] = (),
+                 fold: Optional[Callable[[], None]] = None):
         self.name = name
         self.labels = labels
         self._value = 0.0
         self._lock = threading.Lock()
+        self._fold = fold
 
     def inc(self, n: float = 1.0) -> None:
         if n < 0:
@@ -42,6 +48,8 @@ class Counter:
 
     @property
     def value(self) -> float:
+        if self._fold is not None:
+            self._fold()
         with self._lock:
             return self._value
 
@@ -284,11 +292,12 @@ class _Family:
     (children keyed by label values, created on demand via ``labels``)."""
 
     def __init__(self, name: str, kind: type, help: str, label_names: Tuple[str, ...],
-                 **hist_kw: Any):
+                 fold: Optional[Callable[[], None]] = None, **hist_kw: Any):
         self.name = name
         self.kind = kind
         self.help = help
         self.label_names = label_names
+        self.fold = fold  # a counter family's: takes in the counts pending on a device
         self._hist_kw = hist_kw
         self._children: Dict[tuple, Any] = {}
         self._lock = threading.Lock()
@@ -299,6 +308,8 @@ class _Family:
         pairs = tuple(zip(self.label_names, values))
         if self.kind is Histogram:
             return Histogram(self.name, pairs, **self._hist_kw)
+        if self.kind is Counter:
+            return Counter(self.name, pairs, self.fold)
         return self.kind(self.name, pairs)
 
     def labels(self, **kv: str):
@@ -314,6 +325,8 @@ class _Family:
             return child
 
     def children(self) -> List[Any]:
+        if self.fold is not None:  # may add children: before the list is taken
+            self.fold()
         with self._lock:
             return list(self._children.values())
 
@@ -332,12 +345,13 @@ class MetricsRegistry:
         self._lock = threading.Lock()
 
     def _register(self, name: str, kind: type, help: str,
-                  labels: Iterable[str] = (), **hist_kw: Any):
+                  labels: Iterable[str] = (), fold: Optional[Callable[[], None]] = None,
+                  **hist_kw: Any):
         labels = tuple(labels)
         with self._lock:
             fam = self._families.get(name)
             if fam is None:
-                fam = self._families[name] = _Family(name, kind, help, labels, **hist_kw)
+                fam = self._families[name] = _Family(name, kind, help, labels, fold, **hist_kw)
             elif fam.kind is not kind or fam.label_names != labels:
                 raise ValueError(
                     f"metric {name!r} already registered as "
@@ -345,11 +359,13 @@ class MetricsRegistry:
                 )
         return fam.solo if not labels else fam
 
-    def counter(self, name: str, help: str = "", labels: Iterable[str] = ()):
+    def counter(self, name: str, help: str = "", labels: Iterable[str] = (),
+                fold: Optional[Callable[[], None]] = None):
         """Unlabeled: returns the Counter.  Labeled: returns the family
         (``.labels(k=v).inc()``).  Re-registration returns the existing
-        metric, so modules declare at import time without coordination."""
-        return self._register(name, Counter, help, labels)
+        metric, so modules declare at import time without coordination.
+        ``fold`` runs before the family or one of its counters is read."""
+        return self._register(name, Counter, help, labels, fold)
 
     def gauge(self, name: str, help: str = "", labels: Iterable[str] = ()):
         return self._register(name, Gauge, help, labels)
@@ -416,8 +432,9 @@ def _label_str(pairs: Tuple[Tuple[str, str], ...]) -> str:
 REGISTRY = MetricsRegistry()
 
 
-def counter(name: str, help: str = "", labels: Iterable[str] = ()):
-    return REGISTRY.counter(name, help, labels)
+def counter(name: str, help: str = "", labels: Iterable[str] = (),
+            fold: Optional[Callable[[], None]] = None):
+    return REGISTRY.counter(name, help, labels, fold)
 
 
 def gauge(name: str, help: str = "", labels: Iterable[str] = ()):

@@ -1,6 +1,8 @@
-"""Structured span tracer — where a round or a request spent its time,
-as a Perfetto-loadable trace (the port's own copy of
-``repro/obs/trace.py``, same span API and names).
+"""Structured span tracer — where a round, a request or a model step spent
+its time, as a Perfetto-loadable trace (the port's own copy of
+``repro/obs/trace.py``, same span API and names), and the port's one
+span API: ``torch.profiler.record_function`` is entered here and nowhere
+else in ``repro_torch``.
 
 A span is a named, attributed wall-clock interval::
 
@@ -9,16 +11,30 @@ A span is a named, attributed wall-clock interval::
     with trace.span("serve.batch", batch_size=B, n_valid=n):
         ...
 
-Spans nest (a per-thread stack records the parent), are thread-safe
-(serving dispatch threads and the federation loop trace into one
-buffer), and export to the Chrome trace event format, which Perfetto
-(ui.perfetto.dev) and ``chrome://tracing`` load directly.  Host clock
-only: a span around device work measures it only where the work ends in
-a sync, as a served batch does.
+Two recorders read spans.
 
-**Disabled is free.**  The default tracer starts disabled and ``span()``
-then returns one shared module-level no-op context manager — no object
-allocation, no clock read, no lock.
+* **The port's tracer** (``enable()``, the launchers' ``--trace``).  Spans
+  nest (a per-thread stack records the parent), are thread-safe (serving
+  dispatch threads and the federation loop trace into one buffer), and
+  export to the Chrome trace event format, which Perfetto
+  (ui.perfetto.dev) and ``chrome://tracing`` load directly.  Timestamps
+  are on ``torch.profiler``'s clock, Unix-epoch nanoseconds
+  (``time.time_ns``), so the launchers' JSON lines up with a device trace
+  of the same run.  Host clock only: a span around device work measures
+  it only where the work ends in a sync, as a served batch does.
+* **``torch.profiler``.**  While a profiler records, a span also opens a
+  ``record_function`` range of its name, so the kernels launched under it,
+  and the idle gaps that begin inside it, are attributed to it on the
+  profiler's own timeline.
+
+While either records, ``open_spans()`` gives the names of the spans open
+on this thread (the MoE counters read their phase from it), and
+``recording()`` is true: counters that cost device work count only then.
+
+**Off is free.**  With neither recorder on, ``span()`` returns one shared
+module-level no-op context manager after one read of a flag and one of
+``torch._C._autograd._profiler_enabled()``: no object allocation, no
+clock read, no lock, no ``record_function``.
 """
 from __future__ import annotations
 
@@ -26,7 +42,26 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Tuple
+
+import torch
+from torch.autograd.profiler import record_function
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OPEN = threading.local()  # .names: the spans open on this thread while a recorder is on
+
+
+def _open_names() -> list:
+    names = getattr(_OPEN, "names", None)
+    if names is None:
+        names = _OPEN.names = []
+    return names
+
+
+def open_spans() -> Tuple[str, ...]:
+    """The names of the spans open on this thread, outermost first (only
+    spans opened while a recorder was on)."""
+    return tuple(_open_names())
 
 
 class _NoopSpan:
@@ -47,8 +82,31 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+class _Range:
+    """A span while only ``torch.profiler`` records: its ``record_function``
+    range, nothing else."""
+
+    __slots__ = ("name", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def set(self, **attrs: Any) -> "_Range":
+        return self
+
+    def __enter__(self) -> "_Range":
+        self._rf = record_function(self.name).__enter__()
+        _open_names().append(self.name)
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        _open_names().pop()
+        self._rf.__exit__(*exc)
+        return False
+
+
 class _Span:
-    __slots__ = ("_tracer", "name", "attrs", "_t0", "_id", "_parent")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "_id", "_parent", "_rf")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any]):
         self._tracer = tracer
@@ -66,21 +124,27 @@ class _Span:
         self._parent = stack[-1] if stack else None
         self._id = tr._next_id()
         stack.append(self._id)
-        self._t0 = time.perf_counter()
+        _open_names().append(self.name)
+        self._t0 = time.time_ns()  # before the range opens: a first range's set-up is not on the profiler's clock
+        self._rf = record_function(self.name).__enter__() if _profiler_enabled() else None
         return self
 
     def __exit__(self, *exc: Any) -> bool:
-        t1 = time.perf_counter()
+        t1 = time.time_ns()
+        _open_names().pop()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
         tr = self._tracer
         stack = tr._stack()
         if stack and stack[-1] == self._id:
             stack.pop()
+        ts = self._t0 / 1000  # µs; ts + dur is t1 / 1000 exactly, so a child ends inside its parent
         tr._record(
             {
                 "name": self.name,
                 "ph": "X",
-                "ts": round(self._t0 * 1e6, 3),
-                "dur": round((t1 - self._t0) * 1e6, 3),
+                "ts": ts,
+                "dur": t1 / 1000 - ts,
                 "pid": os.getpid(),
                 "tid": threading.get_ident(),
                 "args": {
@@ -107,9 +171,11 @@ class Tracer:
 
     # -- spans --------------------------------------------------------------
     def span(self, name: str, **attrs: Any):
-        if not self.enabled:
-            return NOOP_SPAN
-        return _Span(self, name, attrs)
+        if self.enabled:
+            return _Span(self, name, attrs)
+        if _profiler_enabled():
+            return _Range(name)
+        return NOOP_SPAN
 
     def _stack(self) -> list:
         st = getattr(self._tls, "stack", None)
@@ -193,10 +259,19 @@ TRACER = Tracer()
 
 def span(name: str, **attrs: Any):
     """``with trace.span("round.fit", round=r): ...`` — no-op (shared
-    singleton, zero allocation) while the default tracer is disabled."""
-    if not TRACER.enabled:
-        return NOOP_SPAN
-    return _Span(TRACER, name, attrs)
+    singleton, zero allocation) while neither the default tracer nor
+    ``torch.profiler`` records; a ``record_function`` range alone while
+    only the profiler does."""
+    if TRACER.enabled:
+        return _Span(TRACER, name, attrs)
+    if _profiler_enabled():
+        return _Range(name)
+    return NOOP_SPAN
+
+
+def recording() -> bool:
+    """Whether the default tracer or ``torch.profiler`` records."""
+    return TRACER.enabled or _profiler_enabled()
 
 
 def enable() -> None:
